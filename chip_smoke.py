@@ -1,0 +1,570 @@
+#!/usr/bin/env python3
+"""Proof that the PyTorch port (`dldkd_tpu_torch`) runs on one NVIDIA GPU.
+
+Run from the repository root on a machine with a CUDA card and the CUDA
+toolkit: `python3 chip_smoke.py`. It imports nothing of JAX or of the JAX
+package. Phases, in order; any failure exits non-zero without the final
+`ok` line:
+
+1. the card: name, count, and nvidia-smi's name and power limit;
+2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a) and
+   print ptxas' register, spill and shared-memory summary;
+3. each kernel, in f32 and bf16, plus the one-branch tower launch, at the
+   per-launch shapes of a TVR test eval, against its plain PyTorch version
+   on the same inputs: max abs error against a stated tolerance, kernel and
+   plain times (CUDA events, >= 20 launches after warm-up) and the least
+   time the card could take (bytes over 3.35 TB/s or operations over the
+   peak rate of their type);
+4. `dldkd_tpu_torch.infer.main` on a synthetic dataset at full feature
+   widths, with a checkpoint written by the port's own writer: the bf16
+   serving config and the f32 parity config;
+5. `evaluate.eval_retrieval` at TVR test-split scale (2,179 videos x 128
+   frames, 10,895 queries, both branches), in bf16 and in f32: metrics,
+   wall time, peak memory and launch counts; for bf16 one more pass under
+   torch.profiler (device time by kernel, device idle share); then the
+   kernel path's score matrices and fused SumR against the plain path's;
+6. one JSON line listing every ported kernel; then the final `ok` line.
+
+The launch counts in the kernels line come from the bf16 TVR-scale eval
+(the serving configuration), counted from zero just before it.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import tempfile
+import time
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
+PEAK_OPS = {"float32": 67e12,   # f32 outside the tensor cores
+            "bfloat16": 989e12}  # dense bf16 tensor cores
+TVR = dict(n_videos=2179, n_queries=10895, frames=128, tokens=30,
+           d_video=1024, d_query=768, hidden=384, heads=4,
+           query_bsz=50, context_bsz=200)
+# max abs error tolerances, kernel vs plain version on the same inputs
+TOL = {
+    # scores of unit vectors; IEEE f32 FMAs (bf16 inputs widen exactly),
+    # sums in another order
+    ("sim_max", "float32"): 1e-5, ("sim_max", "bfloat16"): 1e-5,
+    # five chained products and three LayerNorms, f32 sums in another order
+    ("tower", "float32"): 1e-4,
+    # the same rounding points to bf16; another accumulation order flips a
+    # rounding now and then, a few bf16 ulps of O(1) values
+    ("tower", "bfloat16"): 3e-2,
+    # the eval's scores: the towers' differences carried into cosines
+    ("scores", "float32"): 1e-4, ("scores", "bfloat16"): 3e-2,
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check_no_jax() -> None:
+    if any(m.split(".")[0] in ("jax", "jaxlib", "flax", "dldkd_tpu")
+           for m in sys.modules):
+        fail("JAX or the JAX package was imported")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, n: int = 25, warmup: int = 3) -> float:
+    """Mean device time of fn() over n back-to-back calls, CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def bound(n_bytes: float, n_ops: float, dtype: str):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# ------------------------------------------------------------------ phases
+
+def phase_device():
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a GPU")
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    emit({"phase": "device", "kind": name, "count": count,
+          "nvidia_smi": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    # the plain versions are the references: true f32 products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    return name, count, card
+
+
+def phase_build():
+    from dldkd_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    libs = build.build()
+    secs = time.perf_counter() - t0
+    for name in libs:
+        fn = None
+        for line in build.log_path(name).read_text().splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif fn and ("registers" in line or "spill" in line):
+                print(f"ptxas {name} {fn}: {line.strip()}", flush=True)
+    emit({"phase": "build", "seconds": secs,
+          "libraries": {k: str(v) for k, v in libs.items()}})
+
+
+def _serving_model(dtype: str, seed: int):
+    import torch
+
+    from dldkd_tpu_torch.config import ModelConfig
+    from dldkd_tpu_torch.models import DLDKD
+
+    cfg = ModelConfig(visual_input_size=TVR["d_video"],
+                      query_input_size=TVR["d_query"],
+                      inheritance_hidden=TVR["hidden"],
+                      exploration_hidden=TVR["hidden"],
+                      max_ctx_l=TVR["frames"], max_desc_l=TVR["tokens"],
+                      n_heads=TVR["heads"], double_branch=True, dtype=dtype)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(seed))
+    return model.eval()
+
+
+def _ragged_mask(n: int, l: int, low: int, gen, dev):
+    import torch
+
+    lengths = torch.randint(low, l + 1, (n,), generator=gen)
+    mask = (torch.arange(l)[None, :] < lengths[:, None]).float()
+    mask[-1] = 0.0            # a padding row: all masked, must stay finite
+    return mask.to(dev)
+
+
+def _tower_flops(n: int, l: int, d: int, h: int, kind: str) -> float:
+    m = n * l
+    f = 2 * m * d * h + 3 * 2 * m * h * h + 2 * 2 * n * l * l * h \
+        + 2 * m * h * h
+    return f + (2 * m * h if kind == "query" else 2 * m * h * h)
+
+
+def phase_kernels(dev):
+    """Each kernel against its plain version at the per-launch shapes."""
+    import torch
+
+    from dldkd_tpu_torch.ops.fast_eval import tower_weights
+    from dldkd_tpu_torch.ops.kernels import query_tower as qt
+    from dldkd_tpu_torch.ops.kernels import sim_max
+    from dldkd_tpu_torch.ops.masking import l2_normalize
+
+    gen = torch.Generator().manual_seed(1)
+    results = {}
+    nv, lf, h = TVR["n_videos"], TVR["frames"], TVR["hidden"]
+    nq = TVR["query_bsz"]
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        item = torch.tensor([], dtype=tdt).element_size()
+        # ---- kernel 1: scoring, one branch, 50 queries x the corpus
+        q = torch.randn(nq, h, generator=gen).to(dev, tdt)
+        ctx = torch.randn(nv, lf, h, generator=gen).to(dev, tdt)
+        mask = _ragged_mask(nv, lf, 8, gen, dev)
+        qn, cn = l2_normalize(q).contiguous(), l2_normalize(ctx).contiguous()
+        got = sim_max.fused_clip_scores(qn, cn, mask)
+        want = sim_max.sim_max_plain(qn, cn, mask)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        tol = TOL[("sim_max", dtype)]
+        n_bytes = (nq * h + nv * lf * h) * item + nv * lf * 4 + nq * nv * 4
+        b_ms, b_by = bound(n_bytes, 2 * nq * nv * lf * h, dtype)
+        rec = {"check": "sim_max", "dtype": dtype,
+               "shape": {"q": [nq, h], "ctx": [nv, lf, h]},
+               "max_abs_err": err, "tol": tol,
+               "kernel_ms": cuda_ms(lambda: sim_max.fused_clip_scores(
+                   qn, cn, mask)),
+               "plain_ms": cuda_ms(lambda: sim_max.sim_max_plain(
+                   qn, cn, mask)),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        emit(rec)
+        results[("sim_max", dtype)] = rec
+        if not err <= tol:
+            fail(f"sim_max {dtype}: max abs error {err} > {tol}")
+        del q, ctx, qn, cn, got, want
+
+        # ---- kernels 2 and 3: the towers, both branches and one branch
+        model = _serving_model(dtype, seed=2)
+        ws = tower_weights(model, dev)
+        for kind, n, l, d in (("query", nq, TVR["tokens"], TVR["d_query"]),
+                              ("context", TVR["context_bsz"], lf,
+                               TVR["d_video"])):
+            x = torch.randn(n, l, d, generator=gen)
+            x = (x / x.norm(dim=-1, keepdim=True)).to(dev)
+            xm = _ragged_mask(n, l, 3, gen, dev)
+            for branches in (2, 1):
+                w = ws[kind][:branches]
+                if kind == "query":
+                    lp = -(-l // 8) * 8
+                    xp = torch.nn.functional.pad(x, (0, 0, 0, lp - l))
+                    mp = torch.nn.functional.pad(xm, (0, lp - l))
+                    args = [qt._with_pos(wi, l, lp) for wi in w]
+                    run = (lambda: qt.query_towers(
+                        x, xm, w, TVR["heads"], tdt, TVR["tokens"], "check"))
+                    plain = (lambda: qt.query_towers(
+                        x, xm, w, TVR["heads"], tdt, TVR["tokens"], "check",
+                        plain=True))
+                else:
+                    lp, xp, mp = l, x, xm
+                    args = [qt._with_pos(wi, l, l) for wi in w]
+                    run = (lambda: qt.context_towers(
+                        x, xm, w, TVR["heads"], tdt, "check"))
+                    plain = (lambda: qt.context_towers(
+                        x, xm, w, TVR["heads"], tdt, "check", plain=True))
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                err = max(max_err(a, b) for a, b in zip(got, want))
+                finite = all(bool(torch.isfinite(a.float()).all())
+                             for a in got)
+                tol = TOL[("tower", dtype)]
+                packed = qt.pack_weights(args, tdt, dev)
+                chain = (lambda: qt.tower_cuda(xp, mp, packed, TVR["heads"],
+                                               tdt, kind))
+                w_bytes = sum(t.numel() * t.element_size()
+                              for t in packed.values())
+                out_item = 4 if kind == "query" else item
+                out_n = n * h if kind == "query" else n * l * h
+                n_bytes = (n * lp * d * 4 + n * lp * 4 + w_bytes
+                           + branches * out_n * out_item)
+                b_ms, b_by = bound(
+                    n_bytes, branches * _tower_flops(n, lp, d, h, kind), dtype)
+                name = f"{kind}_tower"
+                rec = {"check": name, "dtype": dtype, "branches": branches,
+                       "shape": {"x": [n, l, d], "hidden": h},
+                       "max_abs_err": err, "tol": tol, "finite": finite,
+                       "kernel_ms": cuda_ms(chain),
+                       "wrapper_ms": cuda_ms(run),
+                       "plain_ms": cuda_ms(plain, n=20),
+                       "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": None}
+                emit(rec)
+                results[(name, dtype, branches)] = rec
+                if not finite:
+                    fail(f"{name} {dtype} x{branches}: non-finite output")
+                if not err <= tol:
+                    fail(f"{name} {dtype} x{branches}: max abs error {err} "
+                         f"> {tol}")
+        del model, ws
+        torch.cuda.empty_cache()
+    return results
+
+
+def _write_run(run_dir: str, root: str, dtype: str, seed: int) -> None:
+    """opt.json, ckpt/model_cfg.json and a seeded-init ckpt/model.ckpt in
+    the JAX package's formats, written by the port's own writers."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from dldkd_tpu_torch import checkpoint as ckpt_lib
+    from dldkd_tpu_torch.config import Config
+    from dldkd_tpu_torch.convert import params_from_state_dict
+
+    model = _serving_model(dtype, seed)
+    cfg = Config()
+    cfg = dataclasses.replace(
+        cfg, model=model.config,
+        data=dataclasses.replace(cfg.data, root_path=root,
+                                 collection="synthetic",
+                                 visual_feature="i3d",
+                                 q_feat_size=TVR["d_query"],
+                                 max_ctx_l=TVR["frames"],
+                                 max_desc_l=TVR["tokens"]))
+    os.makedirs(run_dir, exist_ok=True)
+    cfg.save(os.path.join(run_dir, "opt.json"))
+    ckpt_lib.save_checkpoint(
+        os.path.join(run_dir, "ckpt"),
+        {"params": params_from_state_dict(model.state_dict()),
+         "opt_state": {}, "epoch": 0, "best_score": 0.0,
+         "rng": np.zeros(2, np.uint32)}, model.config)
+
+
+def _counts():
+    from dldkd_tpu_torch.ops.kernels import query_tower, sim_max
+
+    return {"sim_max": sim_max.LAUNCHES["sim_max"],
+            "query_tower": query_tower.LAUNCHES["query_tower"],
+            "context_tower": query_tower.LAUNCHES["context_tower"]}
+
+
+def _reset_counts():
+    from dldkd_tpu_torch.ops.kernels import query_tower, sim_max
+
+    for table in (sim_max.LAUNCHES, query_tower.LAUNCHES):
+        for k in table:
+            table[k] = 0
+
+
+def _check_metrics(metrics, what: str) -> None:
+    if set(metrics) != {"inher", "explore", "fused"}:
+        fail(f"{what}: metric keys {sorted(metrics)}")
+    for branch, m in metrics.items():
+        if not all(math.isfinite(v) for v in m.values()) \
+                or not 0.0 <= m["sumr"] <= 400.0:
+            fail(f"{what}: bad {branch} metrics {m}")
+
+
+def phase_infer(workdir: str):
+    """The do_test.sh path through dldkd_tpu_torch.infer.main."""
+    import os
+
+    from dldkd_tpu_torch import infer
+    from dldkd_tpu_torch.data.synthetic import generate_dataset
+
+    root = os.path.join(workdir, "data")
+    t0 = time.perf_counter()
+    generate_dataset(root, n_videos={"test": 300}, frames_range=(20, 200),
+                     tokens_range=(5, 31), d_student=TVR["d_video"],
+                     d_query=TVR["d_query"], d_teacher=16, seed=3,
+                     feature_format="npz")
+    setup_s = time.perf_counter() - t0
+    for dtype in ("bfloat16", "float32"):
+        run_dir = os.path.join(workdir, f"run_{dtype}")
+        _write_run(run_dir, root, dtype, seed=4)
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = infer.main(["--model_dir", run_dir, "--root_path", root,
+                              "--torch_device", "cuda"])
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        emit({"phase": "infer.main", "dtype": dtype, "videos": 300,
+              "dataset_setup_s": setup_s, "seconds": secs,
+              "launches": counts, "metrics": metrics})
+        _check_metrics(metrics, f"infer.main {dtype}")
+        if min(counts.values()) <= 0:
+            fail(f"infer.main {dtype}: a kernel never launched: {counts}")
+
+
+def _tvr_data(dev, seed: int):
+    """TVR test-split shapes, made on the card from a seed: ragged frame
+    and token counts, L2-normalized rows as the packers write them, five
+    captions per video."""
+    import torch
+
+    from dldkd_tpu_torch.data.ingest import PackedQueries, PackedVideos
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nv, nq = TVR["n_videos"], TVR["n_queries"]
+
+    def rows(n, l, d, low):
+        x = torch.randn(n, l, d, generator=gen, device=dev)
+        x = x / (x.norm(dim=-1, keepdim=True) + 1e-5)
+        lengths = torch.randint(low, l + 1, (n,), generator=gen, device=dev)
+        mask = (torch.arange(l, device=dev)[None] < lengths[:, None]).float()
+        return ((x * mask[..., None]).cpu().numpy(), mask.cpu().numpy())
+
+    vf, vm = rows(nv, TVR["frames"], TVR["d_video"], 8)
+    qf, qm = rows(nq, TVR["tokens"], TVR["d_query"], 5)
+    ids = [f"video{i:05d}" for i in range(nv)]
+    q_vid = [ids[i % nv] for i in range(nq)]
+    videos = PackedVideos(feats=vf, mask=vm, ids=ids)
+    queries = PackedQueries(feats=qf, mask=qm,
+                            cap_ids=[f"{v}#enc#{i // nv}"
+                                     for i, v in enumerate(q_vid)],
+                            video_ids=q_vid)
+    return videos, queries
+
+
+def _short_kernel_name(name: str) -> str:
+    for k in ("sim_max_kernel", "gemm_kernel", "attention_kernel",
+              "layernorm_kernel", "row_stats_kernel", "pool_kernel"):
+        if k in name:
+            return k
+    if name.startswith("Memcpy") or name.startswith("Memset"):
+        return name.split(" (")[0]
+    return "other: " + name[:60]
+
+
+def profile_eval(model, videos, queries, dev) -> dict:
+    """One eval_retrieval under torch.profiler: device time by kernel and
+    the share of the wall time in which no kernel or copy ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dldkd_tpu_torch.evaluate import eval_retrieval
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eval_retrieval(model, videos, queries,
+                       context_bsz=TVR["context_bsz"],
+                       query_bsz=TVR["query_bsz"], device=dev)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        key = _short_kernel_name(e.name)
+        t, c = by_name.get(key, (0.0, 0))
+        by_name[key] = (t + (end - start), c + 1)
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"profiled_wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": (1.0 - busy / wall_us) if wall_us else None,
+            "device_events": len(spans),
+            "device_ms_by_kernel": {k: {"ms": t / 1e3, "count": c}
+                                    for k, (t, c) in top}}
+
+
+def phase_tvr_eval(dev):
+    """evaluate.eval_retrieval at TVR test scale, then kernel vs plain."""
+    import torch
+
+    from dldkd_tpu_torch.evaluate import (_metrics_from_score_matrices,
+                                          eval_retrieval, score_matrices)
+    from dldkd_tpu_torch.metrics import build_gt_indices
+
+    t0 = time.perf_counter()
+    videos, queries = _tvr_data(dev, seed=5)
+    setup_s = time.perf_counter() - t0
+    main_counts = None
+    for dtype in ("bfloat16", "float32"):
+        model = _serving_model(dtype, seed=6)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = eval_retrieval(model, videos, queries,
+                                 context_bsz=TVR["context_bsz"],
+                                 query_bsz=TVR["query_bsz"], device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        _check_metrics(metrics, f"TVR eval {dtype}")
+        if min(counts.values()) <= 0:
+            fail(f"TVR eval {dtype}: a kernel never launched: {counts}")
+        if dtype == "bfloat16":
+            main_counts = counts
+            emit({"phase": "tvr_eval_profile", "dtype": dtype,
+                  **profile_eval(model, videos, queries, dev)})
+        # the kernel path's score matrices against the plain path's
+        k_i, k_e = score_matrices(model, videos, queries,
+                                  TVR["context_bsz"], TVR["query_bsz"], dev)
+        p_i, p_e = score_matrices(model, videos, queries,
+                                  TVR["context_bsz"], TVR["query_bsz"], dev,
+                                  plain=True)
+        torch.cuda.synchronize()
+        err = max(max_err(k_i, p_i), max_err(k_e, p_e))
+        tol = TOL[("scores", dtype)]
+        gt = torch.from_numpy(build_gt_indices(queries.video_ids,
+                                               videos.ids)).to(dev)
+        plain_fused = _metrics_from_score_matrices(p_i, p_e, gt,
+                                                   (0.7, 0.3))["fused"]
+        emit({"phase": "tvr_eval", "dtype": dtype,
+              "videos": len(videos), "queries": len(queries),
+              "data_setup_s": setup_s, "seconds": secs,
+              "queries_per_s": len(queries) / secs,
+              "peak_mem_bytes": peak, "launches": counts,
+              "scores_max_abs_err": err, "tol": tol, "metrics": metrics,
+              "plain_path_fused_sumr": plain_fused["sumr"]})
+        if not err <= tol:
+            fail(f"TVR eval {dtype}: kernel vs plain scores differ by {err} "
+                 f"> {tol}")
+        del model, k_i, k_e, p_i, p_e
+        torch.cuda.empty_cache()
+    return main_counts
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError as e:
+        fail(f"torch is not importable: {e}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a GPU")
+    try:
+        import dldkd_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the port is not importable from here: {e}")
+    check_no_jax()
+
+    t_start = time.perf_counter()
+    kind, count, _ = phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build()
+    checks = phase_kernels(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        phase_infer(workdir)
+    launches = phase_tvr_eval(dev)
+
+    sources = {
+        "sim_max": ("dldkd_tpu_torch/csrc/sim_max.cu",
+                    "dldkd_tpu/ops/pallas/sim_max.py:36"),
+        "query_tower": ("dldkd_tpu_torch/csrc/tower.cu",
+                        "dldkd_tpu/ops/pallas/query_tower.py:211"),
+        "context_tower": ("dldkd_tpu_torch/csrc/tower.cu",
+                          "dldkd_tpu/ops/pallas/query_tower.py:246"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        rec = checks[(name, "bfloat16")] if name == "sim_max" else \
+            checks[(name, "bfloat16", 2)]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": rec["max_abs_err"],
+                        "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"], "library_ms": None})
+    check_no_jax()
+    emit({"seconds": time.perf_counter() - t_start})
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": count}})
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""Carry weights from the JAX parameter tree into the port's modules.
+
+The JAX package's tree is {"params": {"inheritance": {...},
+"exploration": {...}}} (Flax names); the port's modules carry the
+reference PyTorch names. The mapping (the one documented at
+dldkd_tpu/convert.py:8-20), with <p> = "" for inheritance and "exp_" for
+exploration and <t> = query | visual:
+
+  <t>_pos_embed/pos_embed             -> <p><t>_pos_embed.position_embeddings.weight
+  <t>_pos_embed/norm/{scale,bias}     -> <p><t>_pos_embed.LayerNorm.{weight,bias}
+  <t>_input_proj/input_norm/*         -> <p><t>_input_proj.LayerNorm.*
+  <t>_input_proj/proj/{kernel,bias}   -> <p><t>_input_proj.net.1.{weight^T,bias}
+  <t>_encoder/{query,key,value}/*     -> <p><t>_encoder.self.{query,key,value}.*
+  <t>_encoder/out/*                   -> <p><t>_encoder.output.dense.*
+  <t>_encoder/out_norm/*              -> <p><t>_encoder.output.LayerNorm.*
+  modular_vector_mapping/kernel       -> <p>modular_vector_mapping.weight^T
+  out_mapping_linear/{kernel,bias}    -> <p>out_mapping_linear.{weight^T,bias}
+
+Flax Dense kernels are (in, out); torch Linear weights are (out, in).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from dldkd_tpu_torch.models.dldkd import BRANCH_PREFIX
+
+
+def _branch_state(tree: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+
+    def put(name, value, transpose=False):
+        arr = np.asarray(value, dtype=np.float32)
+        out[prefix + name] = np.ascontiguousarray(arr.T if transpose else arr)
+
+    def dense(name, p):
+        put(f"{name}.weight", p["kernel"], transpose=True)
+        put(f"{name}.bias", p["bias"])
+
+    def norm(name, p):
+        put(f"{name}.weight", p["scale"])
+        put(f"{name}.bias", p["bias"])
+
+    for t in ("query", "visual"):
+        pe = tree[f"{t}_pos_embed"]
+        put(f"{t}_pos_embed.position_embeddings.weight", pe["pos_embed"])
+        norm(f"{t}_pos_embed.LayerNorm", pe["norm"])
+        ip = tree[f"{t}_input_proj"]
+        norm(f"{t}_input_proj.LayerNorm", ip["input_norm"])
+        dense(f"{t}_input_proj.net.1", ip["proj"])
+        enc = tree[f"{t}_encoder"]
+        for ours, theirs in (("query", "self.query"), ("key", "self.key"),
+                             ("value", "self.value"), ("out", "output.dense")):
+            dense(f"{t}_encoder.{theirs}", enc[ours])
+        norm(f"{t}_encoder.output.LayerNorm", enc["out_norm"])
+    put("modular_vector_mapping.weight",
+        tree["modular_vector_mapping"]["kernel"], transpose=True)
+    dense("out_mapping_linear", tree["out_mapping_linear"])
+    return out
+
+
+def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree (numpy leaves) -> the port's state_dict."""
+    tree = params["params"]
+    unknown = set(tree) - set(BRANCH_PREFIX)
+    if unknown:
+        raise KeyError(f"unexpected branches in the parameter tree: "
+                       f"{sorted(unknown)}")
+    out: Dict[str, np.ndarray] = {}
+    for branch, prefix in BRANCH_PREFIX.items():
+        if branch in tree:
+            out.update(_branch_state(tree[branch], prefix))
+    return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def load_jax_params(model: torch.nn.Module, params: Mapping
+                    ) -> torch.nn.Module:
+    """Load a JAX parameter tree into the port's DLDKD (strict)."""
+    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    return model
+
+
+def params_from_state_dict(state_dict: Mapping[str, Any]
+                           ) -> Dict[str, Any]:
+    """The port's state_dict -> a JAX parameter tree (numpy leaves), the
+    inverse of state_dict_from_jax; used to write a checkpoint from the
+    port's own weights."""
+    sd = {k: np.ascontiguousarray(v.detach().cpu().numpy()
+                                  if hasattr(v, "detach") else np.asarray(v))
+          for k, v in state_dict.items()}
+    tree: Dict[str, Any] = {}
+    for branch, p in BRANCH_PREFIX.items():
+        if f"{p}out_mapping_linear.weight" not in sd:
+            continue
+
+        def dense(name):
+            return {"kernel": np.ascontiguousarray(sd[f"{p}{name}.weight"].T),
+                    "bias": sd[f"{p}{name}.bias"]}
+
+        def norm(name):
+            return {"scale": sd[f"{p}{name}.weight"],
+                    "bias": sd[f"{p}{name}.bias"]}
+
+        b: Dict[str, Any] = {}
+        for t in ("query", "visual"):
+            b[f"{t}_pos_embed"] = {
+                "pos_embed": sd[f"{p}{t}_pos_embed.position_embeddings.weight"],
+                "norm": norm(f"{t}_pos_embed.LayerNorm")}
+            b[f"{t}_input_proj"] = {
+                "input_norm": norm(f"{t}_input_proj.LayerNorm"),
+                "proj": dense(f"{t}_input_proj.net.1")}
+            b[f"{t}_encoder"] = {
+                "query": dense(f"{t}_encoder.self.query"),
+                "key": dense(f"{t}_encoder.self.key"),
+                "value": dense(f"{t}_encoder.self.value"),
+                "out": dense(f"{t}_encoder.output.dense"),
+                "out_norm": norm(f"{t}_encoder.output.LayerNorm")}
+        b["modular_vector_mapping"] = {"kernel": np.ascontiguousarray(
+            sd[f"{p}modular_vector_mapping.weight"].T)}
+        b["out_mapping_linear"] = dense("out_mapping_linear")
+        tree[branch] = b
+    return {"params": tree}

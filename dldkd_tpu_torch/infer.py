@@ -1,0 +1,82 @@
+"""Test-split inference from a saved checkpoint (port of dldkd_tpu/infer.py).
+
+Reference method/eval.py start_inference (eval.py:285-322): restore the
+run's opt.json, rebuild the model from the saved model_cfg.json, load the
+weights of ckpt/model.ckpt (the JAX package's format, read without JAX),
+encode the test corpus and report retrieval metrics.
+
+Run: python -m dldkd_tpu_torch.infer --model_dir <results_dir> \
+        --root_path $root --collection tvr --visual_feature i3d_resnet \
+        [--torch_device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+
+import torch
+
+from dldkd_tpu_torch import checkpoint as ckpt_lib
+from dldkd_tpu_torch import resolve_device
+from dldkd_tpu_torch.config import Config, parse_args
+from dldkd_tpu_torch.convert import load_jax_params
+from dldkd_tpu_torch.data import (BigFile, pack_query_set, pack_video_corpus,
+                                  read_dict)
+from dldkd_tpu_torch.data.ingest import dataset_paths, read_video_ids
+from dldkd_tpu_torch.evaluate import run_retrieval_eval
+from dldkd_tpu_torch.models import DLDKD
+
+logger = logging.getLogger("dldkd_tpu_torch")
+
+
+def start_inference(cfg: Config, split: str = "test", device=None):
+    """Metric dicts {'inher', 'explore', 'fused'} of the checkpoint in
+    cfg's model_dir on `split`, computed on `device` (default: the
+    config's torch_device, "cuda" unless set)."""
+    dev = resolve_device(device or cfg.torch_device)
+    model_dir = cfg.eval.model_dir or cfg.results_dir
+    ckpt_dir = f"{model_dir}/ckpt"
+    mcfg = ckpt_lib.load_model_cfg(ckpt_dir)
+    model = DLDKD(mcfg)
+    params, epoch = ckpt_lib.restore_params_only(ckpt_dir)
+    load_jax_params(model, params)
+    model.eval()
+    logger.info("restored checkpoint from epoch %d", epoch)
+
+    paths = dataset_paths(cfg.data.root_path, cfg.data.collection,
+                          cfg.data.visual_feature)
+    videos = pack_video_corpus(
+        read_video_ids(paths["cap_file"][split]),
+        BigFile(paths["visual_feat_dir"]), read_dict(paths["video2frames"]),
+        max_ctx_l=mcfg.max_ctx_l)
+    queries = pack_query_set(paths["cap_file"][split], paths["text_feat"],
+                             max_desc_l=mcfg.max_desc_l)
+
+    with torch.no_grad():
+        metrics = run_retrieval_eval(model, videos, queries, cfg.eval,
+                                     device=dev)
+    lines = []
+    for branch, m in metrics.items():
+        line = ("{} {}: r_1_5_10_100 [{:.1f}, {:.1f}, {:.1f}, {:.1f}] | "
+                "recall sum {:.1f} | mAP {:.4f}".format(
+                    split, branch, m["r1"], m["r5"], m["r10"], m["r100"],
+                    m["sumr"], m["map"]))
+        logger.info("%s", line)
+        lines.append(line)
+    # append-only eval log in the run dir, as the JAX package keeps it
+    with open(f"{model_dir}/eval.log.txt", "a") as f:
+        f.write(time.strftime("%Y_%m_%d_%H_%M_%S") + "\n"
+                + "\n".join(lines) + "\n")
+    return metrics
+
+
+def main(argv=None):
+    cfg = parse_args(argv, test=True, finalize=False)
+    return start_inference(cfg)
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    main()

@@ -1,0 +1,205 @@
+"""Inference-only towers (port of dldkd_tpu/ops/fast_eval.py).
+
+`encode_*_fast` are the model's math restructured for inference, as in the
+JAX package: the input LayerNorm's normalization is computed once for all
+branches and its affine folds into each branch's projection; they run as
+plain PyTorch on any device. `encode_*_best` are what the eval calls: the
+CUDA tower kernels (ops/kernels/query_tower.py) for a CUDA tensor and their
+plain versions for a CPU tensor. Unlike the JAX dispatch, f32 configs use
+the kernels too: the JAX gate exists only because of TPU VMEM
+(dldkd_tpu/ops/fast_eval.py:128-133).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from dldkd_tpu_torch.ops.kernels.query_tower import (
+    context_weights_for_branch, fused_context_tower,
+    fused_context_tower_dual, fused_query_tower, fused_query_tower_dual,
+    weights_for_branch)
+from dldkd_tpu_torch.ops.masking import mask_logits
+
+Pair = Tuple[torch.Tensor, Optional[torch.Tensor]]
+
+
+def tower_dtype(cfg) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+
+
+def _ln_normalize_f32(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Affine-free LayerNorm in f32 (E[x^2] - E[x]^2, as flax computes)."""
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x * x).mean(-1, keepdim=True) - mu * mu
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
+def _ln(x: torch.Tensor, norm, eps: float = 1e-5) -> torch.Tensor:
+    xn = _ln_normalize_f32(x, eps)
+    return (xn * norm.weight.float() + norm.bias.float()).to(x.dtype)
+
+
+def _fold_input_proj(proj, dtype: torch.dtype
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LinearInputProj -> (W', b') with the LayerNorm affine folded in:
+    relu((g * xn + b) @ W + c) == relu(xn @ (g[:, None] * W) + (b @ W + c))
+    (dldkd_tpu/ops/fast_eval.py:52-58). W' is (in, out)."""
+    g = proj.LayerNorm.weight.detach().float()
+    b = proj.LayerNorm.bias.detach().float()
+    w = proj.net[1].weight.detach().float().T
+    c = proj.net[1].bias.detach().float()
+    return (g[:, None] * w).to(dtype), (b @ w + c).to(dtype)
+
+
+def _attention(x: torch.Tensor, mask: torch.Tensor, enc,
+               n_heads: int) -> torch.Tensor:
+    """Single-block MHA + residual LN (components.AttentionBlock math)."""
+    b, l, hdim = x.shape
+    d_head = hdim // n_heads
+
+    def proj(lin):
+        y = x @ lin.weight.T.to(x.dtype) + lin.bias.to(x.dtype)
+        return y.reshape(b, l, n_heads, d_head).transpose(1, 2)
+
+    q, k, v = proj(enc.self.query), proj(enc.self.key), proj(enc.self.value)
+    scores = (q @ k.transpose(-1, -2)) / math.sqrt(d_head)
+    scores = scores + ((1.0 - mask[:, None, None, :]) * -10000.0
+                       ).to(scores.dtype)
+    probs = torch.softmax(scores, dim=-1)
+    ctx = (probs @ v).transpose(1, 2).reshape(b, l, hdim)
+    dense = enc.output.dense
+    out = ctx @ dense.weight.T.to(x.dtype) + dense.bias.to(x.dtype)
+    return _ln(out + x, enc.output.LayerNorm)
+
+
+def _fused_projection(model, feat: torch.Tensor, proj_name: str
+                      ) -> List[torch.Tensor]:
+    """Shared normalization + concatenated folded projections for all
+    branches; the per-branch (N, L, H) activations."""
+    dtype = tower_dtype(model.config)
+    ws, bs = zip(*(_fold_input_proj(getattr(br, proj_name), dtype)
+                   for br in model.branches))
+    xn = _ln_normalize_f32(feat).to(dtype)
+    y = torch.relu(xn @ torch.cat(ws, 1).to(feat.device)
+                   + torch.cat(bs).to(feat.device))
+    return list(y.split([w.shape[1] for w in ws], dim=-1))
+
+
+@torch.no_grad()
+def encode_context_fast(model, feat: torch.Tensor, mask: torch.Tensor
+                        ) -> Pair:
+    """== model.encode_context(feat, mask) in eval mode."""
+    outs = []
+    for br, x in zip(model.branches,
+                     _fused_projection(model, feat, "visual_input_proj")):
+        pe = br.visual_pos_embed
+        pos = pe.position_embeddings.weight[: x.shape[1]].to(x.dtype)
+        x = _ln(x + pos[None], pe.LayerNorm)
+        x = _attention(x, mask, br.visual_encoder, model.config.n_heads)
+        om = br.out_mapping_linear
+        outs.append(x @ om.weight.T.to(x.dtype) + om.bias.to(x.dtype))
+    return outs[0], (outs[1] if len(outs) > 1 else None)
+
+
+def _pos_rows_grid(pos: torch.Tensor, l: int) -> torch.Tensor:
+    """Positional rows for length l with the 8-token grid allowance: up to
+    the 8-rounded table size, tail positions get zero rows (and must be
+    masked)."""
+    if l > -(-pos.shape[0] // 8) * 8:
+        raise ValueError(
+            f"sequence length {l} exceeds the learned positional table "
+            f"({pos.shape[0]}) — the model would fail here too")
+    if l > pos.shape[0]:
+        pos = torch.nn.functional.pad(pos, (0, 0, 0, l - pos.shape[0]))
+    return pos[:l]
+
+
+@torch.no_grad()
+def encode_query_fast(model, feat: torch.Tensor, mask: torch.Tensor
+                      ) -> Pair:
+    """== model.encode_query(feat, mask) in eval mode, accepting
+    grid-packed token buffers (positions past the table are padding)."""
+    xs = _fused_projection(model, feat, "query_input_proj")
+    n_pos = min(br.query_pos_embed.position_embeddings.weight.shape[0]
+                for br in model.branches)
+    if feat.shape[1] > n_pos:
+        keep = (torch.arange(feat.shape[1], device=mask.device) < n_pos)
+        mask = mask * keep.to(mask.dtype)[None, :]
+    outs = []
+    for br, x in zip(model.branches, xs):
+        pe = br.query_pos_embed
+        pos = _pos_rows_grid(pe.position_embeddings.weight,
+                             x.shape[1]).to(x.dtype)
+        x = _ln(x + pos[None], pe.LayerNorm)
+        x = _attention(x, mask, br.query_encoder, model.config.n_heads)
+        att = x @ br.modular_vector_mapping.weight.T.to(x.dtype)
+        att = torch.softmax(mask_logits(att, mask[:, :, None].to(att.dtype)),
+                            dim=1)
+        outs.append((att * x).sum(dim=1))
+    return outs[0], (outs[1] if len(outs) > 1 else None)
+
+
+def tower_weights(model, device=None) -> Dict[str, list]:
+    """Every branch's query and video weight tuples in the config's tower
+    dtype, on `device`: made once per eval instead of once per batch."""
+    dtype = tower_dtype(model.config)
+
+    def move(ws):
+        return tuple(w.to(device) if device is not None else w for w in ws)
+
+    return {"query": [move(weights_for_branch(model, n, dtype))
+                      for n in model.branch_names],
+            "context": [move(context_weights_for_branch(model, n, dtype))
+                        for n in model.branch_names]}
+
+
+def _dual(model) -> bool:
+    c = model.config
+    return len(model.branches) == 2 and \
+        c.inheritance_hidden == c.exploration_hidden
+
+
+@torch.no_grad()
+def encode_context_best(model, feat: torch.Tensor, mask: torch.Tensor,
+                        weights: Optional[Dict[str, list]] = None,
+                        plain: bool = False) -> Pair:
+    """Frame features per branch, (Nv, L, H) in the tower dtype: the
+    two-branch kernel launch when the branches share a hidden size, else
+    one one-branch launch per branch."""
+    ws = (weights or tower_weights(model))["context"]
+    dtype = tower_dtype(model.config)
+    n_heads = model.config.n_heads
+    if _dual(model):
+        return fused_context_tower_dual(feat, mask, ws[0], ws[1], n_heads,
+                                        dtype, plain=plain)
+    outs = [fused_context_tower(feat, mask, w, n_heads, dtype, plain=plain)
+            for w in ws]
+    return outs[0], (outs[1] if len(outs) > 1 else None)
+
+
+@torch.no_grad()
+def encode_query_best(model, feat: torch.Tensor, mask: torch.Tensor,
+                      weights: Optional[Dict[str, list]] = None,
+                      plain: bool = False) -> Pair:
+    """Pooled query vectors per branch, (Nq, H): f32, cast to bf16 in a
+    bf16 config (dldkd_tpu/ops/fast_eval.py:247-251)."""
+    ws = (weights or tower_weights(model))["query"]
+    dtype = tower_dtype(model.config)
+    n_heads = model.config.n_heads
+    if _dual(model):
+        outs = list(fused_query_tower_dual(feat, mask, ws[0], ws[1], n_heads,
+                                           dtype, plain=plain))
+    else:
+        # the smallest table across branches: every branch sees the same
+        # tail mask (fast_eval.py:237-246)
+        n_pos_min = min(w[2].shape[0] for w in ws)
+        outs = [fused_query_tower(feat, mask, w, n_heads, dtype,
+                                  n_pos_cap=n_pos_min, plain=plain)
+                for w in ws]
+    if dtype == torch.bfloat16:
+        outs = [o.to(torch.bfloat16) for o in outs]
+    return outs[0], (outs[1] if len(outs) > 1 else None)

@@ -1,0 +1,413 @@
+"""Encoder towers for inference, one branch or two at once (kernels 2 and 3).
+
+Replaces dldkd_tpu/ops/pallas/query_tower.py: `_dual_query_tower_kernel`
+and `_dual_context_tower_kernel` (emit_q8=False), and through the
+one-branch launch `_query_tower_kernel` and `_context_tower_kernel`. The
+CUDA source is `csrc/tower.cu`; its header says what bounds the towers on
+an H100 and how the chain of kernels answers that.
+
+Weight tuples are in the JAX layout (Dense kernels (in, out)), as
+`weights_for_branch` / `context_weights_for_branch` return them:
+  query:  (wp, bp, pos, g1, b1, wq, bq, wk, bk, wv, bv, wo, bo, g2, b2, wm)
+  video:  the same 15, then (wm, bm) of out_mapping_linear
+with the input LayerNorm's affine folded into (wp, bp).
+
+The entry points pad and mask the inputs like the Pallas wrappers (query
+tokens to a multiple of 8, positions past the learned table forced to
+padding), then run the CUDA kernels for a CUDA tensor, or the plain
+PyTorch version (`tower_plain`) for a CPU tensor. The plain version rounds
+to the tower dtype at the Pallas kernel's points; the CPU tests hold it
+against the Pallas kernels in interpret mode.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# launches of the CUDA chains since the counts were last set to 0
+LAUNCHES = {"query_tower": 0, "context_tower": 0}
+
+NEG_BIG = -10000.0   # the model's additive attention mask value
+NEG_INF = -1e10      # pooling mask value (ops.masking.NEG_INF)
+
+Weights = Tuple[torch.Tensor, ...]
+
+
+# ---------------------------------------------------------------------- #
+# weights
+# ---------------------------------------------------------------------- #
+
+def _encoder_weights(branch, tower: str, dtype: torch.dtype) -> Weights:
+    # lazy: fast_eval imports this module
+    from dldkd_tpu_torch.ops.fast_eval import _fold_input_proj
+
+    wp, bp = _fold_input_proj(getattr(branch, f"{tower}_input_proj"), dtype)
+    pe = getattr(branch, f"{tower}_pos_embed")
+    enc = getattr(branch, f"{tower}_encoder")
+
+    def t(p):
+        return p.detach().float()
+
+    return (wp, bp, t(pe.position_embeddings.weight), t(pe.LayerNorm.weight),
+            t(pe.LayerNorm.bias),
+            t(enc.self.query.weight).T, t(enc.self.query.bias),
+            t(enc.self.key.weight).T, t(enc.self.key.bias),
+            t(enc.self.value.weight).T, t(enc.self.value.bias),
+            t(enc.output.dense.weight).T, t(enc.output.dense.bias),
+            t(enc.output.LayerNorm.weight), t(enc.output.LayerNorm.bias))
+
+
+def _branch(model, name: str):
+    return model.branches[model.branch_names.index(name)]
+
+
+def weights_for_branch(model, branch: str, dtype: torch.dtype) -> Weights:
+    """Query-tower weight tuple of one branch of a DLDKD module."""
+    br = _branch(model, branch)
+    return (*_encoder_weights(br, "query", dtype),
+            br.modular_vector_mapping.weight.detach().float().T)
+
+
+def context_weights_for_branch(model, branch: str, dtype: torch.dtype
+                               ) -> Weights:
+    """Video-tower weight tuple of one branch of a DLDKD module."""
+    br = _branch(model, branch)
+    om = br.out_mapping_linear
+    return (*_encoder_weights(br, "visual", dtype),
+            om.weight.detach().float().T, om.bias.detach().float())
+
+
+# ---------------------------------------------------------------------- #
+# plain PyTorch version (the kernels' reference; the CPU path)
+# ---------------------------------------------------------------------- #
+
+def _rt(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Round to the tower dtype and widen back to f32."""
+    return x.to(dtype).float()
+
+
+def _ln(x: torch.Tensor, scale, bias, dtype) -> torch.Tensor:
+    """LayerNorm over the last axis, f32 statistics (E[x^2] - mu^2)."""
+    mu = x.mean(-1, keepdim=True)
+    var = (x * x).mean(-1, keepdim=True) - mu * mu
+    xn = (x - mu) * torch.rsqrt(var + 1e-5)
+    return _rt(xn * scale.float() + bias.float(), dtype)
+
+
+def input_norm_plain(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Affine-free input LayerNorm of x rounded to the tower dtype; the
+    result is rounded to the tower dtype (held as f32)."""
+    xf = _rt(x, dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    return _rt((xf - mu) * torch.rsqrt(var + 1e-5), dtype)
+
+
+def trunk_plain(xn: torch.Tensor, mask: torch.Tensor, w: Weights,
+                n_heads: int, dtype: torch.dtype) -> torch.Tensor:
+    """Folded projection + ReLU, positions + LN, MHA, residual LN, on the
+    normalized input (N, L, D) -> (N, L, H) (tower-dtype values, f32)."""
+    (wp, bp, pos, g1, b1, wq, bq, wk, bk, wv, bv, wo, bo, g2, b2) = w[:15]
+    n, l, _ = xn.shape
+    hdim = wp.shape[1]
+    d_head = hdim // n_heads
+    h = _rt(torch.relu(xn @ _rt(wp, dtype) + _rt(bp, dtype)), dtype)
+    h = _rt(h + _rt(pos, dtype)[None], dtype)
+    h2 = _ln(h, g1, b1, dtype)
+
+    def dense(wt, bt):
+        return _rt(h2 @ _rt(wt, dtype) + bt.float(), dtype)
+
+    def heads(y):
+        return y.reshape(n, l, n_heads, d_head).transpose(1, 2)
+
+    q, k, v = heads(dense(wq, bq)), heads(dense(wk, bk)), heads(dense(wv, bv))
+    s = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(d_head))
+    s = s + ((1.0 - mask) * NEG_BIG)[:, None, None, :]
+    p = _rt(torch.softmax(s, dim=-1), dtype)
+    ctx = _rt((p @ v).transpose(1, 2).reshape(n, l, hdim), dtype)
+    out = _rt(_rt(ctx @ _rt(wo, dtype) + bo.float(), dtype) + h2, dtype)
+    return _ln(out, g2, b2, dtype)
+
+
+def pool_plain(out: torch.Tensor, mask: torch.Tensor, wm: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Modular pooling: (N, L, H) -> (N, H) f32."""
+    att = (out @ _rt(wm, dtype)).squeeze(-1)
+    att = torch.where(mask > 0, att, torch.full_like(att, NEG_INF))
+    att = torch.softmax(att, dim=-1)
+    return (out * att[..., None]).sum(dim=1)
+
+
+def tower_plain(x: torch.Tensor, mask: torch.Tensor,
+                weights: Sequence[Weights], n_heads: int, dtype: torch.dtype,
+                kind: str) -> List[torch.Tensor]:
+    """Plain version of one launch over len(weights) branches, on inputs
+    already padded and masked by the entry points. Query outputs are
+    (N, H) f32, video outputs (N, L, H) in the tower dtype."""
+    xn = input_norm_plain(x, dtype)
+    outs = []
+    for w in weights:
+        out = trunk_plain(xn, mask, w, n_heads, dtype)
+        if kind == "query":
+            outs.append(pool_plain(out, mask, w[15], dtype))
+        else:
+            outs.append((out @ _rt(w[15], dtype) + w[16].float()).to(dtype))
+    return outs
+
+
+# ---------------------------------------------------------------------- #
+# CUDA chain
+# ---------------------------------------------------------------------- #
+
+def pack_weights(weights: Sequence[Weights], dtype: torch.dtype,
+                 device) -> Dict[str, torch.Tensor]:
+    """The kernel chain's operands for one launch over len(weights)
+    branches of one hidden size, in the tower dtype: the folded projections
+    side by side (one read of the raw input for all branches), Q|K|V
+    concatenated per branch, per-branch vectors stacked. Biases, LayerNorm
+    affines and pooling vectors are f32 (holding tower-dtype values where
+    the Pallas kernel casts them)."""
+    f32 = torch.float32
+
+    def cols(i, cast):
+        return torch.cat([w[i].to(device, cast) for w in weights],
+                         dim=-1).contiguous()
+
+    def stack(i, cast):
+        return torch.stack([w[i].to(device, cast) for w in weights]
+                           ).contiguous()
+
+    packed = {
+        "wp": cols(0, dtype), "bp": cols(1, dtype).float(),
+        "pos": cols(2, dtype).float(),
+        "g1": stack(3, f32), "b1": stack(4, f32),
+        "wqkv": torch.stack([torch.cat([w[5], w[7], w[9]], 1).to(device,
+                                                                 dtype)
+                             for w in weights]).contiguous(),
+        "bqkv": torch.stack([torch.cat([w[6], w[8], w[10]]).to(device, f32)
+                             for w in weights]).contiguous(),
+        "wo": stack(11, dtype), "bo": stack(12, f32),
+        "g2": stack(13, f32), "b2": stack(14, f32),
+    }
+    if len(weights[0]) == 16:     # query tower: the pooling vector
+        packed["wm"] = torch.stack([w[15].reshape(-1).to(device, dtype)
+                                    for w in weights]).float().contiguous()
+    else:                         # video tower: out_mapping_linear
+        packed["wm"], packed["bm"] = stack(15, dtype), stack(16, f32)
+    return packed
+
+
+def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
+               packed: Dict[str, torch.Tensor], n_heads: int,
+               dtype: torch.dtype, kind: str) -> List[torch.Tensor]:
+    """The CUDA chain (csrc/tower.cu) for one launch over the branches in
+    `packed` (see pack_weights); same contract as tower_plain. x and mask
+    are contiguous f32 CUDA tensors."""
+    from dldkd_tpu_torch.ops.kernels.build import bind, check
+
+    g_n, _, hdim = packed["wo"].shape
+    n, l, d = x.shape
+    m = n * l
+    gh = g_n * hdim
+    bf = int(dtype == torch.bfloat16)
+    dev = x.device
+    f32 = torch.float32
+    p = {k: v.data_ptr() for k, v in packed.items()}
+
+    gemm = bind("tower", "tower_gemm", 8, 18)
+    layernorm = bind("tower", "tower_layernorm", 4, 5)
+    mu = torch.empty(m, dtype=f32, device=dev)
+    rstd = torch.empty(m, dtype=f32, device=dev)
+    h = torch.empty((m, gh), dtype=dtype, device=dev)
+    h2 = torch.empty_like(h)
+    qkv = torch.empty((g_n, m, 3 * hdim), dtype=dtype, device=dev)
+    ctx = torch.empty((g_n, m, hdim), dtype=dtype, device=dev)
+    o = torch.empty_like(h)
+    out = torch.empty_like(h)
+    with torch.cuda.device(dev):
+        s = torch.cuda.current_stream().cuda_stream
+        check(bind("tower", "tower_row_stats", 3, 3)(
+            x.data_ptr(), mu.data_ptr(), rstd.data_ptr(), m, d, bf, s),
+            "tower_row_stats")
+        # folded projection over every branch's columns: one read of x
+        check(gemm(x.data_ptr(), p["wp"], p["bp"], h.data_ptr(),
+                   mu.data_ptr(), rstd.data_ptr(), p["pos"], None,
+                   m, gh, d, d, gh, gh, gh, 0, 0, 0, 0, 0, 0,
+                   1, l, 1, 1, bf, s), "tower_gemm (projection)")
+        check(layernorm(h.data_ptr(), h2.data_ptr(), p["g1"], p["b1"],
+                        m, g_n, hdim, gh, bf, s),
+              "tower_layernorm (positions)")
+        check(gemm(h2.data_ptr(), p["wqkv"], p["bqkv"], qkv.data_ptr(),
+                   None, None, None, None,
+                   m, 3 * hdim, hdim, gh, 3 * hdim, 3 * hdim, 0, 0,
+                   hdim, hdim * 3 * hdim, 3 * hdim, m * 3 * hdim, 0,
+                   0, 1, g_n, 0, bf, s), "tower_gemm (qkv)")
+        check(bind("tower", "tower_attention", 3, 6, 1)(
+            qkv.data_ptr(), mask.data_ptr(), ctx.data_ptr(), g_n, n, l, hdim,
+            n_heads, bf, 1.0 / math.sqrt(hdim // n_heads), s),
+            "tower_attention")
+        check(gemm(ctx.data_ptr(), p["wo"], p["bo"], o.data_ptr(),
+                   None, None, None, h2.data_ptr(),
+                   m, hdim, hdim, hdim, hdim, gh, 0, gh,
+                   m * hdim, hdim * hdim, hdim, hdim, hdim,
+                   0, 1, g_n, 0, bf, s), "tower_gemm (output)")
+        check(layernorm(o.data_ptr(), out.data_ptr(), p["g2"], p["b2"],
+                        m, g_n, hdim, gh, bf, s),
+              "tower_layernorm (output)")
+        if kind == "query":
+            pooled = torch.empty((g_n, n, hdim), dtype=f32, device=dev)
+            check(bind("tower", "tower_pool", 4, 6)(
+                out.data_ptr(), mask.data_ptr(), p["wm"], pooled.data_ptr(),
+                g_n, n, l, hdim, gh, bf, s), "tower_pool")
+            LAUNCHES["query_tower"] += 1
+            return list(pooled.unbind(0))
+        y = torch.empty((g_n, m, hdim), dtype=dtype, device=dev)
+        check(gemm(out.data_ptr(), p["wm"], p["bm"], y.data_ptr(),
+                   None, None, None, None,
+                   m, hdim, hdim, gh, hdim, hdim, 0, 0,
+                   hdim, hdim * hdim, hdim, m * hdim, 0,
+                   0, 1, g_n, 0, bf, s), "tower_gemm (out_mapping)")
+    LAUNCHES["context_tower"] += 1
+    return [t.view(n, l, hdim) for t in y.unbind(0)]
+
+
+# ---------------------------------------------------------------------- #
+# entry points
+# ---------------------------------------------------------------------- #
+
+def _check_inputs(x, mask, weights, dtype, what):
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: the tower dtype must be f32 or bf16, got "
+                         f"{dtype}")
+    if x.dim() != 3 or mask.dim() != 2 or tuple(mask.shape) != tuple(
+            x.shape[:2]):
+        raise ValueError(f"{what}: want x (N, L, D) and mask (N, L); got "
+                         f"{tuple(x.shape)} and {tuple(mask.shape)}")
+    if x.dtype != torch.float32 or mask.dtype != torch.float32:
+        raise ValueError(f"{what}: x and mask must be f32, got {x.dtype} "
+                         f"and {mask.dtype}")
+    if x.device != mask.device:
+        raise ValueError(f"{what}: x on {x.device}, mask on {mask.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    hs = {w[0].shape[1] for w in weights}
+    if len(hs) != 1:
+        raise ValueError(f"{what}: one launch needs one hidden size, got "
+                         f"{sorted(hs)}")
+    for w in weights:
+        if w[0].shape[0] != x.shape[2]:
+            raise ValueError(f"{what}: input width {x.shape[2]} vs weights "
+                             f"{w[0].shape[0]}")
+
+
+def _check_pos_table(pos, l: int, what: str, grid_allowance: bool = False):
+    """A sequence longer than the positional table is an error, except for
+    the query towers' 8-token grid (those tail positions get zero
+    embeddings and are forced to padding)."""
+    limit = -(-pos.shape[0] // 8) * 8 if grid_allowance else pos.shape[0]
+    if l > limit:
+        raise ValueError(
+            f"{what}: sequence length {l} exceeds the learned positional "
+            f"table ({pos.shape[0]}) — the model would fail here too")
+
+
+def _with_pos(w: Weights, l: int, l_p: int) -> Weights:
+    pos = w[2][:l]
+    pos = F.pad(pos, (0, 0, 0, l_p - pos.shape[0]))
+    return (*w[:2], pos, *w[3:])
+
+
+def _run(x, mask, weights, n_heads, dtype, kind):
+    if x.device.type == "cpu":
+        return tower_plain(x, mask, weights, n_heads, dtype, kind)
+    return tower_cuda(x.contiguous(), mask.contiguous(),
+                      pack_weights(weights, dtype, x.device), n_heads, dtype,
+                      kind)
+
+
+def query_towers(x: torch.Tensor, mask: torch.Tensor,
+                 weights: Sequence[Weights], n_heads: int,
+                 dtype: torch.dtype, n_pos: int, what: str,
+                 plain: bool = False) -> List[torch.Tensor]:
+    """Pooled (Nq, H) f32 vectors for each weight tuple, in one launch.
+    Tokens pad to a multiple of 8; positions at or past `n_pos` are
+    padding (dldkd_tpu/ops/pallas/query_tower.py:264-286)."""
+    _check_inputs(x, mask, weights, dtype, what)
+    nq, lq, _ = x.shape
+    lq_p = -(-lq // 8) * 8
+    for w in weights:
+        _check_pos_table(w[2], lq, what, grid_allowance=True)
+    x = F.pad(x, (0, 0, 0, lq_p - lq))
+    mask = F.pad(mask, (0, lq_p - lq))
+    if lq_p > n_pos:
+        keep = (torch.arange(lq_p, device=mask.device) < n_pos).float()
+        mask = mask * keep[None, :]
+    weights = [_with_pos(w, lq, lq_p) for w in weights]
+    if plain:
+        return tower_plain(x, mask, weights, n_heads, dtype, "query")
+    return _run(x, mask, weights, n_heads, dtype, "query")
+
+
+def context_towers(x: torch.Tensor, mask: torch.Tensor,
+                   weights: Sequence[Weights], n_heads: int,
+                   dtype: torch.dtype, what: str,
+                   plain: bool = False) -> List[torch.Tensor]:
+    """Frame features (Nv, L, H) in the tower dtype for each weight tuple,
+    in one launch."""
+    _check_inputs(x, mask, weights, dtype, what)
+    lv = x.shape[1]
+    for w in weights:
+        _check_pos_table(w[2], lv, what)
+    weights = [_with_pos(w, lv, lv) for w in weights]
+    if plain:
+        return tower_plain(x, mask, weights, n_heads, dtype, "context")
+    return _run(x, mask, weights, n_heads, dtype, "context")
+
+
+def fused_query_tower(x, mask, weights: Weights, n_heads: int,
+                      dtype: torch.dtype = torch.bfloat16,
+                      n_pos_cap: int = 0, plain: bool = False
+                      ) -> torch.Tensor:
+    """One branch's pooled query vectors (Nq, H) f32. n_pos_cap: treat
+    positions from this many on as padding (0 = the branch's own table);
+    multi-branch callers pass the smallest table across branches."""
+    n_pos = weights[2].shape[0]
+    if n_pos_cap:
+        n_pos = min(n_pos, n_pos_cap)
+    return query_towers(x, mask, [weights], n_heads, dtype, n_pos,
+                        "fused_query_tower", plain)[0]
+
+
+def fused_query_tower_dual(x, mask, weights_a: Weights, weights_b: Weights,
+                           n_heads: int, dtype: torch.dtype = torch.bfloat16,
+                           plain: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both branches' pooled query vectors from one read of the input."""
+    n_pos = min(weights_a[2].shape[0], weights_b[2].shape[0])
+    a, b = query_towers(x, mask, [weights_a, weights_b], n_heads, dtype,
+                        n_pos, "fused_query_tower_dual", plain)
+    return a, b
+
+
+def fused_context_tower(x, mask, weights: Weights, n_heads: int,
+                        dtype: torch.dtype = torch.bfloat16,
+                        plain: bool = False) -> torch.Tensor:
+    """One branch's frame features (Nv, L, H) in the tower dtype."""
+    return context_towers(x, mask, [weights], n_heads, dtype,
+                          "fused_context_tower", plain)[0]
+
+
+def fused_context_tower_dual(x, mask, weights_a: Weights, weights_b: Weights,
+                             n_heads: int,
+                             dtype: torch.dtype = torch.bfloat16,
+                             plain: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both branches' frame features from one read of the raw frames."""
+    a, b = context_towers(x, mask, [weights_a, weights_b], n_heads, dtype,
+                          "fused_context_tower_dual", plain)
+    return a, b
