@@ -7,32 +7,48 @@ package. Phases, in order; any failure exits non-zero without the final
 `ok` line:
 
 1. the card: name, count, and nvidia-smi's name and power limit;
-2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a) and
-   print ptxas' register, spill and shared-memory summary;
+2. build every CUDA kernel of the port from csrc/ with nvcc (sm_90a), one
+   nvcc per source, all at once, and print ptxas' register, spill and
+   shared-memory summary;
 3. each kernel, in f32 and bf16, plus the one-branch tower launch, at the
    per-launch shapes of a TVR test eval, against its plain PyTorch version
    on the same inputs: max abs error against a stated tolerance, kernel and
    plain times (CUDA events, >= 20 launches after warm-up) and the least
    time the card could take (bytes over 3.35 TB/s or operations over the
-   peak rate of their type);
+   peak rate of their type); then the same for the int8 scoring kernel (50
+   and 256 queries), the exact-rescore kernel (256 queries), the towers'
+   int8 epilogue (both launches, 200 videos), and the rates that set the
+   stage-2 dense-versus-gather cost model;
 4. `dldkd_tpu_torch.infer.main` on a synthetic dataset at full feature
    widths, with a checkpoint written by the port's own writer: the bf16
-   serving config and the f32 parity config;
+   serving config and the f32 parity config, then `--score_quant`; and
+   `dldkd_tpu_torch.serving.main` on the same dataset (.npz queries) on its
+   three routes (exact, two-stage, int8-only);
 5. `evaluate.eval_retrieval` at TVR test-split scale (2,179 videos x 128
    frames, 10,895 queries, both branches), in bf16 and in f32: metrics,
    wall time, peak memory and launch counts; for bf16 one more pass under
    torch.profiler (device time by kernel, device idle share); then the
    kernel path's score matrices and fused SumR against the plain path's;
+   then the bf16 int8 eval (score_quant) the same way; then the serving
+   `Retriever` at the same scale (query batch 256, k = 10) as exact,
+   two-stage with dense and with gather stage 2, and int8-only: queries/s,
+   per-batch p50/p99 latency, peak memory, launches, dense against gather,
+   and each route against its plain path on the first 512 queries;
 6. one JSON line listing every ported kernel; then the final `ok` line.
 
-The launch counts in the kernels line come from the bf16 TVR-scale eval
-(the serving configuration), counted from zero just before it.
+Each path runs with the launch counts set to 0 just before it and read
+just after, and fails if a kernel of that path never launched. The counts
+in the kernels line come from the path that runs each kernel in the
+serving configuration (bf16): the TVR eval (masked-cosine scoring, both
+towers), the int8 eval (int8 scoring, the int8 epilogue) and two-stage
+serving with dense stage 2 (exact rescoring).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -40,7 +56,8 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,   # f32 outside the tensor cores
-            "bfloat16": 989e12}  # dense bf16 tensor cores
+            "bfloat16": 989e12,  # dense bf16 tensor cores
+            "int8": 1979e12}     # dense int8 tensor cores
 TVR = dict(n_videos=2179, n_queries=10895, frames=128, tokens=30,
            d_video=1024, d_query=768, hidden=384, heads=4,
            query_bsz=50, context_bsz=200)
@@ -56,7 +73,18 @@ TOL = {
     ("tower", "bfloat16"): 3e-2,
     # the eval's scores: the towers' differences carried into cosines
     ("scores", "float32"): 1e-4, ("scores", "bfloat16"): 3e-2,
+    # integer sums: valid-video scores bitwise
+    ("sim_max_int8", "int8"): 0.0,
+    # f32 FMAs of the f32 query and the widened bf16 frames, summed in
+    # another order than the plain version's matmul
+    ("sim_max_exact", "float32"): 5e-6,
+    # the epilogue's plain version sums in the kernel's order: bitwise
+    ("context_tower_q8", "float32"): 0.0,
+    ("context_tower_q8", "bfloat16"): 0.0,
+    # exact rescores by the dense kernel and by the gather, ~1e-6 apart
+    ("dense_vs_gather", "scores"): 1e-5,
 }
+SERVE = dict(query_bsz=256, k=10, plain_queries=512, shortlist=40)
 
 
 def fail(msg: str) -> None:
@@ -319,9 +347,20 @@ def _write_run(run_dir: str, root: str, dtype: str, seed: int) -> None:
 def _counts():
     from dldkd_tpu_torch.ops.kernels import query_tower, sim_max
 
-    return {"sim_max": sim_max.LAUNCHES["sim_max"],
-            "query_tower": query_tower.LAUNCHES["query_tower"],
-            "context_tower": query_tower.LAUNCHES["context_tower"]}
+    return {**sim_max.LAUNCHES, **query_tower.LAUNCHES}
+
+
+def _check_launched(counts, names, what: str) -> None:
+    """Fail unless every kernel of the path launched in its run."""
+    missing = [n for n in names if counts.get(n, 0) <= 0]
+    if missing:
+        fail(f"{what}: kernels of the path never launched: {missing} "
+             f"({counts})")
+
+
+EVAL_KERNELS = ("sim_max", "query_tower", "context_tower")
+INT8_EVAL_KERNELS = ("sim_max_int8", "query_tower", "context_tower",
+                     "context_tower_q8")
 
 
 def _reset_counts():
@@ -368,8 +407,8 @@ def phase_infer(workdir: str):
               "dataset_setup_s": setup_s, "seconds": secs,
               "launches": counts, "metrics": metrics})
         _check_metrics(metrics, f"infer.main {dtype}")
-        if min(counts.values()) <= 0:
-            fail(f"infer.main {dtype}: a kernel never launched: {counts}")
+        _check_launched(counts, EVAL_KERNELS, f"infer.main {dtype}")
+    return root
 
 
 def _tvr_data(dev, seed: int):
@@ -485,8 +524,7 @@ def phase_tvr_eval(dev):
         counts = _counts()
         peak = torch.cuda.max_memory_allocated()
         _check_metrics(metrics, f"TVR eval {dtype}")
-        if min(counts.values()) <= 0:
-            fail(f"TVR eval {dtype}: a kernel never launched: {counts}")
+        _check_launched(counts, EVAL_KERNELS, f"TVR eval {dtype}")
         if dtype == "bfloat16":
             main_counts = counts
             emit({"phase": "tvr_eval_profile", "dtype": dtype,
@@ -516,7 +554,396 @@ def phase_tvr_eval(dev):
                  f"> {tol}")
         del model, k_i, k_e, p_i, p_e
         torch.cuda.empty_cache()
-    return main_counts
+    return main_counts, videos, queries
+
+
+# ------------------------------------------- slice 2: int8, exact, serving
+
+def _q8_rows(n, l, d, gen, dev):
+    """int8 index rows of random unit frames, and their ragged mask."""
+    import torch
+
+    from dldkd_tpu_torch.ops.kernels import query_tower as qt
+
+    frames = torch.randn(n, l, d, generator=gen).to(dev, torch.bfloat16)
+    return qt.quantize_frames_q8(frames, plain=True), \
+        _ragged_mask(n, l, 8, gen, dev)
+
+
+def phase_kernels_slice2(dev):
+    """The int8 scoring kernel, the exact-rescore kernel and the towers'
+    int8 epilogue against their plain versions at the main paths' shapes;
+    then the rates behind the stage-2 cost model."""
+    import torch
+
+    from dldkd_tpu_torch.ops import similarity
+    from dldkd_tpu_torch.ops.fast_eval import tower_weights
+    from dldkd_tpu_torch.ops.kernels import query_tower as qt
+    from dldkd_tpu_torch.ops.kernels import sim_max
+    from dldkd_tpu_torch.ops.masking import l2_normalize
+
+    gen = torch.Generator().manual_seed(11)
+    results = {}
+    nv, lf, h = TVR["n_videos"], TVR["frames"], TVR["hidden"]
+
+    # ---- int8 scoring: the eval's query batch (50) and serving's (256)
+    c8, mask = _q8_rows(nv, lf, h, gen, dev)
+    bias = sim_max.q8_index_bias(mask)
+    valid = mask.max(dim=1).values > 0
+    for nq in (TVR["query_bsz"], SERVE["query_bsz"]):
+        q = torch.randn(nq, h, generator=gen).to(dev, torch.bfloat16)
+        q8 = sim_max.quantize_unit_int8(l2_normalize(q)).contiguous()
+        got = sim_max.fused_clip_scores_int8(q8, c8, bias)
+        want = sim_max.fused_clip_scores_int8(q8, c8, bias, plain=True)
+        torch.cuda.synchronize()
+        err = max_err(got[:, valid], want[:, valid])
+        n_bytes = nq * h + nv * lf * h + nv * lf * 4 + nq * nv * 4
+        b_ms, b_by = bound(n_bytes, 2 * nq * nv * lf * h, "int8")
+        rec = {"check": "sim_max_int8", "dtype": "int8",
+               "shape": {"q": [nq, h], "ctx": [nv, lf, h]},
+               "max_abs_err": err, "tol": TOL[("sim_max_int8", "int8")],
+               "bitwise_valid_columns": bool(torch.equal(got[:, valid],
+                                                         want[:, valid])),
+               "kernel_ms": cuda_ms(lambda: sim_max.fused_clip_scores_int8(
+                   q8, c8, bias)),
+               "plain_ms": cuda_ms(lambda: sim_max.fused_clip_scores_int8(
+                   q8, c8, bias, plain=True)),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        emit(rec)
+        results[("sim_max_int8", nq)] = rec
+        if not rec["bitwise_valid_columns"]:
+            fail(f"sim_max_int8 nq={nq}: valid columns differ from the plain "
+                 f"version by {err}")
+    del c8, bias
+
+    # ---- exact rescoring over bf16 frames, 256 queries
+    nq = SERVE["query_bsz"]
+    ctx = torch.randn(nv, lf, h, generator=gen).to(dev, torch.bfloat16)
+    q = torch.randn(nq, h, generator=gen).to(dev)
+    qn = l2_normalize(q).contiguous()
+    inv, xbias = sim_max.exact_frame_scales(ctx, mask)
+    got = sim_max.sim_max_exact_launch(qn, ctx, inv, xbias)
+    want = sim_max.sim_max_exact_plain(qn, ctx, inv, xbias)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    tol = TOL[("sim_max_exact", "float32")]
+    n_bytes = nq * h * 4 + nv * lf * h * 2 + 2 * nv * lf * 4 + nq * nv * 4
+    b_ms, b_by = bound(n_bytes, 2 * nq * nv * lf * h, "float32")
+    exact_ms = cuda_ms(lambda: sim_max.sim_max_exact_launch(qn, ctx, inv,
+                                                            xbias))
+    rec = {"check": "sim_max_exact", "dtype": "float32 x bf16 frames",
+           "shape": {"q": [nq, h], "ctx": [nv, lf, h]},
+           "max_abs_err": err, "tol": tol, "kernel_ms": exact_ms,
+           "plain_ms": cuda_ms(lambda: sim_max.sim_max_exact_plain(
+               qn, ctx, inv, xbias), n=10),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    emit(rec)
+    results[("sim_max_exact", nq)] = rec
+    if not err <= tol:
+        fail(f"sim_max_exact: max abs error {err} > {tol}")
+
+    # ---- the rates of the stage-2 cost model (similarity.py constants)
+    scales_ms = cuda_ms(lambda: sim_max.exact_frame_scales(ctx, mask))
+    cand = torch.stack([torch.randperm(nv, generator=gen)[:SERVE["shortlist"]]
+                        for _ in range(nq)]).to(dev)
+    gather_ms = cuda_ms(lambda: similarity.rescore_shortlist(q, ctx, mask,
+                                                             cand), n=10)
+    ctx32 = ctx.float()
+    cn32 = l2_normalize(ctx32).contiguous()
+    f32_ms = cuda_ms(lambda: sim_max.fused_clip_scores(qn, cn32, mask))
+    norm32_ms = cuda_ms(lambda: l2_normalize(ctx32), n=10)
+    flops = 2.0 * nq * nv * lf * h
+    rates = {"gather_bytes_per_s": nq * SERVE["shortlist"] * lf * h * 2
+             / (gather_ms * 1e-3),
+             "dense_flops_bf16": flops / (exact_ms * 1e-3),
+             "dense_flops_f32": flops / (f32_ms * 1e-3),
+             "dense_scales_bytes_per_s": nv * lf * h * 2 / (scales_ms * 1e-3),
+             "dense_norm_f32_bytes_per_s": nv * lf * h * 4
+             / (norm32_ms * 1e-3)}
+    emit({"check": "dense_rescore", "shape": {"q": nq, "k_short":
+                                              SERVE["shortlist"],
+                                              "ctx": [nv, lf, h]},
+          "gather_ms": gather_ms, "exact_kernel_ms": exact_ms,
+          "frame_scales_ms": scales_ms, "f32_kernel_ms": f32_ms,
+          "f32_normalize_ms": norm32_ms, **rates,
+          "dense_wins_at_tvr_serving": similarity.dense_rescore_wins(
+              nq, SERVE["shortlist"], nv, lf, h, 2),
+          "model_constants": {
+              "gather_bytes_per_s": similarity._GATHER_BYTES_PER_S,
+              "dense_flops_bf16": similarity._DENSE_FLOPS_BF16,
+              "dense_flops_f32": similarity._DENSE_FLOPS_F32,
+              "dense_bytes_per_s_bf16": similarity._DENSE_BYTES_PER_S_BF16,
+              "dense_bytes_per_s_f32": similarity._DENSE_BYTES_PER_S_F32}})
+    del ctx, ctx32, cn32, inv, xbias, got, want
+    torch.cuda.empty_cache()
+
+    # ---- the towers' int8 epilogue: both launches, 200 videos
+    n, d = TVR["context_bsz"], TVR["d_video"]
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        item = torch.tensor([], dtype=tdt).element_size()
+        model = _serving_model(dtype, seed=12)
+        ws = tower_weights(model, dev)["context"]
+        x = torch.randn(n, lf, d, generator=gen)
+        x = (x / x.norm(dim=-1, keepdim=True)).to(dev)
+        xm = _ragged_mask(n, lf, 3, gen, dev)
+        for branches in (2, 1):
+            w = ws[:branches]
+            got = qt.context_towers(x, xm, w, TVR["heads"], tdt, "check",
+                                    emit_q8=True)
+            frames = qt.context_towers(x, xm, w, TVR["heads"], tdt, "check")
+            plain = qt.context_towers(x, xm, w, TVR["heads"], tdt, "check",
+                                      plain=True, emit_q8=True)
+            torch.cuda.synchronize()
+            err = max(max_err(g, qt.quantize_frames_q8_plain(f))
+                      for g, f in zip(got, frames))
+            diff = [(g.int() - p.int()).abs() for g, p in zip(got, plain)]
+            y = torch.stack(frames)
+            n_el = y.numel()
+            b_ms, b_by = bound(n_el * item + n_el, 6 * n_el, "float32")
+            rec = {"check": "context_tower_q8", "dtype": dtype,
+                   "branches": branches,
+                   "shape": {"frames": [branches, n, lf, h]},
+                   "max_abs_err": err,
+                   "tol": TOL[("context_tower_q8", dtype)],
+                   "vs_plain_towers_max_levels": int(max(
+                       t.max() for t in diff)),
+                   "vs_plain_towers_share_off": float(sum(
+                       (t > 0).sum() for t in diff)) / n_el,
+                   "kernel_ms": cuda_ms(lambda: qt.quantize_frames_q8(y)),
+                   "plain_ms": cuda_ms(lambda: qt.quantize_frames_q8(
+                       y, plain=True), n=10),
+                   "tower_with_epilogue_ms": cuda_ms(
+                       lambda: qt.context_towers(x, xm, w, TVR["heads"], tdt,
+                                                 "check", emit_q8=True),
+                       n=10),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            emit(rec)
+            results[("context_tower_q8", dtype, branches)] = rec
+            if not err <= rec["tol"]:
+                fail(f"context_tower_q8 {dtype} x{branches}: the epilogue "
+                     f"differs from its plain version by {err}")
+            if rec["vs_plain_towers_max_levels"] > 1:
+                fail(f"context_tower_q8 {dtype} x{branches}: int8 rows more "
+                     f"than one level from the plain towers'")
+        del model, ws
+        torch.cuda.empty_cache()
+    return results
+
+
+def _check_jsonl(path: str, n_lines: int, k: int, ids, what: str) -> None:
+    with open(path) as f:
+        lines = [json.loads(x) for x in f]
+    if len(lines) != n_lines:
+        fail(f"{what}: {len(lines)} result lines, want {n_lines}")
+    for line in lines:
+        top = line["topk"]
+        if len(top) != k or any(v not in ids or not math.isfinite(s)
+                                for v, s in top):
+            fail(f"{what}: bad result line {line}")
+
+
+def phase_serving_cli(workdir: str, root: str):
+    """infer.main --score_quant and serving.main on the synthetic dataset
+    of phase 4, bf16."""
+    from dldkd_tpu_torch import infer, serving
+    from dldkd_tpu_torch.data.ingest import (dataset_paths, open_features,
+                                             read_video_ids)
+
+    run_dir = os.path.join(workdir, "run_bfloat16")
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics = infer.main(["--model_dir", run_dir, "--root_path", root,
+                          "--torch_device", "cuda", "--score_quant"])
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    emit({"phase": "infer.main --score_quant", "dtype": "bfloat16",
+          "videos": 300, "seconds": secs, "launches": counts,
+          "metrics": metrics})
+    _check_metrics(metrics, "infer.main --score_quant")
+    _check_launched(counts, INT8_EVAL_KERNELS, "infer.main --score_quant")
+
+    paths = dataset_paths(root, "synthetic", "i3d")
+    ids = set(read_video_ids(paths["cap_file"]["test"]))
+    with open_features(paths["text_feat"]) as f:
+        n_caps = len(list(f.keys()))
+    routes = (("exact", [], ("sim_max", "query_tower", "context_tower")),
+              ("two_stage", ["--score_quant"],
+               ("sim_max_int8", "query_tower", "context_tower",
+                "context_tower_q8")),
+              ("int8", ["--score_quant", "--no_rescore"],
+               INT8_EVAL_KERNELS))
+    for name, extra, kernels in routes:
+        out = os.path.join(workdir, f"serve_{name}.jsonl")
+        _reset_counts()
+        t0 = time.perf_counter()
+        serving.main(["--model_dir", run_dir, "--root_path", root,
+                      "--collection", "synthetic", "--visual_feature", "i3d",
+                      "--queries", paths["text_feat"], "--k", "5",
+                      "--out", out] + extra)
+        secs = time.perf_counter() - t0
+        counts = _counts()
+        emit({"phase": "serving.main", "route": name, "dtype": "bfloat16",
+              "queries": n_caps, "seconds": secs, "launches": counts})
+        _check_jsonl(out, n_caps, 5, ids, f"serving.main {name}")
+        _check_launched(counts, kernels, f"serving.main {name}")
+
+
+def phase_int8_eval(dev, videos, queries):
+    """The bf16 int8 eval (score_quant) at TVR scale, then its kernel path
+    against its plain path."""
+    import torch
+
+    from dldkd_tpu_torch.evaluate import (_metrics_from_score_matrices,
+                                          eval_retrieval, score_matrices)
+    from dldkd_tpu_torch.metrics import build_gt_indices
+
+    model = _serving_model("bfloat16", seed=6)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics = eval_retrieval(model, videos, queries,
+                             context_bsz=TVR["context_bsz"],
+                             query_bsz=TVR["query_bsz"], score_quant=True,
+                             device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    _check_metrics(metrics, "TVR int8 eval")
+    _check_launched(counts, INT8_EVAL_KERNELS, "TVR int8 eval")
+    args = (model, videos, queries, TVR["context_bsz"], TVR["query_bsz"],
+            dev)
+    k_i, k_e = score_matrices(*args, score_quant=True)
+    p_i, p_e = score_matrices(*args, plain=True, score_quant=True)
+    torch.cuda.synchronize()
+    n = len(videos)
+    err = max(max_err(k_i[:, :n], p_i[:, :n]), max_err(k_e[:, :n],
+                                                        p_e[:, :n]))
+    tol = TOL[("scores", "bfloat16")]
+    gt = torch.from_numpy(build_gt_indices(queries.video_ids,
+                                           videos.ids)).to(dev)
+    plain_fused = _metrics_from_score_matrices(p_i, p_e, gt,
+                                               (0.7, 0.3))["fused"]
+    emit({"phase": "tvr_int8_eval", "dtype": "bfloat16",
+          "videos": n, "queries": len(queries), "seconds": secs,
+          "queries_per_s": len(queries) / secs, "peak_mem_bytes": peak,
+          "launches": counts, "scores_max_abs_err": err, "tol": tol,
+          "metrics": metrics, "plain_path_fused_sumr": plain_fused["sumr"]})
+    if not err <= tol:
+        fail(f"TVR int8 eval: kernel vs plain scores differ by {err} > {tol}")
+    del model, k_i, k_e, p_i, p_e
+    torch.cuda.empty_cache()
+    return counts
+
+
+SERVING_ROUTES = (
+    ("exact", {}, None, ("sim_max", "query_tower", "context_tower")),
+    ("two_stage_dense", {"score_quant": True}, "always",
+     ("sim_max_int8", "sim_max_exact", "query_tower", "context_tower",
+      "context_tower_q8")),
+    ("two_stage_gather", {"score_quant": True}, "never",
+     ("sim_max_int8", "query_tower", "context_tower", "context_tower_q8")),
+    ("int8_only", {"score_quant": True, "rescore": False}, None,
+     INT8_EVAL_KERNELS),
+)
+
+
+def phase_serving(dev, videos, queries):
+    """The Retriever at TVR scale on each route: throughput, per-batch
+    latency, peak memory, launches; dense against gather; each route
+    against its plain path on the first queries."""
+    import numpy as np
+    import torch
+
+    from dldkd_tpu_torch.serving import Retriever
+
+    model = _serving_model("bfloat16", seed=6)
+    qf, qm = queries.feats, queries.mask
+    nq, bsz, k = len(queries), SERVE["query_bsz"], SERVE["k"]
+    tol = TOL[("scores", "bfloat16")]
+    results, counts_by_route = {}, {}
+    saved_mode = os.environ.get("DLDKD_DENSE_RESCORE")
+    try:
+        for name, kw, mode, kernels in SERVING_ROUTES:
+            if mode is None:
+                os.environ.pop("DLDKD_DENSE_RESCORE", None)
+            else:
+                os.environ["DLDKD_DENSE_RESCORE"] = mode
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            r = Retriever(model, query_bsz=bsz, device=dev, **kw)
+            r.index(videos, context_bsz=TVR["context_bsz"])
+            torch.cuda.synchronize()
+            index_s = time.perf_counter() - t0
+            r.search(qf[:bsz], qm[:bsz], k)                # warm-up
+            t0 = time.perf_counter()
+            scores, idx = r.search(qf, qm, k)
+            search_s = time.perf_counter() - t0
+            counts = _counts()
+            peak = torch.cuda.max_memory_allocated()
+            _check_launched(counts, kernels, f"serving {name}")
+            lat = []
+            for b in range(0, nq, bsz):
+                t0 = time.perf_counter()
+                r.search(qf[b:b + bsz], qm[b:b + bsz], k)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            del r
+            torch.cuda.empty_cache()
+            npl = SERVE["plain_queries"]
+            rp = Retriever(model, query_bsz=bsz, device=dev, plain=True,
+                           **kw)
+            rp.index(videos, context_bsz=TVR["context_bsz"])
+            ps, pi = rp.search(qf[:npl], qm[:npl], k)
+            del rp
+            torch.cuda.empty_cache()
+            err = float(np.abs(scores[:npl] - ps).max())
+            finite = bool(np.isfinite(scores).all())
+            rec = {"phase": "serving", "route": name, "dtype": "bfloat16",
+                   "videos": len(videos), "queries": nq, "query_bsz": bsz,
+                   "k": k, "dense_rescore_mode": mode or "auto",
+                   "index_s": index_s, "search_s": search_s,
+                   "queries_per_s": nq / search_s,
+                   "batch_ms_p50": float(np.percentile(lat, 50)),
+                   "batch_ms_p99": float(np.percentile(lat, 99)),
+                   "peak_mem_bytes": peak, "launches": counts,
+                   "plain_queries": npl, "plain_scores_max_abs_err": err,
+                   "plain_rows_same_ids": float(np.mean(np.all(
+                       idx[:npl] == pi, axis=1))),
+                   "tol": tol, "finite": finite}
+            emit(rec)
+            results[name] = (scores, idx)
+            counts_by_route[name] = counts
+            if not finite or not err <= tol:
+                fail(f"serving {name}: kernel path vs plain path: max abs "
+                     f"score error {err} > {tol}, or non-finite scores")
+    finally:
+        if saved_mode is None:
+            os.environ.pop("DLDKD_DENSE_RESCORE", None)
+        else:
+            os.environ["DLDKD_DENSE_RESCORE"] = saved_mode
+    # dense and gather stage 2: both exact-grade, so where their ids differ
+    # the score lists agree (near-ties), or the gather missed a video its
+    # shortlist did not hold (then dense scores higher); gather may never
+    # score above dense
+    (ds, di), (gs, gi) = results["two_stage_dense"], \
+        results["two_stage_gather"]
+    tie_tol = TOL[("dense_vs_gather", "scores")]
+    same = np.all(di == gi, axis=1)
+    near = ~same & np.all(np.abs(ds - gs) <= tie_tol, axis=1)
+    emit({"check": "dense_vs_gather", "rows": len(same),
+          "rows_same_ids": int(same.sum()), "rows_near_ties": int(near.sum()),
+          "rows_shortlist_miss": int((~same & ~near).sum()),
+          "max_gather_above_dense": float((gs - ds).max()),
+          "tol": tie_tol})
+    if not (gs <= ds + tie_tol).all():
+        fail("serving: the gather stage 2 scored above the dense one")
+    del model
+    torch.cuda.empty_cache()
+    return counts_by_route
 
 
 def main() -> None:
@@ -537,24 +964,47 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     checks = phase_kernels(dev)
+    checks.update(phase_kernels_slice2(dev))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        phase_infer(workdir)
-    launches = phase_tvr_eval(dev)
+        root = phase_infer(workdir)
+        phase_serving_cli(workdir, root)
+    launches, videos, queries = phase_tvr_eval(dev)
+    int8_launches = phase_int8_eval(dev, videos, queries)
+    serve_launches = phase_serving(dev, videos, queries)
 
+    # (source, TPU kernel replaced, check record, path whose launches count)
     sources = {
         "sim_max": ("dldkd_tpu_torch/csrc/sim_max.cu",
-                    "dldkd_tpu/ops/pallas/sim_max.py:36"),
+                    "dldkd_tpu/ops/pallas/sim_max.py:36",
+                    ("sim_max", "bfloat16"), "tvr_eval", launches),
+        "sim_max_int8": ("dldkd_tpu_torch/csrc/sim_max_int8.cu",
+                         "dldkd_tpu/ops/pallas/sim_max.py:195",
+                         ("sim_max_int8", SERVE["query_bsz"]),
+                         "tvr_int8_eval", int8_launches),
+        "sim_max_exact": ("dldkd_tpu_torch/csrc/sim_max_exact.cu",
+                          "dldkd_tpu/ops/pallas/sim_max.py:66",
+                          ("sim_max_exact", SERVE["query_bsz"]),
+                          "serving two_stage_dense",
+                          serve_launches["two_stage_dense"]),
         "query_tower": ("dldkd_tpu_torch/csrc/tower.cu",
-                        "dldkd_tpu/ops/pallas/query_tower.py:211"),
+                        "dldkd_tpu/ops/pallas/query_tower.py:211",
+                        ("query_tower", "bfloat16", 2), "tvr_eval",
+                        launches),
         "context_tower": ("dldkd_tpu_torch/csrc/tower.cu",
-                          "dldkd_tpu/ops/pallas/query_tower.py:246"),
+                          "dldkd_tpu/ops/pallas/query_tower.py:246",
+                          ("context_tower", "bfloat16", 2), "tvr_eval",
+                          launches),
+        "context_tower_q8": ("dldkd_tpu_torch/csrc/tower.cu",
+                             "dldkd_tpu/ops/pallas/query_tower.py:144",
+                             ("context_tower_q8", "bfloat16", 2),
+                             "tvr_int8_eval", int8_launches),
     }
     kernels = []
-    for name, (src, replaces) in sources.items():
-        rec = checks[(name, "bfloat16")] if name == "sim_max" else \
-            checks[(name, "bfloat16", 2)]
+    for name, (src, replaces, key, path, counts) in sources.items():
+        rec = checks[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": counts[name],
+                        "launches_path": path,
                         "max_abs_err": rec["max_abs_err"],
                         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],

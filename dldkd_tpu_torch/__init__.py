@@ -4,11 +4,22 @@ The port of `dldkd_tpu` (JAX/Flax/Pallas, the reference, which stays as it
 is). It imports torch, numpy, h5py and msgpack, and nothing of JAX, Flax or
 `dldkd_tpu`: what it needs from there it keeps as its own copy.
 
-What is ported so far is the evaluation path of `scripts/do_test.sh`:
-checkpoint -> corpus and query towers -> masked cosine max-over-frames
-scoring -> rank -> R@K/SumR/mAP per branch and for the 0.7/0.3 fusion.
-The three TPU kernels on that path are hand-written CUDA for Hopper
-(`csrc/`), each with a plain PyTorch version beside it (`ops/kernels/`).
+What is ported so far:
+- the evaluation path of `scripts/do_test.sh` (`infer`, `evaluate`):
+  checkpoint -> corpus and query towers -> masked cosine max-over-frames
+  scoring -> rank -> R@K/SumR/mAP per branch and for the 0.7/0.3 fusion,
+  and its int8 form (`--score_quant`: the video towers emit an int8 index,
+  int8 scoring);
+- serving on one GPU (`serving.Retriever`, `python -m
+  dldkd_tpu_torch.serving`): exact search, two-stage search (int8
+  shortlist, then exact rescoring by candidate gather or by a dense exact
+  kernel) and int8-only search.
+Every TPU kernel of the JAX package has a hand-written CUDA counterpart for
+Hopper (`csrc/`: masked-cosine, int8 and exact-rescore scoring; the query
+and video towers with the int8 epilogue), each with a plain PyTorch
+version and a launch counter beside it (`ops/kernels/`). Not ported yet:
+training, streaming eval, the raw serving store and index artifacts, and
+multi-GPU (ROADMAP queue A).
 
 Entry points take an explicit `device` and run on "cuda" unless the caller
 asks for "cpu"; on the CPU every kernel wrapper uses its plain version.

@@ -3,8 +3,10 @@
 //
 // Replaces dldkd_tpu/ops/pallas/query_tower.py:
 //   _dual_query_tower_kernel   (two branches, query tower)
-//   _dual_context_tower_kernel (two branches, video tower, emit_q8=False)
+//   _dual_context_tower_kernel (two branches, video tower)
 //   _query_tower_kernel, _context_tower_kernel (their one-branch forms)
+//   _quantize_q8 / _map_context(emit_q8=True), the video towers' int8
+//   epilogue (kernel 9 below)
 //
 // Per branch the tower is: affine-free input LayerNorm (f32 statistics,
 // E[x^2] - mu^2, eps 1e-5; shared by the branches) -> folded input
@@ -32,6 +34,8 @@
 //   6. gemm        output projection, epilogue bias + residual
 //   7. layernorm
 //   8. pool (query tower) or gemm out_mapping_linear (video tower)
+//   9. quantize_q8 (video tower with emit_q8): per-frame L2 norm and int8;
+//      the T frames of step 8 then live only in a scratch buffer
 // Every product is hand-written here: a shared-memory tiled SIMT GEMM of
 // IEEE f32 FMAs with f32 accumulation (bf16 operands widen exactly). Tensor
 // cores and fusing the chain are later work.
@@ -360,6 +364,51 @@ pool_kernel(const T* __restrict__ x, const float* __restrict__ mask,
   }
 }
 
+// ---------------------------------------------------------------------------
+// 9 (video tower, emit_q8). The int8-index epilogue: per-frame L2
+// normalization and symmetric int8 quantization of the out_mapping_linear
+// rows (T values), at the rounding points of the TPU epilogue
+// (query_tower.py:158-165): sq = round_T(x * x); s = f32 sum of sq,
+// rounded to T; n = round_T(sqrt(s)); xn = round_T(x / max(n, 1e-12));
+// q = clamp(rint(xn * 127), +-127), rint rounding half to even. One warp
+// per row. The sum runs in one fixed order, which the plain version
+// (ops/kernels/query_tower.py:_warp_order_sum) writes out: lane l adds
+// sq[l], sq[l + 32], ... in turn, then a butterfly over the lanes (xor 16,
+// 8, 4, 2, 1). Explicit _rn intrinsics keep the compiler from contracting
+// a product into an FMA, so the kernel and its plain version agree bitwise
+// in f32 and in bf16.
+//
+// Replaces dldkd_tpu/ops/pallas/query_tower.py:_quantize_q8 and
+// _map_context(emit_q8=True). Bound: bytes (read T, write int8); the TPU
+// fuses it into the tower kernel, here it is one more pass over the rows
+// the out_mapping product just left in L2.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void quantize_q8_kernel(const T* __restrict__ x,
+                                   signed char* __restrict__ y, int M,
+                                   int H) {
+  const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= M) return;
+  const T* xr = x + (size_t)row * H;
+  signed char* yr = y + (size_t)row * H;
+  float s = 0.f;
+  for (int k = lane; k < H; k += 32) {
+    const float v = widen(xr[k]);
+    s = __fadd_rn(s, round_to<T>(__fmul_rn(v, v)));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+  const float n = round_to<T>(__fsqrt_rn(round_to<T>(s)));
+  const float d = fmaxf(n, 1e-12f);
+  for (int k = lane; k < H; k += 32) {
+    const float xn = round_to<T>(__fdiv_rn(widen(xr[k]), d));
+    const float q = fminf(fmaxf(rintf(__fmul_rn(xn, 127.f)), -127.f), 127.f);
+    yr[k] = (signed char)q;
+  }
+}
+
 inline int launch_rc() { return (int)cudaGetLastError(); }
 
 template <typename T>
@@ -429,6 +478,17 @@ int pool(const void* x, const void* mask, const void* wm, void* pooled,
   return launch_rc();
 }
 
+template <typename T>
+int quantize_q8(const void* x, void* y, int M, int H, void* s) {
+  if (M > 0 && H > 0) {
+    const int rows_per_block = 256 / 32;
+    quantize_q8_kernel<T><<<(M + rows_per_block - 1) / rows_per_block, 256,
+                            0, (cudaStream_t)s>>>((const T*)x,
+                                                  (signed char*)y, M, H);
+  }
+  return launch_rc();
+}
+
 GemmArgs make_args(const void* a, const void* w, const void* bias, void* c,
                    const void* mu, const void* rstd, const void* pos,
                    const void* res, int M, int N, int K, int lda, int ldw,
@@ -494,6 +554,13 @@ extern "C" int tower_pool(const void* x, const void* mask, const void* wm,
                           int bf16, void* s) {
   return bf16 ? pool<__nv_bfloat16>(x, mask, wm, pooled, G, Nseq, L, H, ld, s)
               : pool<float>(x, mask, wm, pooled, G, Nseq, L, H, ld, s);
+}
+
+// x (M, H) in T -> y (M, H) int8
+extern "C" int tower_quantize_q8(const void* x, void* y, int M, int H,
+                                 int bf16, void* s) {
+  return bf16 ? quantize_q8<__nv_bfloat16>(x, y, M, H, s)
+              : quantize_q8<float>(x, y, M, H, s);
 }
 
 extern "C" size_t tower_attention_smem(int L, int dh) {

@@ -141,16 +141,22 @@ def pack_video_corpus(
     return PackedVideos(feats=feats, mask=mask, ids=list(video_ids))
 
 
-def pack_query_rows(h5, cap_ids: List[str], max_desc_l: int
+def pack_query_rows(h5, cap_ids: List[str], max_desc_l: int,
+                    pad_to_multiple: int = 1
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """Pad + L2-normalize + truncate token features for the given caption
     keys of an OPEN feature store — the packing convention every consumer
-    shares. Returns (feats (N, max_desc_l, Dq), mask)."""
+    shares. Returns (feats (N, Lq, Dq), mask).
+
+    pad_to_multiple rounds the token axis up (extra positions zero-masked):
+    the serving CLI packs to the query towers' 8-token grid; the eval
+    keeps the exact max_desc_l."""
     first = np.asarray(h5[cap_ids[0]])
     q_dim = first.reshape(-1, first.shape[-1]).shape[-1]
     n = len(cap_ids)
-    feats = np.zeros((n, max_desc_l, q_dim), np.float32)
-    mask = np.zeros((n, max_desc_l), np.float32)
+    lq = -(-max_desc_l // pad_to_multiple) * pad_to_multiple
+    feats = np.zeros((n, lq, q_dim), np.float32)
+    mask = np.zeros((n, lq), np.float32)
     for i, cap_id in enumerate(cap_ids):
         raw = np.asarray(h5[cap_id][...], np.float32)
         raw = raw.reshape(-1, raw.shape[-1])  # squeeze leading singleton

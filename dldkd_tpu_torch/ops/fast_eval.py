@@ -3,9 +3,10 @@
 `encode_*_fast` are the model's math restructured for inference, as in the
 JAX package: the input LayerNorm's normalization is computed once for all
 branches and its affine folds into each branch's projection; they run as
-plain PyTorch on any device. `encode_*_best` are what the eval calls: the
-CUDA tower kernels (ops/kernels/query_tower.py) for a CUDA tensor and their
-plain versions for a CPU tensor. Unlike the JAX dispatch, f32 configs use
+plain PyTorch on any device. `encode_*_best` and `encode_context_q8` are
+what the eval and serving call: the CUDA tower kernels
+(ops/kernels/query_tower.py) for a CUDA tensor and their plain versions
+for a CPU tensor. Unlike the JAX dispatch, f32 configs use
 the kernels too: the JAX gate exists only because of TPU VMEM
 (dldkd_tpu/ops/fast_eval.py:128-133).
 """
@@ -178,6 +179,25 @@ def encode_context_best(model, feat: torch.Tensor, mask: torch.Tensor,
                                         dtype, plain=plain)
     outs = [fused_context_tower(feat, mask, w, n_heads, dtype, plain=plain)
             for w in ws]
+    return outs[0], (outs[1] if len(outs) > 1 else None)
+
+
+@torch.no_grad()
+def encode_context_q8(model, feat: torch.Tensor, mask: torch.Tensor,
+                      weights: Optional[Dict[str, list]] = None,
+                      plain: bool = False) -> Pair:
+    """int8 index rows per branch, (Nv, L, H) int8: `quantize_frames_q8`
+    of the frame features that encode_context_best returns, computed by
+    the towers' int8 epilogue (emit_q8) so the frames in the tower dtype
+    never leave the launch (dldkd_tpu/ops/fast_eval.py:161-201)."""
+    ws = (weights or tower_weights(model))["context"]
+    dtype = tower_dtype(model.config)
+    n_heads = model.config.n_heads
+    if _dual(model):
+        return fused_context_tower_dual(feat, mask, ws[0], ws[1], n_heads,
+                                        dtype, plain=plain, emit_q8=True)
+    outs = [fused_context_tower(feat, mask, w, n_heads, dtype, plain=plain,
+                                emit_q8=True) for w in ws]
     return outs[0], (outs[1] if len(outs) > 1 else None)
 
 

@@ -1,10 +1,14 @@
-"""Encoder towers for inference, one branch or two at once (kernels 2 and 3).
+"""Encoder towers for inference, one branch or two at once (kernels 2 and 3),
+and the video towers' int8 epilogue.
 
 Replaces dldkd_tpu/ops/pallas/query_tower.py: `_dual_query_tower_kernel`
-and `_dual_context_tower_kernel` (emit_q8=False), and through the
-one-branch launch `_query_tower_kernel` and `_context_tower_kernel`. The
-CUDA source is `csrc/tower.cu`; its header says what bounds the towers on
-an H100 and how the chain of kernels answers that.
+and `_dual_context_tower_kernel`, and through the one-branch launch
+`_query_tower_kernel` and `_context_tower_kernel`; with `emit_q8=True` the
+video towers end in `quantize_frames_q8` (the epilogue `_quantize_q8` /
+`_map_context(emit_q8=True)`), which also builds the two-stage serving
+index from stored frames. The CUDA source is `csrc/tower.cu`; its header
+says what bounds the towers on an H100 and how the chain of kernels
+answers that.
 
 Weight tuples are in the JAX layout (Dense kernels (in, out)), as
 `weights_for_branch` / `context_weights_for_branch` return them:
@@ -28,11 +32,13 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-# launches of the CUDA chains since the counts were last set to 0
-LAUNCHES = {"query_tower": 0, "context_tower": 0}
+# launches of the CUDA chains and of the int8 epilogue since the counts
+# were last set to 0
+LAUNCHES = {"query_tower": 0, "context_tower": 0, "context_tower_q8": 0}
 
 NEG_BIG = -10000.0   # the model's additive attention mask value
 NEG_INF = -1e10      # pooling mask value (ops.masking.NEG_INF)
+INT8_SCALE = 127.0   # symmetric quantization of cosine components
 
 Weights = Tuple[torch.Tensor, ...]
 
@@ -143,12 +149,87 @@ def pool_plain(out: torch.Tensor, mask: torch.Tensor, wm: torch.Tensor,
     return (out * att[..., None]).sum(dim=1)
 
 
+def quantize_unit_int8(x: torch.Tensor) -> torch.Tensor:
+    """Symmetric int8 of values in [-1, 1]: round(x * 127) (half to even),
+    saturating at +-127."""
+    return torch.clamp(torch.round(x.float() * INT8_SCALE), -INT8_SCALE,
+                       INT8_SCALE).to(torch.int8)
+
+
+def _warp_order_sum(sq: torch.Tensor) -> torch.Tensor:
+    """f32 sum over the last axis in the order of the CUDA epilogue's warp:
+    lane l adds elements l, l + 32, ... in turn, then the lanes combine in
+    a butterfly (16, 8, 4, 2, 1 apart). Keeps the last axis (size 1)."""
+    h = sq.shape[-1]
+    hp = -(-h // 32) * 32
+    rows = F.pad(sq, (0, hp - h)).reshape(*sq.shape[:-1], hp // 32, 32)
+    acc = rows[..., 0, :]
+    for k in range(1, hp // 32):
+        acc = acc + rows[..., k, :]
+    width = 32
+    while width > 1:
+        width //= 2
+        acc = acc[..., :width] + acc[..., width:2 * width]
+    return acc
+
+
+def quantize_frames_q8_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the int8 epilogue: per-row L2 normalization in x's
+    own dtype (f32 or bf16), then `quantize_unit_int8`. The rounding points
+    are those of `ops.masking.l2_normalize` and of the TPU epilogue
+    (dldkd_tpu/ops/pallas/query_tower.py:158-165): the product x * x in
+    x's dtype, its f32 sum rounded back, the square root and the divide
+    each rounded to x's dtype. Only the order of the f32 sum is the
+    kernel's own (`_warp_order_sum`), so kernel and plain version agree
+    bitwise."""
+    dt = x.dtype
+    sq = (x * x).float()                                   # rounded to dt
+    s = _warp_order_sum(sq).to(dt).float()                 # sum rounded
+    norm = torch.sqrt(s).to(dt).float()                    # sqrt rounded
+    xn = (x.float() / torch.clamp(norm, min=1e-12)).to(dt)  # divide rounded
+    return quantize_unit_int8(xn)
+
+
+def quantize_frames_q8(x: torch.Tensor, plain: bool = False
+                       ) -> torch.Tensor:
+    """int8 frames (..., H) from frame features (..., H) in f32 or bf16:
+    per-frame L2 normalization, then symmetric int8 (the canonical
+    `quantize_frames_q8` of dldkd_tpu/ops/pallas/sim_max.py:235). On a CUDA
+    tensor it launches the epilogue kernel of csrc/tower.cu; on a CPU
+    tensor, or with plain=True, it runs `quantize_frames_q8_plain`."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"quantize_frames_q8: want f32 or bf16, got "
+                         f"{x.dtype}")
+    if plain or x.device.type == "cpu":
+        return quantize_frames_q8_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_frames_q8: unsupported device {x.device}")
+    x = x.contiguous()
+    y = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        _launch_quantize(x, y, torch.cuda.current_stream().cuda_stream)
+    return y
+
+
+def _launch_quantize(x: torch.Tensor, y: torch.Tensor, stream) -> None:
+    """The epilogue kernel on contiguous x (..., H) in the tower dtype into
+    int8 y of the same shape; counts one launch."""
+    from dldkd_tpu_torch.ops.kernels.build import bind, check
+
+    h = x.shape[-1]
+    check(bind("tower", "tower_quantize_q8", 2, 3)(
+        x.data_ptr(), y.data_ptr(), x.numel() // max(h, 1), h,
+        int(x.dtype == torch.bfloat16), stream), "tower_quantize_q8")
+    LAUNCHES["context_tower_q8"] += 1
+
+
 def tower_plain(x: torch.Tensor, mask: torch.Tensor,
                 weights: Sequence[Weights], n_heads: int, dtype: torch.dtype,
-                kind: str) -> List[torch.Tensor]:
+                kind: str, emit_q8: bool = False) -> List[torch.Tensor]:
     """Plain version of one launch over len(weights) branches, on inputs
     already padded and masked by the entry points. Query outputs are
-    (N, H) f32, video outputs (N, L, H) in the tower dtype."""
+    (N, H) f32, video outputs (N, L, H) in the tower dtype, or int8 with
+    emit_q8."""
     xn = input_norm_plain(x, dtype)
     outs = []
     for w in weights:
@@ -156,7 +237,8 @@ def tower_plain(x: torch.Tensor, mask: torch.Tensor,
         if kind == "query":
             outs.append(pool_plain(out, mask, w[15], dtype))
         else:
-            outs.append((out @ _rt(w[15], dtype) + w[16].float()).to(dtype))
+            y = (out @ _rt(w[15], dtype) + w[16].float()).to(dtype)
+            outs.append(quantize_frames_q8_plain(y) if emit_q8 else y)
     return outs
 
 
@@ -204,10 +286,13 @@ def pack_weights(weights: Sequence[Weights], dtype: torch.dtype,
 
 def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
                packed: Dict[str, torch.Tensor], n_heads: int,
-               dtype: torch.dtype, kind: str) -> List[torch.Tensor]:
+               dtype: torch.dtype, kind: str,
+               emit_q8: bool = False) -> List[torch.Tensor]:
     """The CUDA chain (csrc/tower.cu) for one launch over the branches in
     `packed` (see pack_weights); same contract as tower_plain. x and mask
-    are contiguous f32 CUDA tensors."""
+    are contiguous f32 CUDA tensors. With emit_q8 (video towers) the
+    out_mapping product goes to a scratch buffer and the int8 epilogue
+    writes the outputs."""
     from dldkd_tpu_torch.ops.kernels.build import bind, check
 
     g_n, _, hdim = packed["wo"].shape
@@ -266,12 +351,19 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
                 g_n, n, l, hdim, gh, bf, s), "tower_pool")
             LAUNCHES["query_tower"] += 1
             return list(pooled.unbind(0))
-        y = torch.empty((g_n, m, hdim), dtype=dtype, device=dev)
+        # with emit_q8 the frames in the tower dtype only pass through `o`
+        # (free again after the output LayerNorm): no frame buffer is made
+        y = (o.view(g_n, m, hdim) if emit_q8 else
+             torch.empty((g_n, m, hdim), dtype=dtype, device=dev))
         check(gemm(out.data_ptr(), p["wm"], p["bm"], y.data_ptr(),
                    None, None, None, None,
                    m, hdim, hdim, gh, hdim, hdim, 0, 0,
                    hdim, hdim * hdim, hdim, m * hdim, 0,
                    0, 1, g_n, 0, bf, s), "tower_gemm (out_mapping)")
+        if emit_q8:
+            y8 = torch.empty((g_n, m, hdim), dtype=torch.int8, device=dev)
+            _launch_quantize(y, y8, s)
+            y = y8
     LAUNCHES["context_tower"] += 1
     return [t.view(n, l, hdim) for t in y.unbind(0)]
 
@@ -322,12 +414,12 @@ def _with_pos(w: Weights, l: int, l_p: int) -> Weights:
     return (*w[:2], pos, *w[3:])
 
 
-def _run(x, mask, weights, n_heads, dtype, kind):
+def _run(x, mask, weights, n_heads, dtype, kind, emit_q8=False):
     if x.device.type == "cpu":
-        return tower_plain(x, mask, weights, n_heads, dtype, kind)
+        return tower_plain(x, mask, weights, n_heads, dtype, kind, emit_q8)
     return tower_cuda(x.contiguous(), mask.contiguous(),
                       pack_weights(weights, dtype, x.device), n_heads, dtype,
-                      kind)
+                      kind, emit_q8)
 
 
 def query_towers(x: torch.Tensor, mask: torch.Tensor,
@@ -356,17 +448,20 @@ def query_towers(x: torch.Tensor, mask: torch.Tensor,
 def context_towers(x: torch.Tensor, mask: torch.Tensor,
                    weights: Sequence[Weights], n_heads: int,
                    dtype: torch.dtype, what: str,
-                   plain: bool = False) -> List[torch.Tensor]:
+                   plain: bool = False,
+                   emit_q8: bool = False) -> List[torch.Tensor]:
     """Frame features (Nv, L, H) in the tower dtype for each weight tuple,
-    in one launch."""
+    in one launch; with emit_q8 the int8 index rows (Nv, L, H) instead
+    (`quantize_frames_q8` of those frame features)."""
     _check_inputs(x, mask, weights, dtype, what)
     lv = x.shape[1]
     for w in weights:
         _check_pos_table(w[2], lv, what)
     weights = [_with_pos(w, lv, lv) for w in weights]
     if plain:
-        return tower_plain(x, mask, weights, n_heads, dtype, "context")
-    return _run(x, mask, weights, n_heads, dtype, "context")
+        return tower_plain(x, mask, weights, n_heads, dtype, "context",
+                           emit_q8)
+    return _run(x, mask, weights, n_heads, dtype, "context", emit_q8)
 
 
 def fused_query_tower(x, mask, weights: Weights, n_heads: int,
@@ -396,18 +491,21 @@ def fused_query_tower_dual(x, mask, weights_a: Weights, weights_b: Weights,
 
 def fused_context_tower(x, mask, weights: Weights, n_heads: int,
                         dtype: torch.dtype = torch.bfloat16,
-                        plain: bool = False) -> torch.Tensor:
-    """One branch's frame features (Nv, L, H) in the tower dtype."""
+                        plain: bool = False,
+                        emit_q8: bool = False) -> torch.Tensor:
+    """One branch's frame features (Nv, L, H) in the tower dtype, or its
+    int8 index rows with emit_q8."""
     return context_towers(x, mask, [weights], n_heads, dtype,
-                          "fused_context_tower", plain)[0]
+                          "fused_context_tower", plain, emit_q8)[0]
 
 
 def fused_context_tower_dual(x, mask, weights_a: Weights, weights_b: Weights,
                              n_heads: int,
                              dtype: torch.dtype = torch.bfloat16,
-                             plain: bool = False
+                             plain: bool = False, emit_q8: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both branches' frame features from one read of the raw frames."""
+    """Both branches' frame features (or int8 index rows, emit_q8) from
+    one read of the raw frames."""
     a, b = context_towers(x, mask, [weights_a, weights_b], n_heads, dtype,
-                          "fused_context_tower_dual", plain)
+                          "fused_context_tower_dual", plain, emit_q8)
     return a, b

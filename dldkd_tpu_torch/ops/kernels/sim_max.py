@@ -1,30 +1,85 @@
-"""Fused masked cosine scoring with a max over frames (kernel 1).
+"""Fused scoring with a max over frames: masked cosine (kernel 1), int8
+(kernel 4) and exact-grade rescoring against bf16 frames (kernel 5).
 
-Replaces dldkd_tpu/ops/pallas/sim_max.py:_sim_max_kernel, reached there
-through `fused_clip_scores(quantized=False)`. The CUDA source is
-`csrc/sim_max.cu`; its header says what bounds it on an H100 and how the
-design answers that.
+Replaces, in dldkd_tpu/ops/pallas/sim_max.py:
+- `_sim_max_kernel`, through `fused_clip_scores(quantized=False)`:
+  `fused_clip_scores` here, CUDA source `csrc/sim_max.cu`;
+- `_sim_max_kernel_int8`, through `fused_clip_scores_q8` and
+  `fused_clip_scores(quantized=True)`: `fused_clip_scores_int8` and
+  `fused_clip_scores_q8` here, CUDA source `csrc/sim_max_int8.cu`;
+- `_sim_max_kernel_exact`, through `fused_exact_scores`: `fused_exact_scores`
+  here, CUDA source `csrc/sim_max_exact.cu`.
+Each source's header says what bounds it on an H100 and how the design
+answers that. Normalization, quantization of the query side and the frame
+scales stay outside the kernels, in plain torch, as the JAX package keeps
+them outside pallas_call.
 
-`fused_clip_scores(qn, cn, mask)` takes L2-normalized inputs, as the
-Pallas kernel does (normalization stays outside, in plain torch):
-qn (Nq, D) and cn (Nv, L, D) of one dtype (f32 or bf16) and mask (Nv, L)
-f32; it returns (Nq, Nv) f32. On a CUDA tensor it launches the kernel or
-raises; on a CPU tensor it runs `sim_max_plain`, the same function in plain
-PyTorch, which the CPU tests hold against the Pallas kernel.
+The int8 index keeps the port's own layout: (Nv, L, D) int8 rows and an
+(Nv, L) int32 bias, 0 on valid frames and INT8_MASK_BIAS on masked or padded
+ones (no transpose, no padding to a lane grid).
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
+it runs its plain PyTorch version, which the CPU tests hold against the
+Pallas kernels in interpret mode.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
-from dldkd_tpu_torch.ops.masking import mask_logits
+from dldkd_tpu_torch.ops.kernels.query_tower import (INT8_SCALE,
+                                                     quantize_unit_int8)
+from dldkd_tpu_torch.ops.masking import NEG_INF, l2_normalize, mask_logits
 
-# launches of the CUDA kernel since the count was last set to 0
-LAUNCHES = {"sim_max": 0}
+# launches of the CUDA kernels since the counts were last set to 0
+LAUNCHES = {"sim_max": 0, "sim_max_int8": 0, "sim_max_exact": 0}
 
-# bytes of f32 frame scores the plain version holds at once
+INT8_MASK_BIAS = -(1 << 30)   # int32 "-inf": dominates any |s| <= D * 127^2
+NEG_BIG_INT8 = INT8_MASK_BIAS / (INT8_SCALE * INT8_SCALE)   # dequantized
+# float32(1 / 127^2), the constant the TPU kernel multiplies by
+# (sim_max.py:216-217), held as the Python float of that f32 value
+INV_SCALE2 = float(np.float32(1.0 / (INT8_SCALE * INT8_SCALE)))
+
+# bytes of f32 frame scores the plain versions hold at once
 _PLAIN_CHUNK_BYTES = 256 * 1024 * 1024
 
+def _query_chunk(nv: int, l_frames: int) -> int:
+    return max(1, _PLAIN_CHUNK_BYTES // max(1, nv * l_frames * 4))
+
+
+def _same_device(what: str, *ts) -> torch.device:
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: inputs on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return dev
+
+
+def _contiguous(what: str, **ts) -> None:
+    for name, t in ts.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _frame_shapes(what: str, q, c, *per_frame):
+    if q.dim() != 2 or c.dim() != 3:
+        raise ValueError(f"{what}: want q (Nq, D) and frames (Nv, L, D); "
+                         f"got {tuple(q.shape)} and {tuple(c.shape)}")
+    nv, l_frames, d = c.shape
+    if q.shape[1] != d or any(tuple(t.shape) != (nv, l_frames)
+                              for t in per_frame):
+        raise ValueError(f"{what}: shape mismatch: q {tuple(q.shape)}, "
+                         f"frames {tuple(c.shape)}, per-frame "
+                         f"{[tuple(t.shape) for t in per_frame]}")
+
+
+# ------------------------------------------------ kernel 1: masked cosine
 
 def sim_max_plain(qn: torch.Tensor, cn: torch.Tensor, mask: torch.Tensor
                   ) -> torch.Tensor:
@@ -38,7 +93,7 @@ def sim_max_plain(qn: torch.Tensor, cn: torch.Tensor, mask: torch.Tensor
     nv, l_frames, _ = cn.shape
     c2 = cn.reshape(nv * l_frames, d).float()
     m = mask.float()
-    chunk = max(1, _PLAIN_CHUNK_BYTES // max(1, nv * l_frames * 4))
+    chunk = _query_chunk(nv, l_frames)
     out = torch.empty((nq, nv), dtype=torch.float32, device=qn.device)
     for s in range(0, nq, chunk):
         frame = (qn[s:s + chunk].float() @ c2.T).reshape(-1, nv, l_frames)
@@ -47,35 +102,24 @@ def sim_max_plain(qn: torch.Tensor, cn: torch.Tensor, mask: torch.Tensor
 
 
 def _check(qn, cn, mask):
-    if qn.dim() != 2 or cn.dim() != 3 or mask.dim() != 2:
-        raise ValueError("want qn (Nq, D), cn (Nv, L, D), mask (Nv, L)")
-    nq, d = qn.shape
-    nv, l_frames, d2 = cn.shape
-    if d != d2 or tuple(mask.shape) != (nv, l_frames):
-        raise ValueError(f"shape mismatch: qn {tuple(qn.shape)}, cn "
-                         f"{tuple(cn.shape)}, mask {tuple(mask.shape)}")
+    _frame_shapes("fused_clip_scores", qn, cn, mask)
     if qn.dtype != cn.dtype or qn.dtype not in (torch.float32,
                                                 torch.bfloat16):
         raise ValueError(f"qn and cn need one dtype, f32 or bf16; got "
                          f"{qn.dtype} and {cn.dtype}")
     if mask.dtype != torch.float32:
         raise ValueError(f"mask must be f32, got {mask.dtype}")
-    devs = {qn.device, cn.device, mask.device}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
-    for name, t in (("qn", qn), ("cn", cn), ("mask", mask)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _same_device("fused_clip_scores", qn, cn, mask)
+    _contiguous("fused_clip_scores", qn=qn, cn=cn, mask=mask)
 
 
 def fused_clip_scores(qn: torch.Tensor, cn: torch.Tensor,
                       mask: torch.Tensor) -> torch.Tensor:
-    """(Nq, Nv) f32 scores from normalized queries and frames."""
+    """(Nq, Nv) f32 scores from normalized queries qn (Nq, D) and frames
+    cn (Nv, L, D) of one dtype (f32 or bf16) and an f32 mask (Nv, L)."""
     _check(qn, cn, mask)
     if qn.device.type == "cpu":
         return sim_max_plain(qn, cn, mask)
-    if qn.device.type != "cuda":
-        raise ValueError(f"unsupported device {qn.device}")
     from dldkd_tpu_torch.ops.kernels.build import bind, check
 
     nq, d = qn.shape
@@ -89,4 +133,181 @@ def fused_clip_scores(qn: torch.Tensor, cn: torch.Tensor,
             nq, nv, l_frames, d, stream)
     check(rc, sym)
     LAUNCHES["sim_max"] += 1
+    return out
+
+
+# ------------------------------------------------------- kernel 4: int8
+
+def q8_index_bias(mask: torch.Tensor) -> torch.Tensor:
+    """(Nv, L) int32 mask bias of the int8 index: 0 on valid frames,
+    INT8_MASK_BIAS on masked or padded ones."""
+    return torch.where(mask > 0, 0, INT8_MASK_BIAS).to(torch.int32)
+
+
+def build_q8_index(ctx_q8: torch.Tensor, mask: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prebuilt int8 scoring index from already-quantized frames
+    (`query_tower.quantize_frames_q8` semantics): (rows (Nv, L, D) int8,
+    contiguous; bias (Nv, L) int32). Built once per index; every later scoring call
+    skips the corpus-sized normalize and quantize pass. (The JAX package's
+    `build_q8_index` also transposes and pads to its TPU grid; this layout
+    is the port's own.)"""
+    if ctx_q8.dtype != torch.int8:
+        raise ValueError(f"build_q8_index: want int8 rows, got {ctx_q8.dtype}")
+    return ctx_q8.contiguous(), q8_index_bias(mask).contiguous()
+
+
+def sim_max_int8_plain(q8: torch.Tensor, c8: torch.Tensor,
+                       bias: torch.Tensor) -> torch.Tensor:
+    """max_l (<q8[q], c8[v, l]> + bias[v, l]) * float32(1/127^2), in f32,
+    in query chunks. The int8 products and their sums are integers below
+    2^24 for D <= 1040, so f32 arithmetic is exact on valid frames and the
+    valid-video scores are bitwise the integer kernel's (the same argument
+    as dldkd_tpu's `_quantized_scores_xla`). On a GPU this assumes f32
+    matmuls without TF32."""
+    nq, d = q8.shape
+    nv, l_frames, _ = c8.shape
+    c2 = c8.reshape(nv * l_frames, d).float()
+    b = bias.float()
+    chunk = _query_chunk(nv, l_frames)
+    out = torch.empty((nq, nv), dtype=torch.float32, device=q8.device)
+    for s in range(0, nq, chunk):
+        frame = (q8[s:s + chunk].float() @ c2.T).reshape(-1, nv, l_frames)
+        out[s:s + chunk] = (frame + b[None]).amax(dim=-1) * INV_SCALE2
+    return out
+
+
+def fused_clip_scores_int8(q8: torch.Tensor, c8: torch.Tensor,
+                           bias: torch.Tensor, plain: bool = False
+                           ) -> torch.Tensor:
+    """(Nq, Nv) f32 int8 scores from quantized queries q8 (Nq, D) int8,
+    an int8 index c8 (Nv, L, D) and its int32 bias (Nv, L). plain=True
+    runs the plain version on any device."""
+    what = "fused_clip_scores_int8"
+    _frame_shapes(what, q8, c8, bias)
+    if q8.dtype != torch.int8 or c8.dtype != torch.int8 \
+            or bias.dtype != torch.int32:
+        raise ValueError(f"{what}: want int8, int8, int32; got {q8.dtype}, "
+                         f"{c8.dtype}, {bias.dtype}")
+    dev = _same_device(what, q8, c8, bias)
+    _contiguous(what, q8=q8, c8=c8, bias=bias)
+    if plain or dev.type == "cpu":
+        return sim_max_int8_plain(q8, c8, bias)
+    from dldkd_tpu_torch.ops.kernels.build import bind, check
+
+    d = q8.shape[1]
+    if d % 4:   # the kernel reads words of four int8; zeros add nothing
+        q8 = F.pad(q8, (0, 4 - d % 4))
+        c8 = F.pad(c8, (0, 4 - d % 4))
+        d = q8.shape[1]
+    nq = q8.shape[0]
+    nv, l_frames, _ = c8.shape
+    for name, t in (("q8", q8), ("c8", c8)):
+        if t.data_ptr() % 4:
+            raise ValueError(f"{what}: {name} must be 4-byte aligned")
+    out = torch.empty((nq, nv), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = bind("sim_max_int8", "sim_max_int8", 4, 4)(
+            q8.data_ptr(), c8.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            nq, nv, l_frames, d, stream)
+    check(rc, "sim_max_int8")
+    LAUNCHES["sim_max_int8"] += 1
+    return out
+
+
+def fused_clip_scores_q8(query: torch.Tensor, c8: torch.Tensor,
+                         bias: torch.Tensor, plain: bool = False
+                         ) -> torch.Tensor:
+    """int8 cosine scores (Nq, Nv) of float queries against a prebuilt
+    index (`build_q8_index`): only the query side is normalized (in its own
+    dtype) and quantized per call."""
+    q8 = quantize_unit_int8(l2_normalize(query)).contiguous()
+    return fused_clip_scores_int8(q8, c8, bias, plain)
+
+
+# ------------------------------------------------ kernel 5: exact rescore
+
+def exact_frame_scales(ctx: torch.Tensor, mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(inv, bias), each (Nv, L) f32: the reciprocal f32 norm of each
+    stored frame (0 on masked frames) and 0 / -1e10, as
+    dldkd_tpu/ops/pallas/sim_max.py:150-155 computes them."""
+    norms = torch.linalg.vector_norm(ctx, dim=-1, dtype=torch.float32)
+    valid = mask > 0
+    inv = torch.where(valid, 1.0 / torch.clamp(norms, min=1e-12),
+                      torch.zeros_like(norms))
+    bias = torch.where(valid, torch.zeros_like(norms),
+                       torch.full_like(norms, NEG_INF))
+    return inv.contiguous(), bias.contiguous()
+
+
+def sim_max_exact_plain(qn: torch.Tensor, ctx: torch.Tensor,
+                        inv: torch.Tensor, bias: torch.Tensor
+                        ) -> torch.Tensor:
+    """max_l <qn[q], ctx[v, l]> * inv[v, l] + bias[v, l] in f32, in query
+    chunks: the TPU kernel's arithmetic (f32 query against the raw frames,
+    exact products, f32 sums, scale after the dot), with the products
+    taken by an f32 matmul (allow_tf32 False on a GPU)."""
+    nq, d = qn.shape
+    nv, l_frames, _ = ctx.shape
+    c2 = ctx.reshape(nv * l_frames, d).float()
+    chunk = _query_chunk(nv, l_frames)
+    out = torch.empty((nq, nv), dtype=torch.float32, device=qn.device)
+    for s in range(0, nq, chunk):
+        frame = (qn[s:s + chunk] @ c2.T).reshape(-1, nv, l_frames)
+        out[s:s + chunk] = (frame * inv[None] + bias[None]).amax(dim=-1)
+    return out
+
+
+def fused_exact_scores(query: torch.Tensor, ctx: torch.Tensor,
+                       mask: torch.Tensor, plain: bool = False
+                       ) -> torch.Tensor:
+    """Exact-grade f32 cosine scores (Nq, Nv) of queries (any float dtype)
+    against bf16-stored frames (Nv, L, D) with an (Nv, L) mask: the dense
+    rescore engine. The query is L2-normalized in f32 and dotted with the
+    raw frames; the reciprocal frame norm scales each frame score after
+    the dot (a positive scale commutes with the max), ~1 f32 ulp from
+    normalize-then-dot."""
+    what = "fused_exact_scores"
+    _frame_shapes(what, query, ctx, mask)
+    if ctx.dtype != torch.bfloat16:
+        raise ValueError(f"{what} needs bf16-stored frames, got {ctx.dtype}")
+    dev = _same_device(what, query, ctx, mask)
+    qn = l2_normalize(query.float()).contiguous()
+    ctx = ctx.contiguous()
+    inv, bias = exact_frame_scales(ctx, mask)
+    if plain or dev.type == "cpu":
+        return sim_max_exact_plain(qn, ctx, inv, bias)
+    return sim_max_exact_launch(qn, ctx, inv, bias)
+
+
+def sim_max_exact_launch(qn: torch.Tensor, ctx: torch.Tensor,
+                         inv: torch.Tensor, bias: torch.Tensor
+                         ) -> torch.Tensor:
+    """The exact kernel alone on CUDA tensors: normalized f32 queries
+    (Nq, D), bf16 frames (Nv, L, D) and the `exact_frame_scales` of the
+    frames, all contiguous; same result as sim_max_exact_plain."""
+    from dldkd_tpu_torch.ops.kernels.build import bind, check
+
+    what = "sim_max_exact"
+    _frame_shapes(what, qn, ctx, inv, bias)
+    if qn.dtype != torch.float32 or ctx.dtype != torch.bfloat16 \
+            or inv.dtype != torch.float32 or bias.dtype != torch.float32:
+        raise ValueError(f"{what}: want f32 queries, bf16 frames, f32 "
+                         f"scales")
+    dev = _same_device(what, qn, ctx, inv, bias)
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: the kernel runs on CUDA tensors")
+    _contiguous(what, qn=qn, ctx=ctx, inv=inv, bias=bias)
+    nq, d = qn.shape
+    nv, l_frames, _ = ctx.shape
+    out = torch.empty((nq, nv), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = bind("sim_max_exact", "sim_max_exact", 5, 4)(
+            qn.data_ptr(), ctx.data_ptr(), inv.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), nq, nv, l_frames, d, stream)
+    check(rc, what)
+    LAUNCHES["sim_max_exact"] += 1
     return out

@@ -9,13 +9,22 @@ run it without the suite's conftest (which configures JAX):
 Tolerances: scores 1e-5 abs (IEEE f32 FMAs on both sides, bf16 widening
 exactly; sums in another order); tower outputs 1e-4 abs in f32 (five chained
 products, sums in another order) and 3e-2 abs in bf16 (the same rounding
-points; another accumulation order flips a bf16 rounding now and then).
+points; another accumulation order flips a bf16 rounding now and then);
+int8 scores bitwise on valid videos (integer sums); exact-rescore scores
+5e-6 abs (f32 FMAs against the same stored frames, summed in another
+order); the int8 epilogue bitwise (the plain version sums in the kernel's
+order) and, through the towers, bitwise against the epilogue's plain
+version applied to the same launch's frames.
 """
 
 import pytest
 import torch
 
+import numpy as np
+
+from dldkd_tpu_torch import serving
 from dldkd_tpu_torch.config import ModelConfig
+from dldkd_tpu_torch.data.ingest import PackedVideos
 from dldkd_tpu_torch.models import DLDKD
 from dldkd_tpu_torch.ops.fast_eval import tower_weights
 from dldkd_tpu_torch.ops.kernels import query_tower as qt
@@ -102,3 +111,113 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         sim_max.fused_clip_scores(q, ctx.transpose(0, 1).contiguous()
                                   .transpose(0, 1), mask)
+
+
+_SCORE_SHAPES = [(256, 2179, 128, 384), (50, 2179, 128, 384), (7, 13, 5, 24),
+                 (65, 9, 17, 40), (5, 11, 6, 22)]
+
+
+@pytest.mark.parametrize("nq,nv,l_frames,d", _SCORE_SHAPES)
+def test_int8_kernel_matches_plain(dev, nq, nv, l_frames, d):
+    gen = torch.Generator().manual_seed(3)
+    q8 = torch.randint(-127, 128, (nq, d), generator=gen,
+                       dtype=torch.int8).to(dev)
+    c8 = torch.randint(-127, 128, (nv, l_frames, d), generator=gen,
+                       dtype=torch.int8).to(dev)
+    mask = _mask(nv, l_frames, gen, dev)
+    bias = sim_max.q8_index_bias(mask)
+    before = sim_max.LAUNCHES["sim_max_int8"]
+    got = sim_max.fused_clip_scores_int8(q8, c8, bias)
+    want = sim_max.fused_clip_scores_int8(q8, c8, bias, plain=True)
+    torch.cuda.synchronize()
+    assert sim_max.LAUNCHES["sim_max_int8"] == before + 1
+    valid = mask.max(dim=1).values > 0
+    assert torch.equal(got[:, valid], want[:, valid])
+    assert bool((got[:, ~valid] < -6e4).all())
+
+
+@pytest.mark.parametrize("nq,nv,l_frames,d", _SCORE_SHAPES)
+def test_exact_kernel_matches_plain(dev, nq, nv, l_frames, d):
+    gen = torch.Generator().manual_seed(4)
+    q = torch.randn(nq, d, generator=gen).to(dev)
+    ctx = (3 * torch.randn(nv, l_frames, d, generator=gen)).to(
+        dev, torch.bfloat16)
+    mask = _mask(nv, l_frames, gen, dev)
+    before = sim_max.LAUNCHES["sim_max_exact"]
+    got = sim_max.fused_exact_scores(q, ctx, mask)
+    want = sim_max.fused_exact_scores(q, ctx, mask, plain=True)
+    torch.cuda.synchronize()
+    assert sim_max.LAUNCHES["sim_max_exact"] == before + 1
+    torch.testing.assert_close(got, want, atol=5e-6, rtol=0)
+    assert bool((got[:, 0] <= -1e9).all())
+
+
+@pytest.mark.parametrize("h", [384, 40, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_epilogue_kernel_matches_plain(dev, dtype, h):
+    gen = torch.Generator().manual_seed(5)
+    x = (2 * torch.randn(1000, h, generator=gen)).to(dev, dtype)
+    x[3] = 0.0
+    before = qt.LAUNCHES["context_tower_q8"]
+    got = qt.quantize_frames_q8(x)
+    want = qt.quantize_frames_q8(x, plain=True)
+    torch.cuda.synchronize()
+    assert qt.LAUNCHES["context_tower_q8"] == before + 1
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("branches", [2, 1])
+def test_context_tower_q8_matches_plain(dev, dtype, branches):
+    """The towers with emit_q8 write the epilogue of their own frames; and
+    stay within one level of the plain towers' int8 rows."""
+    gen = torch.Generator().manual_seed(6)
+    cfg = ModelConfig(visual_input_size=72, query_input_size=40,
+                      inheritance_hidden=96, exploration_hidden=96,
+                      max_ctx_l=20, max_desc_l=11, n_heads=4,
+                      double_branch=True, dtype=dtype)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(2))
+    tdt = getattr(torch, dtype)
+    ws = tower_weights(model, dev)["context"][:branches]
+    x = torch.randn(5, 20, 72, generator=gen).to(dev)
+    mask = _mask(5, 20, gen, dev)
+    before = dict(qt.LAUNCHES)
+    got = qt.context_towers(x, mask, ws, 4, tdt, "test", emit_q8=True)
+    torch.cuda.synchronize()
+    assert qt.LAUNCHES["context_tower"] == before["context_tower"] + 1
+    assert qt.LAUNCHES["context_tower_q8"] == before["context_tower_q8"] + 1
+    frames = qt.context_towers(x, mask, ws, 4, tdt, "test")
+    plain = qt.context_towers(x, mask, ws, 4, tdt, "test", plain=True,
+                              emit_q8=True)
+    for g, f, p in zip(got, frames, plain):
+        assert g.dtype == torch.int8 and g.shape == f.shape
+        assert torch.equal(g, qt.quantize_frames_q8_plain(f))
+        assert int((g.int() - p.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(score_quant=True),
+                                dict(score_quant=True, rescore=False)],
+                         ids=["exact", "two_stage", "int8"])
+def test_retriever_on_card_matches_plain(dev, kw, monkeypatch):
+    """Each serving route on the card against the same Retriever running
+    every kernel's plain version on the card (f32: equal ids)."""
+    monkeypatch.setenv("DLDKD_DENSE_RESCORE", "always")
+    cfg = ModelConfig(visual_input_size=48, query_input_size=32,
+                      inheritance_hidden=64, exploration_hidden=64,
+                      max_ctx_l=16, max_desc_l=8, n_heads=4,
+                      double_branch=True)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(7))
+    rng = np.random.RandomState(8)
+    videos = PackedVideos(feats=rng.randn(40, 16, 48).astype(np.float32),
+                          mask=np.ones((40, 16), np.float32),
+                          ids=[f"v{i}" for i in range(40)])
+    qf = rng.randn(30, 8, 32).astype(np.float32)
+    qm = np.ones((30, 8), np.float32)
+    out = []
+    for plain in (False, True):
+        r = serving.Retriever(model, query_bsz=16, device="cuda",
+                              plain=plain, **kw)
+        r.index(videos, context_bsz=16)
+        out.append(r.search(qf, qm, k=7))
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    np.testing.assert_allclose(out[0][0], out[1][0], atol=1e-4, rtol=0)

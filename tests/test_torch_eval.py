@@ -192,12 +192,46 @@ def test_bf16_eval_runs(dataset):
     assert all(np.isfinite(v) for m in out.values() for v in m.values())
 
 
+@pytest.mark.parametrize("double", [True, False], ids=["double", "single"])
+def test_int8_eval_matches_jax(dataset, double):
+    """The int8 engine (towers emit the int8 index, int8 scoring) against
+    the JAX package's eval_retrieval(score_quant=True): equal metric dicts
+    in f32, and valid-video scores bitwise equal where the int8 rows are
+    equal."""
+    _, _, videos, queries = dataset
+    jmodel, params, model = _models(double)
+    want = jax_eval.eval_retrieval(jmodel, params, videos, queries,
+                                   context_bsz=4, query_bsz=7,
+                                   score_quant=True, corpus_stream_bsz=0)
+    got = evaluate.eval_retrieval(model, videos, queries, context_bsz=4,
+                                  query_bsz=7, score_quant=True, device="cpu")
+    assert got == want
+
+    ji, je, jb = jax_eval.embed_corpus_q8(jmodel, params, videos, 4)
+    gi, ge, gb = evaluate.embed_corpus_q8(model, videos, 4, "cpu")
+    n = len(videos)
+    assert gi.dtype == torch.int8 and tuple(gb.shape) == (16, 16)
+    # the JAX index is (L_p, Nv_p, H) with an (L_p, Nv_p) bias
+    np.testing.assert_array_equal(
+        gi[:n].numpy(), np.transpose(np.asarray(ji), (1, 0, 2))[:n, :16])
+    np.testing.assert_array_equal(
+        gb[:n].numpy(), np.asarray(jb).T[:n, :16])
+    assert (ge is None) == (je is None) == (not double)
+    ws = jax_eval.score_all_queries_q8(jmodel, params, queries, ji, je, jb,
+                                       query_bsz=7)
+    gs = evaluate.score_all_queries_q8(model, queries, gi, ge, gb,
+                                       query_bsz=7)
+    for g, w in zip(gs, ws):
+        if w is not None:
+            np.testing.assert_array_equal(g[:, :n].numpy(),
+                                          np.asarray(w)[:, :n])
+
+
 def test_unported_routes_raise(dataset):
+    """score_quant is ported now (test_int8_eval_matches_jax); streaming
+    and the mesh still raise, naming their ROADMAP items."""
     _, _, videos, queries = dataset
     _, _, model = _models(True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        evaluate.eval_retrieval(model, videos, queries, score_quant=True,
-                                device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         evaluate.eval_retrieval(model, videos, queries, corpus_stream_bsz=8,
                                 device="cpu")
@@ -238,6 +272,29 @@ def _jax_run_dir(tmp_path, root, double):
         "params": params, "opt_state": {}, "epoch": 4, "best_score": 9.0,
         "rng": jnp.zeros(2, jnp.uint32)}, jmodel.config)
     return run_dir, jmodel, params
+
+
+def test_infer_score_quant_matches_jax(dataset, tmp_path, monkeypatch):
+    """infer.main --score_quant (the resident int8 eval) gives the JAX
+    package's int8 metrics on a checkpoint the JAX package wrote."""
+    calls = []
+    real = evaluate.embed_corpus_q8
+    monkeypatch.setattr(evaluate, "embed_corpus_q8",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    root, paths, _, _ = dataset
+    run_dir, jmodel, params = _jax_run_dir(tmp_path, root, True)
+    videos = jax_ingest.pack_video_corpus(
+        jax_ingest.read_video_ids(paths["cap_file"]["test"]),
+        JaxBigFile(paths["visual_feat_dir"]),
+        jax_ingest.read_dict(paths["video2frames"]), max_ctx_l=16)
+    queries = jax_ingest.pack_query_set(paths["cap_file"]["test"],
+                                        paths["text_feat"], max_desc_l=12)
+    want = jax_eval.eval_retrieval(jmodel, params, videos, queries,
+                                   context_bsz=4, query_bsz=6,
+                                   score_quant=True, corpus_stream_bsz=0)
+    got = infer.main(["--model_dir", run_dir, "--root_path", root,
+                      "--torch_device", "cpu", "--score_quant"])
+    assert got == want and calls == [1]
 
 
 @pytest.mark.parametrize("double", [True, False], ids=["double", "single"])

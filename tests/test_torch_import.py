@@ -41,8 +41,23 @@ def test_port_imports_no_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules, leaked = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 16
+    assert int(n_modules) >= 17
     assert leaked.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", ["dldkd_tpu_torch.serving",
+                                    "dldkd_tpu_torch.infer"])
+def test_entry_points_import_no_jax(module):
+    """The serving CLI and the eval CLI, each imported alone, load no JAX,
+    Flax or JAX package module."""
+    code = (f"import sys, {module}\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'dldkd_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_chip_smoke_fails_without_gpu():

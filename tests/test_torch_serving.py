@@ -1,0 +1,290 @@
+"""The port's serving `Retriever` and CLI against the JAX package's, on the
+clustered near-tie corpus of tests/test_rescore.py: near-duplicate videos
+1e-3 apart, below the int8 grid and above f32 resolution, so int8 scores
+tie inside a cluster and only exact scoring ranks its members.
+
+The JAX Retriever runs with mesh=None (the suite's conftest makes 8 CPU
+devices). Both packages are pinned to the same stage-2 engine with
+DLDKD_DENSE_RESCORE, so parity never rests on either cost model. Ids must
+be equal; scores agree to 1e-5 (f32, the same operations summed in
+another order).
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import dldkd_tpu.serving as jax_serving
+from dldkd_tpu import checkpoint as jax_ckpt
+from dldkd_tpu.config import ModelConfig as JaxModelConfig
+from dldkd_tpu.data.ingest import PackedVideos as JaxPackedVideos
+from dldkd_tpu.data.ingest import pack_query_rows as jax_pack_query_rows
+from dldkd_tpu.data.synthetic import generate_dataset as jax_generate
+from dldkd_tpu.models import DLDKD as JaxDLDKD
+from dldkd_tpu.train import init_params
+from dldkd_tpu_torch import serving
+from dldkd_tpu_torch.config import ModelConfig
+from dldkd_tpu_torch.convert import load_jax_params
+from dldkd_tpu_torch.data.ingest import PackedVideos, pack_query_rows
+from dldkd_tpu_torch.evaluate import embed_corpus
+from dldkd_tpu_torch.models import DLDKD
+from dldkd_tpu_torch.ops.fast_eval import encode_query_best
+
+N_CLUSTERS, PER_CLUSTER, L, DV, DQ = 4, 16, 8, 16, 12
+N_VID = N_CLUSTERS * PER_CLUSTER
+N_Q, K = 12, 5
+SCORE_TOL = 1e-5
+_DIMS = dict(visual_input_size=DV, query_input_size=DQ, inheritance_hidden=8,
+             exploration_hidden=8, max_ctx_l=L, max_desc_l=4, n_heads=2,
+             double_branch=True, label_style="soft")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_numerics():
+    threads = torch.get_num_threads()
+    precision = torch.get_float32_matmul_precision()
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+    yield
+    torch.set_num_threads(threads)
+    torch.set_float32_matmul_precision(precision)
+
+
+@pytest.fixture(scope="module")
+def clustered():
+    """tests/test_rescore.py's corpus, in both packages' containers."""
+    jcfg = JaxModelConfig(**_DIMS)
+    jmodel = JaxDLDKD(config=jcfg)
+    params = init_params(jmodel, jcfg, 0)
+    model = load_jax_params(DLDKD(ModelConfig(**_DIMS)),
+                            jax.tree.map(np.asarray, params)).eval()
+    rng = np.random.RandomState(7)
+    bases = rng.randn(N_CLUSTERS, L, DV).astype(np.float32)
+    feats = np.stack([bases[i % N_CLUSTERS]
+                      + 1e-3 * rng.randn(L, DV).astype(np.float32)
+                      for i in range(N_VID)])
+    mask = np.ones((N_VID, L), np.float32)
+    ids = [f"v{i}" for i in range(N_VID)]
+    qf = rng.randn(N_Q, 4, DQ).astype(np.float32)
+    qm = np.ones((N_Q, 4), np.float32)
+    return (jmodel, params, JaxPackedVideos(feats=feats, mask=mask, ids=ids),
+            model, PackedVideos(feats=feats, mask=mask, ids=ids), qf, qm)
+
+
+def _jax_search(clustered, k=K, query_bsz=8, **kw):
+    jmodel, params, jvideos, _, _, qf, qm = clustered
+    # the jitted search programs read DLDKD_DENSE_RESCORE when they trace:
+    # drop their caches so each mode traces anew
+    for fn in (jax_serving._search_jit, jax_serving._search_q8_jit):
+        fn.clear_cache()
+    r = jax_serving.Retriever(jmodel, params, query_bsz=query_bsz, **kw)
+    r.mesh = None  # the single-device path
+    r.index(jvideos)
+    return r.search(qf, qm, k=k)
+
+
+def _port(clustered, query_bsz=8, **kw):
+    _, _, _, model, videos, _, _ = clustered
+    r = serving.Retriever(model, query_bsz=query_bsz, device="cpu", **kw)
+    r.index(videos)
+    return r
+
+
+def _assert_same(got, want):
+    np.testing.assert_array_equal(got[1], np.asarray(want[1]))
+    np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=SCORE_TOL,
+                               rtol=0)
+
+
+def test_exact_search_matches_jax(clustered):
+    _, _, _, _, _, qf, qm = clustered
+    got = _port(clustered).search(qf, qm, k=K)
+    assert got[0].dtype == np.float32 and got[1].shape == (N_Q, K)
+    _assert_same(got, _jax_search(clustered))
+
+
+@pytest.mark.parametrize("mode", ["never", "always"])
+def test_two_stage_search_matches_jax(clustered, monkeypatch, mode):
+    """Two-stage search with the gather (never) or the dense exact scorer
+    (always) in stage 2: the JAX package's ids, which on this corpus are
+    also the exact path's."""
+    _, _, _, _, _, qf, qm = clustered
+    monkeypatch.setenv("DLDKD_DENSE_RESCORE", mode)
+    got = _port(clustered, score_quant=True).search(qf, qm, k=K)
+    _assert_same(got, _jax_search(clustered, score_quant=True))
+    exact = _port(clustered).search(qf, qm, k=K)
+    np.testing.assert_array_equal(got[1], exact[1])
+
+
+def test_int8_only_search_matches_jax_ties_included(clustered):
+    """int8-only ranks: clusters tie on the int8 grid and break by video
+    id, as jax.lax.top_k breaks them."""
+    _, _, _, _, _, qf, qm = clustered
+    r = _port(clustered, score_quant=True, rescore=False)
+    assert r.ctx_inher is None and r.q8_inher.dtype == torch.int8
+    got = r.search(qf, qm, k=K)
+    _assert_same(got, _jax_search(clustered, score_quant=True,
+                                  rescore=False))
+    exact = _port(clustered).search(qf, qm, k=K)
+    assert (got[1] != exact[1]).any(), "no int8 ties on this corpus"
+    # equal int8 scores inside a row come with ascending ids
+    s, i = got
+    tie = s[:, 1:] == s[:, :-1]
+    assert tie.any() and np.all(i[:, 1:][tie] > i[:, :-1][tie])
+
+
+def test_k_larger_than_corpus_and_ragged_batches(clustered, monkeypatch):
+    """k past the corpus clips to it; a query count that is not a multiple
+    of the batch gives the results of one whole batch."""
+    _, _, _, _, _, qf, qm = clustered
+    monkeypatch.setenv("DLDKD_DENSE_RESCORE", "never")
+    for kw in (dict(), dict(score_quant=True)):
+        got = _port(clustered, query_bsz=5, **kw).search(qf, qm, k=100)
+        assert got[1].shape == (N_Q, N_VID)
+        whole = _port(clustered, query_bsz=N_Q, **kw).search(qf, qm, k=100)
+        np.testing.assert_array_equal(got[1], whole[1])
+        np.testing.assert_array_equal(got[0], whole[0])
+        _assert_same(got, _jax_search(clustered, k=100, query_bsz=5, **kw))
+
+
+def test_search_ids(clustered):
+    _, _, _, _, videos, qf, qm = clustered
+    r = _port(clustered)
+    scores, idx = r.search(qf, qm, k=3)
+    rows = r.search_ids(qf, qm, k=3)
+    assert len(rows) == N_Q and all(len(row) == 3 for row in rows)
+    for row, ri, rs in zip(rows, idx, scores):
+        assert [v for v, _ in row] == [videos.ids[j] for j in ri]
+        assert [s for _, s in row] == [float(s) for s in rs]
+    with pytest.raises(RuntimeError, match="index"):
+        serving.Retriever(r.model, device="cpu").search(qf, qm)
+
+
+def test_topk_lowest_index_breaks_ties_like_jax():
+    rng = np.random.RandomState(2)
+    scores = np.round(rng.rand(6, 40), 1).astype(np.float32)  # many ties
+    scores[0] = 0.5
+    want_s, want_i = jax.lax.top_k(jnp.asarray(scores), 9)
+    got_s, got_i = serving.topk_lowest_index(torch.from_numpy(scores), 9)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    assert got_i[0].tolist() == list(range(9))
+
+
+def test_rescore_stage2_and_two_stage_topk_match_jax(clustered, monkeypatch):
+    """The stage-2 engines and the per-call two-stage top-k against the
+    JAX functions on the same encoded corpus, each engine pinned; the two
+    engines return the same ids."""
+    jmodel, params, jvideos, model, videos, qf, qm = clustered
+    from dldkd_tpu.evaluate import embed_corpus as jax_embed
+    from dldkd_tpu.ops.fast_eval import encode_query_best as jax_encode
+
+    ci, ce, vm = embed_corpus(model, videos, 16, "cpu")
+    q_i, q_e = encode_query_best(model, torch.from_numpy(qf),
+                                 torch.from_numpy(qm))
+    jci, jce, jvm = jax_embed(jmodel, params, jvideos, 16)
+    jq_i, jq_e = jax_encode(params, jmodel.config, jnp.asarray(qf),
+                            jnp.asarray(qm))
+    fw = serving.Retriever(model, device="cpu").fusion
+    jfw = jnp.asarray([0.7, 0.3], jnp.float32)
+    ids = []
+    for mode in ("never", "always"):
+        monkeypatch.setenv("DLDKD_DENSE_RESCORE", mode)
+        got = serving._two_stage_topk(q_i, q_e, ci, ce, vm, fw, K, K)
+        want = jax_serving._two_stage_topk(jq_i, jq_e, jci, jce, jvm, jfw,
+                                           K, K)
+        _assert_same([t.numpy() for t in got], want)
+        ids.append(got[1])
+    assert torch.equal(ids[0], ids[1])
+
+
+def test_unported_serving_routes_raise(clustered, monkeypatch):
+    _, _, _, model, videos, _, _ = clustered
+    for kw, item in ((dict(mesh=object()), "A14"),
+                     (dict(index_store="raw"), "A12/A13"),
+                     (dict(warm_start=True), "A13"),
+                     (dict(aot_cache_dir="/nonexistent"), "A13")):
+        with pytest.raises(NotImplementedError, match=item):
+            serving.Retriever(model, device="cpu", **kw)
+    with pytest.raises(ValueError, match="index_store"):
+        serving.Retriever(model, device="cpu", index_store="bogus")
+    # the auto policy choosing the raw store (a budget too small for the
+    # encoded index) raises at index time
+    monkeypatch.setenv("DLDKD_EVAL_MEM_BUDGET", "1")
+    r = serving.Retriever(model, device="cpu")
+    assert r.auto_index_store(N_VID) == "raw"
+    with pytest.raises(NotImplementedError, match="A12/A13"):
+        r.index(videos)
+    base = ["--model_dir", "/nonexistent", "--root_path", "/nonexistent",
+            "--collection", "c", "--visual_feature", "v", "--queries",
+            "q.npz"]
+    for extra in (["--index_store", "raw"], ["--stream_block", "8"],
+                  ["--save_index", "/tmp/i"], ["--load_index", "/tmp/i"],
+                  ["--prewarm", "4:3"], ["--aot_cache_dir", "/tmp/a"],
+                  ["--warm_start"]):
+        with pytest.raises(SystemExit):
+            serving.main(base + extra)
+    with pytest.raises(SystemExit):   # no queries
+        serving.main(base[:-2])
+    with pytest.raises(SystemExit):   # no dataset to index
+        serving.main(["--model_dir", "/nonexistent", "--queries", "q.npz"])
+
+
+def test_pack_query_rows_pad_to_multiple_matches_jax():
+    rng = np.random.RandomState(0)
+    store = {f"c{i}": rng.randn(1, 3 + i, 6).astype(np.float32)
+             for i in range(4)}
+    for mult in (1, 8):
+        got = pack_query_rows(store, list(store), 5, pad_to_multiple=mult)
+        want = jax_pack_query_rows(store, list(store), 5,
+                                   pad_to_multiple=mult)
+        assert got[0].shape[1] == (5 if mult == 1 else 8)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("route", [[], ["--score_quant", "--no_rescore"]],
+                         ids=["exact", "int8"])
+def test_serving_cli_matches_jax(tmp_path, monkeypatch, route):
+    """serving.main on a synthetic dataset writes the JAX CLI's JSON lines:
+    the same captions in the same order with the same video ids, scores
+    within 1e-5. The JAX CLI reads the HDF5 query store, the port its .npz
+    twin."""
+    import h5py
+
+    root = str(tmp_path / "data")
+    jax_generate(root, n_videos={"test": 7}, frames_range=(3, 12),
+                 d_student=16, d_query=12, d_teacher=4, seed=5)
+    jcfg = JaxModelConfig(**{**_DIMS, "max_ctx_l": 12, "max_desc_l": 6})
+    params = init_params(JaxDLDKD(config=jcfg), jcfg, 3)
+    run_dir = tmp_path / "run"
+    jax_ckpt.save_checkpoint(str(run_dir / "ckpt"), {
+        "params": params, "opt_state": {}, "epoch": 1, "best_score": 0.0,
+        "rng": jnp.zeros(2, jnp.uint32)}, jcfg)
+    h5 = f"{root}/synthetic/TextData/roberta_synthetic_query_feat.hdf5"
+    npz = str(tmp_path / "queries.npz")
+    with h5py.File(h5, "r") as f:
+        np.savez(npz, **{k: f[k][...] for k in f.keys()})
+    common = ["--model_dir", str(run_dir), "--root_path", root,
+              "--collection", "synthetic", "--visual_feature", "i3d",
+              "--k", "4"] + route
+    monkeypatch.setattr(jax, "device_count", lambda: 1)  # no mesh
+    for fn in (jax_serving._search_jit, jax_serving._search_q8_jit):
+        fn.clear_cache()
+    jax_serving.main(common + ["--queries", h5,
+                               "--out", str(tmp_path / "jax.jsonl")])
+    serving.main(common + ["--queries", npz, "--torch_device", "cpu",
+                           "--out", str(tmp_path / "port.jsonl")])
+    want = [json.loads(x) for x in open(tmp_path / "jax.jsonl")]
+    got = [json.loads(x) for x in open(tmp_path / "port.jsonl")]
+    assert len(got) == len(want) > 7
+    for g, w in zip(got, want):
+        assert g["cap_id"] == w["cap_id"]
+        assert [v for v, _ in g["topk"]] == [v for v, _ in w["topk"]]
+        np.testing.assert_allclose([s for _, s in g["topk"]],
+                                   [s for _, s in w["topk"]],
+                                   atol=SCORE_TOL, rtol=0)
