@@ -11,14 +11,19 @@ package. Phases, in order; any failure exits non-zero without the final
    nvcc per source, all at once, and print ptxas' register, spill and
    shared-memory summary;
 3. each kernel, in f32 and bf16, plus the one-branch tower launch, at the
-   per-launch shapes of a TVR test eval, against its plain PyTorch version
-   on the same inputs: max abs error against a stated tolerance, kernel and
-   plain times (CUDA events, >= 20 launches after warm-up) and the least
-   time the card could take (bytes over 3.35 TB/s or operations over the
-   peak rate of their type); then the same for the int8 scoring kernel (50
-   and 256 queries), the exact-rescore kernel (256 queries), the towers'
-   int8 epilogue (both launches, 200 videos), and the rates that set the
-   stage-2 dense-versus-gather cost model;
+   per-launch shapes of a TVR test eval (bf16 scoring also at serving's 256
+   queries), against its plain PyTorch version on the same inputs: max abs
+   error against a stated tolerance, kernel and plain times (CUDA events,
+   >= 20 launches after warm-up) and the least time the card could take
+   (bytes over 3.35 TB/s or operations over the peak rate of their type);
+   the scorers' kernel time is their C entry's alone, the wrapper's beside
+   it; then the same for the int8 scoring kernel (50 and 256 queries), the
+   exact-rescore kernel (256 queries), the towers' int8 epilogue (both
+   launches, 200 videos), and the rates that set the stage-2
+   dense-versus-gather cost model. Beside each scorer, `product_ms` times
+   the bare product at the same shapes (`torch.matmul`, `torch._int_mm`):
+   a yardstick, not the same function (it writes every frame score, with
+   no mask and no max), which the port never calls;
 4. `dldkd_tpu_torch.infer.main` on a synthetic dataset at full feature
    widths, with a checkpoint written by the port's own writer: the bf16
    serving config and the f32 parity config, then `--score_quant`; and
@@ -29,11 +34,12 @@ package. Phases, in order; any failure exits non-zero without the final
    wall time, peak memory and launch counts; for bf16 one more pass under
    torch.profiler (device time by kernel, device idle share); then the
    kernel path's score matrices and fused SumR against the plain path's;
-   then the bf16 int8 eval (score_quant) the same way; then the serving
-   `Retriever` at the same scale (query batch 256, k = 10) as exact,
-   two-stage with dense and with gather stage 2, and int8-only: queries/s,
-   per-batch p50/p99 latency, peak memory, launches, dense against gather,
-   and each route against its plain path on the first 512 queries;
+   then the bf16 int8 eval (score_quant) the same way, profiled too; then
+   the serving `Retriever` at the same scale (query batch 256, k = 10) as
+   exact, two-stage with dense and with gather stage 2, and int8-only:
+   queries/s, per-batch p50/p99 latency, peak memory, launches, dense
+   against gather, and each route against its plain path on the first 512
+   queries;
 6. one JSON line listing every ported kernel; then the final `ok` line.
 
 Each path runs with the launch counts set to 0 just before it and read
@@ -41,7 +47,9 @@ just after, and fails if a kernel of that path never launched. The counts
 in the kernels line come from the path that runs each kernel in the
 serving configuration (bf16): the TVR eval (masked-cosine scoring, both
 towers), the int8 eval (int8 scoring, the int8 epilogue) and two-stage
-serving with dense stage 2 (exact rescoring).
+serving with dense stage 2 (exact rescoring); each kernel's time there is
+the phase-3 time at that path's shapes (the eval's 50 queries, serving's
+256).
 """
 
 from __future__ import annotations
@@ -63,8 +71,8 @@ TVR = dict(n_videos=2179, n_queries=10895, frames=128, tokens=30,
            query_bsz=50, context_bsz=200)
 # max abs error tolerances, kernel vs plain version on the same inputs
 TOL = {
-    # scores of unit vectors; IEEE f32 FMAs (bf16 inputs widen exactly),
-    # sums in another order
+    # scores of unit vectors; f32: IEEE f32 FMAs, bf16: tensor-core
+    # products, exact in f32; sums in another order either way
     ("sim_max", "float32"): 1e-5, ("sim_max", "bfloat16"): 1e-5,
     # five chained products and three LayerNorms, f32 sums in another order
     ("tower", "float32"): 1e-4,
@@ -127,6 +135,24 @@ def bound(n_bytes: float, n_ops: float, dtype: str):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def scoring_launch(lib: str, symbol: str, q, ctx, per_frame):
+    """A scoring kernel alone: its C entry called on prepared CUDA tensors
+    without the wrapper's checks and bookkeeping, so that its time is the
+    kernel's (the wrapper's is timed beside it). Counts no launch."""
+    import torch
+
+    from dldkd_tpu_torch.ops.kernels.build import bind
+
+    fn = bind(lib, symbol, 4, 4)
+    nq, d = q.shape
+    nv, l_frames, _ = ctx.shape
+    out = torch.empty((nq, nv), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), ctx.data_ptr(), per_frame.data_ptr(),
+            out.data_ptr(), nq, nv, l_frames, d,
+            torch.cuda.current_stream().cuda_stream)
+    return lambda: fn(*args)
 
 
 # ------------------------------------------------------------------ phases
@@ -221,31 +247,48 @@ def phase_kernels(dev):
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
         item = torch.tensor([], dtype=tdt).element_size()
-        # ---- kernel 1: scoring, one branch, 50 queries x the corpus
-        q = torch.randn(nq, h, generator=gen).to(dev, tdt)
+        # ---- kernel 1: scoring, one branch, the eval's 50 queries (and in
+        # bf16 the exact serving route's 256) x the corpus
         ctx = torch.randn(nv, lf, h, generator=gen).to(dev, tdt)
         mask = _ragged_mask(nv, lf, 8, gen, dev)
-        qn, cn = l2_normalize(q).contiguous(), l2_normalize(ctx).contiguous()
-        got = sim_max.fused_clip_scores(qn, cn, mask)
-        want = sim_max.sim_max_plain(qn, cn, mask)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        tol = TOL[("sim_max", dtype)]
-        n_bytes = (nq * h + nv * lf * h) * item + nv * lf * 4 + nq * nv * 4
-        b_ms, b_by = bound(n_bytes, 2 * nq * nv * lf * h, dtype)
-        rec = {"check": "sim_max", "dtype": dtype,
-               "shape": {"q": [nq, h], "ctx": [nv, lf, h]},
-               "max_abs_err": err, "tol": tol,
-               "kernel_ms": cuda_ms(lambda: sim_max.fused_clip_scores(
-                   qn, cn, mask)),
-               "plain_ms": cuda_ms(lambda: sim_max.sim_max_plain(
-                   qn, cn, mask)),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-        emit(rec)
-        results[("sim_max", dtype)] = rec
-        if not err <= tol:
-            fail(f"sim_max {dtype}: max abs error {err} > {tol}")
-        del q, ctx, qn, cn, got, want
+        cn = l2_normalize(ctx).contiguous()
+        del ctx
+        for n_q in ((nq, SERVE["query_bsz"]) if dtype == "bfloat16"
+                    else (nq,)):
+            q = torch.randn(n_q, h, generator=gen).to(dev, tdt)
+            qn = l2_normalize(q).contiguous()
+            got = sim_max.fused_clip_scores(qn, cn, mask)
+            want = sim_max.sim_max_plain(qn, cn, mask)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            tol = TOL[("sim_max", dtype)]
+            n_bytes = ((n_q * h + nv * lf * h) * item + nv * lf * 4
+                       + n_q * nv * 4)
+            b_ms, b_by = bound(n_bytes, 2 * n_q * nv * lf * h, dtype)
+            c2 = cn.view(nv * lf, h)
+            entry = (("sim_max", "sim_max_f32") if dtype == "float32"
+                     else ("sim_max_mma", "sim_max_bf16"))
+            rec = {"check": "sim_max", "dtype": dtype,
+                   "shape": {"q": [n_q, h], "ctx": [nv, lf, h]},
+                   "max_abs_err": err, "tol": tol,
+                   "kernel_ms": cuda_ms(scoring_launch(*entry, qn, cn,
+                                                       mask)),
+                   "wrapper_ms": cuda_ms(lambda: sim_max.fused_clip_scores(
+                       qn, cn, mask)),
+                   "plain_ms": cuda_ms(lambda: sim_max.sim_max_plain(
+                       qn, cn, mask)),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   # yardstick only: the bare product, every frame score
+                   # written, no mask, no max
+                   "product_ms": cuda_ms(lambda: torch.matmul(qn, c2.t()))}
+            emit(rec)
+            results[("sim_max", dtype) if n_q == nq
+                    else ("sim_max", dtype, n_q)] = rec
+            if not err <= tol:
+                fail(f"sim_max {dtype} nq={n_q}: max abs error {err} > "
+                     f"{tol}")
+            del q, qn, got, want
+        del cn
 
         # ---- kernels 2 and 3: the towers, both branches and one branch
         model = _serving_model(dtype, seed=2)
@@ -442,6 +485,8 @@ def _tvr_data(dev, seed: int):
 
 
 def _short_kernel_name(name: str) -> str:
+    if "sim_max_mma_kernel" in name:   # csrc/sim_max_mma.cu, by element type
+        return "sim_max_int8" if "Int8" in name else "sim_max_kernel"
     for k in ("sim_max_kernel", "gemm_kernel", "attention_kernel",
               "layernorm_kernel", "row_stats_kernel", "pool_kernel"):
         if k in name:
@@ -451,7 +496,7 @@ def _short_kernel_name(name: str) -> str:
     return "other: " + name[:60]
 
 
-def profile_eval(model, videos, queries, dev) -> dict:
+def profile_eval(model, videos, queries, dev, score_quant=False) -> dict:
     """One eval_retrieval under torch.profiler: device time by kernel and
     the share of the wall time in which no kernel or copy ran."""
     import torch
@@ -466,7 +511,8 @@ def profile_eval(model, videos, queries, dev) -> dict:
         t0 = time.perf_counter()
         eval_retrieval(model, videos, queries,
                        context_bsz=TVR["context_bsz"],
-                       query_bsz=TVR["query_bsz"], device=dev)
+                       query_bsz=TVR["query_bsz"], score_quant=score_quant,
+                       device=dev)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -604,11 +650,17 @@ def phase_kernels_slice2(dev):
                "max_abs_err": err, "tol": TOL[("sim_max_int8", "int8")],
                "bitwise_valid_columns": bool(torch.equal(got[:, valid],
                                                          want[:, valid])),
-               "kernel_ms": cuda_ms(lambda: sim_max.fused_clip_scores_int8(
+               "kernel_ms": cuda_ms(scoring_launch(
+                   "sim_max_mma", "sim_max_int8", q8, c8, bias)),
+               "wrapper_ms": cuda_ms(lambda: sim_max.fused_clip_scores_int8(
                    q8, c8, bias)),
                "plain_ms": cuda_ms(lambda: sim_max.fused_clip_scores_int8(
                    q8, c8, bias, plain=True)),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               # yardstick only: the bare int8 product, every frame score
+               # written in int32, no bias, no max
+               "product_ms": cuda_ms(lambda: torch._int_mm(
+                   q8, c8.view(nv * lf, h).t()))}
         emit(rec)
         results[("sim_max_int8", nq)] = rec
         if not rec["bitwise_valid_columns"]:
@@ -813,6 +865,8 @@ def phase_int8_eval(dev, videos, queries):
     peak = torch.cuda.max_memory_allocated()
     _check_metrics(metrics, "TVR int8 eval")
     _check_launched(counts, INT8_EVAL_KERNELS, "TVR int8 eval")
+    emit({"phase": "tvr_int8_eval_profile", "dtype": "bfloat16",
+          **profile_eval(model, videos, queries, dev, score_quant=True)})
     args = (model, videos, queries, TVR["context_bsz"], TVR["query_bsz"],
             dev)
     k_i, k_e = score_matrices(*args, score_quant=True)
@@ -974,12 +1028,12 @@ def main() -> None:
 
     # (source, TPU kernel replaced, check record, path whose launches count)
     sources = {
-        "sim_max": ("dldkd_tpu_torch/csrc/sim_max.cu",
+        "sim_max": ("dldkd_tpu_torch/csrc/sim_max_mma.cu",
                     "dldkd_tpu/ops/pallas/sim_max.py:36",
                     ("sim_max", "bfloat16"), "tvr_eval", launches),
-        "sim_max_int8": ("dldkd_tpu_torch/csrc/sim_max_int8.cu",
+        "sim_max_int8": ("dldkd_tpu_torch/csrc/sim_max_mma.cu",
                          "dldkd_tpu/ops/pallas/sim_max.py:195",
-                         ("sim_max_int8", SERVE["query_bsz"]),
+                         ("sim_max_int8", TVR["query_bsz"]),
                          "tvr_int8_eval", int8_launches),
         "sim_max_exact": ("dldkd_tpu_torch/csrc/sim_max_exact.cu",
                           "dldkd_tpu/ops/pallas/sim_max.py:66",
@@ -1008,7 +1062,8 @@ def main() -> None:
                         "max_abs_err": rec["max_abs_err"],
                         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],
-                        "bound_by": rec["bound_by"], "library_ms": None})
+                        "bound_by": rec["bound_by"], "library_ms": None,
+                        "product_ms": rec.get("product_ms")})
     check_no_jax()
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

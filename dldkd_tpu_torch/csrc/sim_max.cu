@@ -1,29 +1,29 @@
-// Masked cosine max-over-frames scoring: the retrieval hot op.
+// Masked cosine max-over-frames scoring in f32: the parity configuration.
 //
 //   out[q, v] = max_l  mask_logits(<qn[q], cn[v, l]>, mask[v, l])
 //   mask_logits(s, m) = s * m + (1 - m) * -1e10
 //
 // Replaces dldkd_tpu/ops/pallas/sim_max.py:_sim_max_kernel (reached through
-// fused_clip_scores(quantized=False)). Inputs are L2-normalized outside the
-// kernel, as the JAX package normalizes outside pallas_call. Only the
-// (Nq, Nv) f32 result is written: the (Nq, L, Nv) frame tensor never exists.
+// fused_clip_scores(quantized=False)) on f32 inputs; bf16 inputs go to the
+// tensor-core kernel of csrc/sim_max_mma.cu. Inputs are L2-normalized
+// outside the kernel, as the JAX package normalizes outside pallas_call.
+// Only the (Nq, Nv) f32 result is written: the (Nq, L, Nv) frame tensor
+// never exists.
 //
-// What bounds it on an H100: one launch scores a query batch (50 at the
-// serving shapes) against the whole corpus, so it reads every frame once
-// (Nv x L x D values) and does 2 x Nq x Nv x L x D operations. In bf16 that
-// is bandwidth (about 216 MB for TVR's corpus); in f32 on the CUDA cores it
-// is the FMA rate. The frame max replaces the TPU's sequential grid axis and
-// output revisiting (sim_max.py:39, 57-63): here each block owns a tile of
-// 64 queries x 8 videos and walks all frames of those videos in a loop,
-// folding a running max kept in registers, so nothing is carried between
-// blocks and the corpus is read once per launch. The kernel reads the port's
-// own (Nv, L, D) layout (no transpose pass) and masks ragged edges itself.
+// What bounds it on an H100: one launch scores a query batch (50 in the
+// eval) against the whole corpus, so it reads every frame once (Nv x L x D
+// values) and does 2 x Nq x Nv x L x D operations; in f32 on the CUDA cores
+// that is the FMA rate. The frame max replaces the TPU's sequential grid
+// axis and output revisiting (sim_max.py:39, 57-63): here each block owns a
+// tile of 64 queries x 8 videos and walks all frames of those videos in a
+// loop, folding a running max kept in registers, so nothing is carried
+// between blocks. The kernel reads the port's own (Nv, L, D) layout (no
+// transpose pass) and masks ragged edges itself.
 //
-// Arithmetic: f32 accumulation of IEEE f32 FMAs (never TF32), on f32 or on
-// bf16 inputs widened exactly to f32. This first version runs on the CUDA
-// cores; tensor-core bf16 (wgmma) is later work.
+// Arithmetic: f32 accumulation of IEEE f32 FMAs, never TF32. It stays on
+// the CUDA cores because f32 parity needs IEEE f32 products, which the
+// tensor cores do not compute.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -39,9 +39,6 @@ constexpr int THREADS = 256;   // 16 x 16 threads, 4 x 4 outputs each
 constexpr float NEG_INF = -1e10f;
 
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -146,8 +143,3 @@ extern "C" int sim_max_f32(const void* q, const void* ctx, const void* mask,
   return launch<float>(q, ctx, mask, out, nq, nv, L, D, stream);
 }
 
-extern "C" int sim_max_bf16(const void* q, const void* ctx, const void* mask,
-                            void* out, int nq, int nv, int L, int D,
-                            void* stream) {
-  return launch<__nv_bfloat16>(q, ctx, mask, out, nq, nv, L, D, stream);
-}

@@ -1,0 +1,504 @@
+// Max-over-frames scoring on Hopper's tensor cores, bf16 and int8: one
+// kernel, templated on the element type.
+//
+//   bf16: out[q, v] = max_l  s * m[v, l] + (1 - m[v, l]) * -1e10,
+//         s = <qn[q], cn[v, l]> with f32 accumulation
+//   int8: out[q, v] = float(max_l <q8[q], c8[v, l]> + bias[v, l]) / 127^2,
+//         the dot, the bias and the max in int32
+//
+// Replaces, in dldkd_tpu/ops/pallas/sim_max.py:
+// - _sim_max_kernel (:36; pallas_call :385, fused_clip_scores) on bf16
+//   inputs;
+// - _sim_max_kernel_int8 (:195; pallas_call :319, fused_clip_scores_q8 and
+//   fused_clip_scores(quantized=True)).
+// Both Pallas kernels put the product on the MXU with a wide accumulator
+// (f32, :45-46; int32, :209-211). Here wgmma does the same: a bf16 product
+// is exact in f32 and only the order of the sums changes; s8 x s8 into s32
+// is exact, so int8 scores on valid videos are bitwise those of the plain
+// version (integers below 2^24, one multiply by the f32 constant).
+//
+// What bounds it on an H100 (3.35 TB/s; 989 TFLOP/s bf16, 1,979 TOPS int8):
+// a launch reads the whole corpus once. TVR's 2,179 x 128 x 384 frames are
+// 214 MB in bf16 and 107 MB in int8: at the eval's 50 queries 0.064 ms
+// (bf16) and 0.032 ms (int8), with 50 and 100 operations per byte against a
+// ridge of about 295 and 590, so bytes bound it. At 256 queries bf16 is
+// 0.065 ms of bytes against 0.055 ms of operations and int8 0.033 against
+// 0.028: both still bytes, int8 close to its operation bound.
+//
+// What the design does about it:
+// - A block owns a tile of queries whose rows stay in shared memory for the
+//   whole launch (64 x 384 bf16 = 48 KB): they are read from device memory
+//   once per block, not once per video. One warpgroup (4 warps) per 64
+//   queries: up to 64 queries (the eval's 50) a block has one, above (256
+//   for serving) two, so the corpus streams half as often.
+// - The grid is persistent: as many blocks as fit on the SMs, spread over
+//   the query tiles; block (x, y) walks videos x, x + gridDim.x, ... So the
+//   corpus streams once per query tile, and the blocks of other query tiles
+//   that share a video run beside it and find its frames in L2.
+// - Frames stream through a ring of 3 stages of 128 frames x 128 bytes of
+//   depth (64 bf16 or 128 int8), filled by 16-byte cp.async copies in the
+//   128-byte swizzle that wgmma reads; two stages are in flight while the
+//   tensor cores work on the third. Frames past L and depth past D are
+//   zero-filled, not read. Each block steps through its (video, frame
+//   chunk, depth chunk) stages with counters: no division in the loop.
+// - Each warpgroup multiplies its 64 queries by a chunk's 128 frames with
+//   wgmma m64n128k16 bf16 or m64n128k32 s8, both operands K-major in shared
+//   memory (the port's (Nq, D) and (Nv, L, D) rows as they are): no
+//   transpose, no fragment loads through registers. The two types share
+//   every byte of the data path: one wgmma takes 32 bytes of depth either
+//   way.
+// - The epilogue folds the mask (bf16: s * m + (1 - m) * -1e10, as
+//   csrc/sim_max.cu) or the bias (int8: s + bias) and the max over frames
+//   into the accumulator registers: within a thread, then across the four
+//   lanes of a row (shfl_xor 1, 2); one warpgroup holds all 128 frames of
+//   its rows, so one f32 store per (query, video) follows. The (Nq, Nv x L)
+//   frame scores never exist. Columns past L are skipped, not scored (a
+//   zero-filled frame would score 0); an all-masked video scores -1e10
+//   (bf16) or -2^30 / 127^2 (int8). L above 128 walks frame chunks of 128
+//   with the running max kept in registers.
+//
+// What it leaves unused: the TMA engine and warp specialisation. Every
+// thread issues its share of the cp.async copies, and each stage waits for
+// its products before a block barrier. At the eval's 50 queries the bytes
+// still bound the kernel; at 256 in bf16 those turns are the likely gap to
+// its bound (PERF.md).
+//
+// f32 inputs stay on the SIMT kernel of csrc/sim_max.cu: f32 parity needs
+// IEEE f32 products and sums, and the tensor cores have no f32 product
+// (TF32 rounds the inputs to 10 bits of mantissa).
+
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include <mutex>
+
+namespace {
+
+constexpr int BN = 128;             // frames per chunk: wgmma's N
+constexpr int CHUNK = 128;          // bytes of depth per stage
+constexpr int UNITS = CHUNK / 16;   // 16-byte units per row of a stage
+constexpr int STAGES = 3;
+constexpr int KSTEPS = CHUNK / 32;  // one wgmma takes 32 bytes of depth
+constexpr int STAGE_BYTES = BN * CHUNK;
+constexpr float NEG_INF = -1e10f;
+// float(1 / (127 * 127)): the f32 constant of sim_max.py:216-217
+constexpr float INV_SCALE2 = (float)(1.0 / (127.0 * 127.0));
+// shared memory a block may opt into on sm_90
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+constexpr size_t MAX_SMEM = 232448;
+
+// accumulator d[4 t + x] of a thread: row lane / 4 + 8 (x / 2) of its
+// warp's 16, column 8 t + 2 (lane % 4) + x % 2 of the 128
+struct Bf16 {
+  using Acc = float;
+  using Frame = float;  // the (Nv, L) mask, 1 or 0
+  static constexpr int ELEM = 2;
+  static __device__ __forceinline__ Acc lowest() { return -INFINITY; }
+  static __device__ __forceinline__ void wgmma(Acc (&d)[64], uint64_t a,
+                                               uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  static __device__ __forceinline__ Acc masked(Acc s, Frame m) {
+    return s * m + (1.f - m) * NEG_INF;
+  }
+  static __device__ __forceinline__ Acc top(Acc a, Acc b) {
+    return fmaxf(a, b);
+  }
+  static __device__ __forceinline__ float finish(Acc best) { return best; }
+  // keeps the compiler from touching the accumulators while wgmma runs
+  static __device__ __forceinline__ void fence(Acc (&d)[64]) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  }
+};
+
+struct Int8 {
+  using Acc = int;
+  using Frame = int;    // the (Nv, L) bias, 0 or -2^30
+  static constexpr int ELEM = 1;
+  static __device__ __forceinline__ Acc lowest() { return INT_MIN; }
+  static __device__ __forceinline__ void wgmma(Acc (&d)[64], uint64_t a,
+                                               uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+          "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+          "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+          "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  static __device__ __forceinline__ Acc masked(Acc s, Frame b) {
+    return s + b;
+  }
+  static __device__ __forceinline__ Acc top(Acc a, Acc b) {
+    return max(a, b);
+  }
+  static __device__ __forceinline__ float finish(Acc best) {
+    return (float)best * INV_SCALE2;
+  }
+  static __device__ __forceinline__ void fence(Acc (&d)[64]) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  }
+};
+
+// byte offset of 16-byte unit `unit` of row `row` in a tile of 128-byte
+// rows, in the 128-byte swizzle: unit ^ (row % 8) within each 1024-byte
+// group of 8 rows (the tile starts on a 1024-byte boundary)
+__device__ __forceinline__ uint32_t swz(int row, int unit) {
+  return (uint32_t)(row * CHUNK + ((unit ^ (row & 7)) << 4));
+}
+
+// wgmma's shared-memory descriptor of a K-major operand in that swizzle:
+// start address / 16, leading offset 1 (unused when swizzled), 1024 bytes
+// between groups of 8 rows, layout 1 = 128-byte swizzle. A step of 32
+// bytes of depth moves the start address by 32.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// 16 bytes global -> shared; bytes = 0 zero-fills and reads nothing
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
+                                    int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async writes shared memory through the generic proxy, wgmma reads it
+// through the async proxy
+__device__ __forceinline__ void proxy_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// a stage of a block's walk: its j-th video, frame chunk c, depth chunk kc,
+// and the ring slot it goes through
+struct Stage {
+  int j = 0, c = 0, kc = 0, slot = 0;
+  __device__ __forceinline__ void next(int nk, int nc) {
+    if (++slot == STAGES) slot = 0;
+    if (++kc == nk) {
+      kc = 0;
+      if (++c == nc) {
+        c = 0;
+        ++j;
+      }
+    }
+  }
+};
+
+// 1,024 bytes of slack to start the tiles on a 1,024-byte boundary, the
+// query tile [nk][64 WG][CHUNK], the ring [STAGES][BN][CHUNK] and the
+// mask or bias of each stage [STAGES][BN]
+template <int WG>
+size_t smem_bytes(int dbytes) {
+  const int nk = (dbytes + CHUNK - 1) / CHUNK;
+  return 1024 + (size_t)nk * 64 * WG * CHUNK + (size_t)STAGES * STAGE_BYTES +
+         (size_t)STAGES * BN * 4;
+}
+
+// q (nq, D) and ctx (nv, L, D) as rows of dbytes bytes (a multiple of 16,
+// 16-byte aligned); frame = the (nv, L) mask or bias; out (nq, nv) f32.
+// WG warpgroups, each owning 64 queries of the block's tile.
+template <typename S, int WG>
+__global__ void __launch_bounds__(WG * 128, 1)
+sim_max_mma_kernel(const unsigned char* __restrict__ q,
+                   const unsigned char* __restrict__ ctx,
+                   const typename S::Frame* __restrict__ frame,
+                   float* __restrict__ out, int nq, int nv, int L,
+                   int dbytes) {
+  using Acc = typename S::Acc;
+  constexpr int BQ = WG * 64, THREADS = WG * 128;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw_s = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  unsigned char* smem = smem_raw + (((raw_s + 1023) & ~1023u) - raw_s);
+  const int nk = (dbytes + CHUNK - 1) / CHUNK;  // depth chunks
+  const int nc = (L + BN - 1) / BN;             // frame chunks per video
+  unsigned char* ring = smem + (size_t)nk * BQ * CHUNK;
+  const typename S::Frame* fs =
+      reinterpret_cast<const typename S::Frame*>(ring + STAGES * STAGE_BYTES);
+  const uint32_t qs_s = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
+  const uint32_t fs_s = (uint32_t)__cvta_generic_to_shared(fs);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;           // the warpgroup's 64 queries
+  const int wq = (tid >> 5) & 3;     // the warp's 16 of them
+  const int q0 = blockIdx.y * BQ;
+  const int n_mine = (nv - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const int total = n_mine * nc * nk;
+
+  // the query tile, once per block; rows past nq and depth past D are 0
+  const int q_units = nk * UNITS;
+  for (int e = tid; e < BQ * q_units; e += THREADS) {
+    const int r = e / q_units, u = e % q_units;
+    const bool ok = q0 + r < nq && u * 16 < dbytes;
+    cp16(qs_s + (u / UNITS) * (BQ * CHUNK) + swz(r, u % UNITS),
+         ok ? q + (size_t)(q0 + r) * dbytes + u * 16 : q, ok ? 16 : 0);
+  }
+
+  // this thread copies unit tid % 8 of rows tid / 8 + k * THREADS / 8
+  static_assert(BN * UNITS % THREADS == 0, "copies per thread");
+  const int unit = tid & 7;
+  Stage ld;  // the next stage to load
+  auto load_next = [&]() {
+    const size_t row0 =
+        (size_t)((int)blockIdx.x + ld.j * (int)gridDim.x) * L + ld.c * BN;
+    const int rows = L - ld.c * BN;  // frames of the chunk that exist
+    const int byte = ld.kc * CHUNK + unit * 16;
+    const uint32_t dst = ring_s + ld.slot * STAGE_BYTES;
+#pragma unroll
+    for (int k = 0; k < BN * UNITS / THREADS; ++k) {
+      const int r = (tid >> 3) + k * (THREADS / 8);
+      const bool ok = r < rows && byte < dbytes;
+      cp16(dst + swz(r, unit), ok ? ctx + (row0 + r) * dbytes + byte : ctx,
+           ok ? 16 : 0);
+    }
+    if (ld.kc == nk - 1) {  // the epilogue's mask or bias rides the last stage
+      for (int e = tid; e < BN; e += THREADS)
+        cp4(fs_s + (ld.slot * BN + e) * 4, e < rows ? frame + row0 + e : frame,
+            e < rows ? 4 : 0);
+    }
+    ld.next(nk, nc);
+  };
+
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) load_next();
+    cp_commit();  // the first group also holds the query tile
+  }
+
+  Acc acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  Acc best[2];  // rows lane / 4 and lane / 4 + 8 of the warp
+  Stage st;     // the stage computed
+  for (int i = 0; i < total; ++i, st.next(nk, nc)) {
+    cp_wait<STAGES - 2>();
+    proxy_fence();
+    __syncthreads();  // stage i landed; stage i - 1's slot is free
+    if (i + STAGES - 1 < total) load_next();
+    cp_commit();
+
+    if (st.c == 0 && st.kc == 0) best[0] = best[1] = S::lowest();
+    const uint32_t a = qs_s + st.kc * (BQ * CHUNK) + wg * (64 * CHUNK);
+    const uint32_t b = ring_s + st.slot * STAGE_BYTES;
+    S::fence(acc);
+    wgmma_fence();
+    // the first step of a frame chunk overwrites the accumulators
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks)
+      S::wgmma(acc, desc(a + ks * 32), desc(b + ks * 32),
+               st.kc > 0 || ks > 0);
+    wgmma_commit();
+    wgmma_wait();  // before the slot is refilled and the epilogue reads
+    S::fence(acc);
+    if (st.kc != nk - 1) continue;
+
+    // epilogue of frame chunk c
+    const typename S::Frame* f = fs + st.slot * BN;
+#pragma unroll
+    for (int t = 0; t < BN / 8; ++t)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int n = t * 8 + (lane & 3) * 2 + x;
+        if (st.c * BN + n < L) {
+          const typename S::Frame fv = f[n];
+          best[0] = S::top(best[0], S::masked(acc[4 * t + x], fv));
+          best[1] = S::top(best[1], S::masked(acc[4 * t + 2 + x], fv));
+        }
+      }
+    if (st.c != nc - 1) continue;
+
+    // last chunk of the video: max over the row's 4 lanes, one store
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      Acc v = best[h];
+      v = S::top(v, __shfl_xor_sync(0xffffffffu, v, 1));
+      v = S::top(v, __shfl_xor_sync(0xffffffffu, v, 2));
+      const int row = q0 + wg * 64 + wq * 16 + h * 8 + (lane >> 2);
+      if ((lane & 3) == 0 && row < nq)
+        out[(size_t)row * nv + blockIdx.x + (size_t)st.j * gridDim.x] =
+            S::finish(v);
+    }
+  }
+  cp_wait<0>();
+}
+
+struct Resident {
+  int dev = -1;
+  size_t smem = 0;
+  int blocks = 0;  // blocks resident on the whole card at this smem
+};
+
+// blocks of the kernel that fit on the card at once; sets the dynamic
+// shared-memory limit once per device
+template <typename S, int WG>
+int resident_blocks(size_t smem, int* blocks) {
+  static std::mutex mu;
+  static Resident cache;
+  static bool attr_set[64] = {};
+  std::lock_guard<std::mutex> lock(mu);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (cache.dev == dev && cache.smem == smem) {
+    *blocks = cache.blocks;
+    return 0;
+  }
+  int optin = 0, sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  if (dev < 64 && !attr_set[dev]) {
+    err = cudaFuncSetAttribute(sim_max_mma_kernel<S, WG>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (err != cudaSuccess) return (int)err;
+    attr_set[dev] = true;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sim_max_mma_kernel<S, WG>, WG * 128, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  cache = Resident{dev, smem, per_sm * sms};
+  *blocks = cache.blocks;
+  return 0;
+}
+
+template <typename S, int WG>
+int launch_tile(const void* q, const void* ctx, const void* frame, void* out,
+                int nq, int nv, int L, int D, void* stream) {
+  if (nq <= 0 || nv <= 0) return (int)cudaGetLastError();
+  const int dbytes = D * S::ELEM;
+  const int q_tiles = (nq + WG * 64 - 1) / (WG * 64);
+  if (L <= 0 || D <= 0 || dbytes % 16 || (uintptr_t)q % 16 ||
+      (uintptr_t)ctx % 16 || q_tiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<WG>(dbytes);
+  int blocks = 0;
+  const int rc = resident_blocks<S, WG>(smem, &blocks);
+  if (rc != 0) return rc;
+  int gx = (blocks + q_tiles - 1) / q_tiles;
+  gx = gx < nv ? gx : nv;
+  sim_max_mma_kernel<S, WG>
+      <<<dim3(gx, q_tiles), WG * 128, smem, (cudaStream_t)stream>>>(
+          (const unsigned char*)q, (const unsigned char*)ctx,
+          (const typename S::Frame*)frame, (float*)out, nq, nv, L, dbytes);
+  return (int)cudaGetLastError();
+}
+
+// 64 queries or fewer: one warpgroup per block. More: two, which read the
+// corpus half as often, unless their query rows do not fit in shared memory
+// (D above 704 bf16 or 1,408 int8). D above 1,408 bf16 or 2,816 int8 fits
+// neither: the launch returns cudaErrorInvalidValue.
+template <typename S>
+int launch(const void* q, const void* ctx, const void* frame, void* out,
+           int nq, int nv, int L, int D, void* stream) {
+  if (nq > 64 && smem_bytes<2>(D * S::ELEM) <= MAX_SMEM)
+    return launch_tile<S, 2>(q, ctx, frame, out, nq, nv, L, D, stream);
+  return launch_tile<S, 1>(q, ctx, frame, out, nq, nv, L, D, stream);
+}
+
+}  // namespace
+
+// q (nq, D) bf16, ctx (nv, L, D) bf16, mask (nv, L) f32 -> out (nq, nv) f32.
+// D % 8 == 0 and q, ctx 16-byte aligned (the wrapper pads and checks).
+extern "C" int sim_max_bf16(const void* q, const void* ctx, const void* mask,
+                            void* out, int nq, int nv, int L, int D,
+                            void* stream) {
+  return launch<Bf16>(q, ctx, mask, out, nq, nv, L, D, stream);
+}
+
+// q (nq, D) int8, ctx (nv, L, D) int8, bias (nv, L) int32 -> out (nq, nv)
+// f32. D % 16 == 0 and q, ctx 16-byte aligned (the wrapper pads and checks).
+extern "C" int sim_max_int8(const void* q, const void* ctx, const void* bias,
+                            void* out, int nq, int nv, int L, int D,
+                            void* stream) {
+  return launch<Int8>(q, ctx, bias, out, nq, nv, L, D, stream);
+}

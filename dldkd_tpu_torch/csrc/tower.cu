@@ -562,7 +562,3 @@ extern "C" int tower_quantize_q8(const void* x, void* y, int M, int H,
   return bf16 ? quantize_q8<__nv_bfloat16>(x, y, M, H, s)
               : quantize_q8<float>(x, y, M, H, s);
 }
-
-extern "C" size_t tower_attention_smem(int L, int dh) {
-  return attention_smem(L, dh);
-}

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("sim_max", "sim_max_int8", "sim_max_exact", "tower")
+SOURCES = ("sim_max", "sim_max_mma", "sim_max_exact", "tower")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

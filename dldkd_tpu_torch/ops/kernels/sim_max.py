@@ -3,10 +3,11 @@
 
 Replaces, in dldkd_tpu/ops/pallas/sim_max.py:
 - `_sim_max_kernel`, through `fused_clip_scores(quantized=False)`:
-  `fused_clip_scores` here, CUDA source `csrc/sim_max.cu`;
+  `fused_clip_scores` here, CUDA sources `csrc/sim_max_mma.cu` (bf16, on
+  the tensor cores) and `csrc/sim_max.cu` (f32, IEEE FMAs);
 - `_sim_max_kernel_int8`, through `fused_clip_scores_q8` and
   `fused_clip_scores(quantized=True)`: `fused_clip_scores_int8` and
-  `fused_clip_scores_q8` here, CUDA source `csrc/sim_max_int8.cu`;
+  `fused_clip_scores_q8` here, CUDA source `csrc/sim_max_mma.cu`;
 - `_sim_max_kernel_exact`, through `fused_exact_scores`: `fused_exact_scores`
   here, CUDA source `csrc/sim_max_exact.cu`.
 Each source's header says what bounds it on an H100 and how the design
@@ -67,6 +68,23 @@ def _contiguous(what: str, **ts) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
+def pad_depth(multiple: int, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors with their last axis zero-padded to a multiple of
+    `multiple`; the same tensors, uncopied, when it already is one. Zeros
+    add nothing to a dot product, so the scores do not change."""
+    d = ts[0].shape[-1]
+    if d % multiple == 0:
+        return ts
+    return tuple(F.pad(t, (0, multiple - d % multiple)) for t in ts)
+
+
+def _aligned16(what: str, **ts) -> None:
+    """The tensor-core kernel reads rows in 16-byte copies."""
+    for name, t in ts.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned")
+
+
 def _frame_shapes(what: str, q, c, *per_frame):
     if q.dim() != 2 or c.dim() != 3:
         raise ValueError(f"{what}: want q (Nq, D) and frames (Nv, L, D); "
@@ -122,15 +140,19 @@ def fused_clip_scores(qn: torch.Tensor, cn: torch.Tensor,
         return sim_max_plain(qn, cn, mask)
     from dldkd_tpu_torch.ops.kernels.build import bind, check
 
+    if qn.dtype == torch.float32:   # IEEE f32 FMAs on the CUDA cores
+        sym, fn = "sim_max_f32", bind("sim_max", "sim_max_f32", 4, 4)
+    else:   # bf16 rows of 16-byte multiples, on the tensor cores
+        qn, cn = pad_depth(8, qn, cn)
+        _aligned16("fused_clip_scores", qn=qn, cn=cn)
+        sym, fn = "sim_max_bf16", bind("sim_max_mma", "sim_max_bf16", 4, 4)
     nq, d = qn.shape
     nv, l_frames, _ = cn.shape
-    sym = "sim_max_f32" if qn.dtype == torch.float32 else "sim_max_bf16"
     out = torch.empty((nq, nv), dtype=torch.float32, device=qn.device)
     with torch.cuda.device(qn.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = bind("sim_max", sym, 4, 4)(
-            qn.data_ptr(), cn.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            nq, nv, l_frames, d, stream)
+        rc = fn(qn.data_ptr(), cn.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), nq, nv, l_frames, d, stream)
     check(rc, sym)
     LAUNCHES["sim_max"] += 1
     return out
@@ -195,20 +217,14 @@ def fused_clip_scores_int8(q8: torch.Tensor, c8: torch.Tensor,
         return sim_max_int8_plain(q8, c8, bias)
     from dldkd_tpu_torch.ops.kernels.build import bind, check
 
-    d = q8.shape[1]
-    if d % 4:   # the kernel reads words of four int8; zeros add nothing
-        q8 = F.pad(q8, (0, 4 - d % 4))
-        c8 = F.pad(c8, (0, 4 - d % 4))
-        d = q8.shape[1]
-    nq = q8.shape[0]
+    q8, c8 = pad_depth(16, q8, c8)   # rows of 16-byte multiples
+    _aligned16(what, q8=q8, c8=c8)
+    nq, d = q8.shape
     nv, l_frames, _ = c8.shape
-    for name, t in (("q8", q8), ("c8", c8)):
-        if t.data_ptr() % 4:
-            raise ValueError(f"{what}: {name} must be 4-byte aligned")
     out = torch.empty((nq, nv), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = bind("sim_max_int8", "sim_max_int8", 4, 4)(
+        rc = bind("sim_max_mma", "sim_max_int8", 4, 4)(
             q8.data_ptr(), c8.data_ptr(), bias.data_ptr(), out.data_ptr(),
             nq, nv, l_frames, d, stream)
     check(rc, "sim_max_int8")

@@ -6,8 +6,10 @@ run it without the suite's conftest (which configures JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: scores 1e-5 abs (IEEE f32 FMAs on both sides, bf16 widening
-exactly; sums in another order); tower outputs 1e-4 abs in f32 (five chained
+Tolerances: scores 1e-5 abs (f32 scoring: IEEE f32 FMAs on both sides;
+bf16 scoring: tensor-core products of bf16 values, exact in f32, summed
+with f32 accumulation in another order than the plain version's f32
+matmul of the widened values); tower outputs 1e-4 abs in f32 (five chained
 products, sums in another order) and 3e-2 abs in bf16 (the same rounding
 points; another accumulation order flips a bf16 rounding now and then);
 int8 scores bitwise on valid videos (integer sums); exact-rescore scores
@@ -27,6 +29,7 @@ from dldkd_tpu_torch.config import ModelConfig
 from dldkd_tpu_torch.data.ingest import PackedVideos
 from dldkd_tpu_torch.models import DLDKD
 from dldkd_tpu_torch.ops.fast_eval import tower_weights
+from dldkd_tpu_torch.ops.kernels import build
 from dldkd_tpu_torch.ops.kernels import query_tower as qt
 from dldkd_tpu_torch.ops.kernels import sim_max
 from dldkd_tpu_torch.ops.masking import l2_normalize
@@ -51,11 +54,39 @@ def _mask(n, l, gen, dev):
     return mask.to(dev)
 
 
+@pytest.fixture
+def bound_symbols(monkeypatch):
+    """(library, symbol) of every C entry the wrappers bind."""
+    seen = []
+    real = build.bind
+
+    def spy(name, symbol, *arity):
+        seen.append((name, symbol))
+        return real(name, symbol, *arity)
+
+    monkeypatch.setattr(build, "bind", spy)
+    return seen
+
+
+# Edges of the tensor-core kernels' tiling (64 queries per block, 128
+# frames per chunk, 128 bytes of depth per stage, a persistent grid
+# striding over the videos): query counts around the 64-row tile, video
+# counts that no grid divides, one frame, a ragged chunk, two chunks, a
+# depth that needs padding (bf16 rows to 16 bytes) and TVR's shapes. Every
+# case has an all-masked video (column 0). f32 runs the SIMT kernel of
+# csrc/sim_max.cu on the same shapes.
+_SIM_MAX_SHAPES = [(50, 2179, 128, 384), (256, 2179, 128, 384),
+                   (7, 13, 5, 24), (65, 9, 17, 40), (1, 13, 1, 24),
+                   (64, 263, 7, 64), (65, 131, 130, 128),
+                   (128, 37, 128, 384), (5, 11, 6, 20), (256, 19, 130, 72)]
+_SIM_MAX_ENTRY = {torch.float32: ("sim_max", "sim_max_f32"),
+                  torch.bfloat16: ("sim_max_mma", "sim_max_bf16")}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nq,nv,l_frames,d", [(50, 2179, 128, 384),
-                                              (7, 13, 5, 24),
-                                              (65, 9, 17, 40)])
-def test_sim_max_kernel_matches_plain(dev, dtype, nq, nv, l_frames, d):
+@pytest.mark.parametrize("nq,nv,l_frames,d", _SIM_MAX_SHAPES)
+def test_sim_max_kernel_matches_plain(dev, bound_symbols, dtype, nq, nv,
+                                      l_frames, d):
     gen = torch.Generator().manual_seed(0)
     q = torch.randn(nq, d, generator=gen).to(dev, dtype)
     ctx = torch.randn(nv, l_frames, d, generator=gen).to(dev, dtype)
@@ -66,6 +97,7 @@ def test_sim_max_kernel_matches_plain(dev, dtype, nq, nv, l_frames, d):
     want = sim_max.sim_max_plain(qn, cn, mask)
     torch.cuda.synchronize()
     assert sim_max.LAUNCHES["sim_max"] == before + 1
+    assert bound_symbols == [_SIM_MAX_ENTRY[dtype]]
     torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
     assert bool((got[:, 0] <= -1e9).all())
 
@@ -115,9 +147,14 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
 
 _SCORE_SHAPES = [(256, 2179, 128, 384), (50, 2179, 128, 384), (7, 13, 5, 24),
                  (65, 9, 17, 40), (5, 11, 6, 22)]
+# the tiling edges of _SIM_MAX_SHAPES for int8 rows (padded to 16 bytes:
+# D = 22, 24, 40, 72)
+_INT8_SHAPES = _SCORE_SHAPES + [(1, 13, 1, 16), (64, 263, 7, 64),
+                                (65, 131, 130, 128), (128, 37, 128, 384),
+                                (256, 19, 130, 72)]
 
 
-@pytest.mark.parametrize("nq,nv,l_frames,d", _SCORE_SHAPES)
+@pytest.mark.parametrize("nq,nv,l_frames,d", _INT8_SHAPES)
 def test_int8_kernel_matches_plain(dev, nq, nv, l_frames, d):
     gen = torch.Generator().manual_seed(3)
     q8 = torch.randint(-127, 128, (nq, d), generator=gen,
