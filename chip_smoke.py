@@ -11,8 +11,9 @@ package. Phases, in order; any failure exits non-zero without the final
    nvcc per source, all at once, and print ptxas' register, spill and
    shared-memory summary;
 3. each kernel, in f32 and bf16, plus the one-branch tower launch, at the
-   per-launch shapes of a TVR test eval (bf16 scoring also at serving's 256
-   queries), against its plain PyTorch version on the same inputs: max abs
+   per-launch shapes of a TVR test eval (bf16 scoring and the bf16 query
+   tower also at serving's 256 queries), against its plain PyTorch version
+   on the same inputs: max abs
    error against a stated tolerance, kernel and plain times (CUDA events,
    >= 20 launches after warm-up) and the least time the card could take
    (bytes over 3.35 TB/s or operations over the peak rate of their type);
@@ -23,7 +24,13 @@ package. Phases, in order; any failure exits non-zero without the final
    dense-versus-gather cost model. Beside each scorer, `product_ms` times
    the bare product at the same shapes (`torch.matmul`, `torch._int_mm`):
    a yardstick, not the same function (it writes every frame score, with
-   no mask and no max), which the port never calls;
+   no mask and no max), which the port never calls; beside each tower,
+   `product_ms` times its three (query) or four (video) products with
+   `torch.matmul` at the launch's shapes in the tower dtype, without the
+   normalization, LayerNorms, attention, pooling or epilogues. The towers'
+   kernel time is the chain alone on weights packed once, as the eval and
+   serving run it, with `device_ms` beside it: the chain's kernels alone
+   (torch.profiler), without the host's time between launches;
 4. `dldkd_tpu_torch.infer.main` on a synthetic dataset at full feature
    widths, with a checkpoint written by the port's own writer: the bf16
    serving config and the f32 parity config, then `--score_quant`; and
@@ -125,6 +132,25 @@ def cuda_ms(fn, n: int = 25, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_ms(fn, n: int = 10) -> float:
+    """Device time of fn() per call: the kernels' and copies' durations in
+    torch.profiler's trace of n calls, summed. Unlike cuda_ms it leaves out
+    the host's time between launches, which sets cuda_ms for a chain of
+    small kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / n / 1e3
 
 
 def bound(n_bytes: float, n_ops: float, dtype: str):
@@ -231,6 +257,44 @@ def _tower_flops(n: int, l: int, d: int, h: int, kind: str) -> float:
     return f + (2 * m * h if kind == "query" else 2 * m * h * h)
 
 
+def _tower_products(n, l, d, h, branches, kind, dtype, gen, dev):
+    """The tower's products alone, torch.matmul at the launch's shapes: a
+    yardstick the port never calls."""
+    import torch
+
+    m = n * l
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+
+    x, wp = rand(m, d), rand(d, branches * h)
+    hb, wqkv, wo = rand(branches, m, h), rand(branches, h, 3 * h), \
+        rand(branches, h, h)
+
+    def run():
+        torch.matmul(x, wp)
+        torch.matmul(hb, wqkv)
+        torch.matmul(hb, wo)
+        if kind == "context":
+            torch.matmul(hb, wo)
+    return run
+
+
+def _mma_smem(l: int, h: int, heads: int) -> dict:
+    """Dynamic shared memory per block of csrc/tower_mma.cu's kernels at a
+    launch's shapes (their launchers' formulas): the GEMM's 1 KB of
+    alignment slack and 3 stages of (64 or 128 rows + 128 columns) x 128
+    bytes; attention's Q, K, V of the head, rows and dims padded to 16, 8
+    values of row padding, and the key biases."""
+    def r16(v):
+        return -(-v // 16) * 16
+
+    return {"gemm_64_rows": 1024 + 3 * (64 + 128) * 128,
+            "gemm_128_rows": 1024 + 3 * (128 + 128) * 128,
+            "attention": 3 * r16(l) * (r16(h // heads) + 8) * 2
+            + (32 if l <= 32 else 128) * 4}
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the per-launch shapes."""
     import torch
@@ -290,32 +354,37 @@ def phase_kernels(dev):
             del q, qn, got, want
         del cn
 
-        # ---- kernels 2 and 3: the towers, both branches and one branch
+        # ---- kernels 2 and 3: the towers, both branches and one branch;
+        # in bf16 the query tower also at serving's 256 queries
         model = _serving_model(dtype, seed=2)
         ws = tower_weights(model, dev)
-        for kind, n, l, d in (("query", nq, TVR["tokens"], TVR["d_query"]),
-                              ("context", TVR["context_bsz"], lf,
-                               TVR["d_video"])):
+        cases = [("query", nq, TVR["tokens"], TVR["d_query"]),
+                 ("context", TVR["context_bsz"], lf, TVR["d_video"])]
+        if dtype == "bfloat16":
+            cases.insert(1, ("query", SERVE["query_bsz"], TVR["tokens"],
+                             TVR["d_query"]))
+        for kind, n, l, d in cases:
             x = torch.randn(n, l, d, generator=gen)
             x = (x / x.norm(dim=-1, keepdim=True)).to(dev)
             xm = _ragged_mask(n, l, 3, gen, dev)
             for branches in (2, 1):
                 w = ws[kind][:branches]
+                packed = qt.pack_weights(w, tdt, dev)
                 if kind == "query":
                     lp = -(-l // 8) * 8
                     xp = torch.nn.functional.pad(x, (0, 0, 0, lp - l))
                     mp = torch.nn.functional.pad(xm, (0, lp - l))
-                    args = [qt._with_pos(wi, l, lp) for wi in w]
                     run = (lambda: qt.query_towers(
-                        x, xm, w, TVR["heads"], tdt, TVR["tokens"], "check"))
+                        x, xm, w, TVR["heads"], tdt, TVR["tokens"], "check",
+                        packed=packed))
                     plain = (lambda: qt.query_towers(
                         x, xm, w, TVR["heads"], tdt, TVR["tokens"], "check",
                         plain=True))
                 else:
                     lp, xp, mp = l, x, xm
-                    args = [qt._with_pos(wi, l, l) for wi in w]
                     run = (lambda: qt.context_towers(
-                        x, xm, w, TVR["heads"], tdt, "check"))
+                        x, xm, w, TVR["heads"], tdt, "check",
+                        packed=packed))
                     plain = (lambda: qt.context_towers(
                         x, xm, w, TVR["heads"], tdt, "check", plain=True))
                 got, want = run(), plain()
@@ -324,9 +393,8 @@ def phase_kernels(dev):
                 finite = all(bool(torch.isfinite(a.float()).all())
                              for a in got)
                 tol = TOL[("tower", dtype)]
-                packed = qt.pack_weights(args, tdt, dev)
                 chain = (lambda: qt.tower_cuda(xp, mp, packed, TVR["heads"],
-                                               tdt, kind))
+                                               tdt, kind, pos_rows=l))
                 w_bytes = sum(t.numel() * t.element_size()
                               for t in packed.values())
                 out_item = 4 if kind == "query" else item
@@ -340,17 +408,25 @@ def phase_kernels(dev):
                        "shape": {"x": [n, l, d], "hidden": h},
                        "max_abs_err": err, "tol": tol, "finite": finite,
                        "kernel_ms": cuda_ms(chain),
+                       "device_ms": device_ms(chain),
                        "wrapper_ms": cuda_ms(run),
                        "plain_ms": cuda_ms(plain, n=20),
                        "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": None}
+                       "library_ms": None,
+                       # yardstick only: the products alone, torch.matmul
+                       "product_ms": cuda_ms(_tower_products(
+                           n, lp, d, h, branches, kind, tdt, gen, dev))}
+                if dtype == "bfloat16":
+                    rec["mma_smem_bytes"] = _mma_smem(lp, h, TVR["heads"])
                 emit(rec)
-                results[(name, dtype, branches)] = rec
+                results[(name, dtype, branches) if n != SERVE["query_bsz"]
+                        else (name, dtype, branches, n)] = rec
                 if not finite:
-                    fail(f"{name} {dtype} x{branches}: non-finite output")
+                    fail(f"{name} {dtype} x{branches} n={n}: non-finite "
+                         f"output")
                 if not err <= tol:
-                    fail(f"{name} {dtype} x{branches}: max abs error {err} "
-                         f"> {tol}")
+                    fail(f"{name} {dtype} x{branches} n={n}: max abs error "
+                         f"{err} > {tol}")
         del model, ws
         torch.cuda.empty_cache()
     return results
@@ -487,8 +563,10 @@ def _tvr_data(dev, seed: int):
 def _short_kernel_name(name: str) -> str:
     if "sim_max_mma_kernel" in name:   # csrc/sim_max_mma.cu, by element type
         return "sim_max_int8" if "Int8" in name else "sim_max_kernel"
-    for k in ("sim_max_kernel", "gemm_kernel", "attention_kernel",
-              "layernorm_kernel", "row_stats_kernel", "pool_kernel"):
+    for k in ("gemm_mma_kernel", "attention_mma_kernel", "normalize_kernel",
+              "sim_max_kernel", "gemm_kernel", "attention_kernel",
+              "layernorm_kernel", "row_stats_kernel", "pool_kernel",
+              "quantize_q8_kernel"):
         if k in name:
             return k
     if name.startswith("Memcpy") or name.startswith("Memset"):
@@ -1040,11 +1118,11 @@ def main() -> None:
                           ("sim_max_exact", SERVE["query_bsz"]),
                           "serving two_stage_dense",
                           serve_launches["two_stage_dense"]),
-        "query_tower": ("dldkd_tpu_torch/csrc/tower.cu",
+        "query_tower": ("dldkd_tpu_torch/csrc/tower_mma.cu",
                         "dldkd_tpu/ops/pallas/query_tower.py:211",
                         ("query_tower", "bfloat16", 2), "tvr_eval",
                         launches),
-        "context_tower": ("dldkd_tpu_torch/csrc/tower.cu",
+        "context_tower": ("dldkd_tpu_torch/csrc/tower_mma.cu",
                           "dldkd_tpu/ops/pallas/query_tower.py:246",
                           ("context_tower", "bfloat16", 2), "tvr_eval",
                           launches),
@@ -1064,6 +1142,13 @@ def main() -> None:
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"], "library_ms": None,
                         "product_ms": rec.get("product_ms")})
+        if "device_ms" in rec:
+            kernels[-1]["device_ms"] = rec["device_ms"]
+        if name in ("query_tower", "context_tower"):
+            # the bf16 chain: tower_mma.cu's normalization, products and
+            # attention, tower.cu's LayerNorm and pooling
+            kernels[-1]["chain_sources"] = [
+                src, "dldkd_tpu_torch/csrc/tower.cu"]
     check_no_jax()
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -75,10 +75,12 @@
 
 #include <mutex>
 
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr int BN = 128;             // frames per chunk: wgmma's N
-constexpr int CHUNK = 128;          // bytes of depth per stage
+constexpr int CHUNK = ROW_BYTES;    // bytes of depth per stage
 constexpr int UNITS = CHUNK / 16;   // 16-byte units per row of a stage
 constexpr int STAGES = 3;
 constexpr int KSTEPS = CHUNK / 32;  // one wgmma takes 32 bytes of depth
@@ -99,35 +101,7 @@ struct Bf16 {
   static __device__ __forceinline__ Acc lowest() { return -INFINITY; }
   static __device__ __forceinline__ void wgmma(Acc (&d)[64], uint64_t a,
                                                uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
+    wgmma_bf16(d, a, b, accumulate);
   }
   static __device__ __forceinline__ Acc masked(Acc s, Frame m) {
     return s * m + (1.f - m) * NEG_INF;
@@ -136,10 +110,8 @@ struct Bf16 {
     return fmaxf(a, b);
   }
   static __device__ __forceinline__ float finish(Acc best) { return best; }
-  // keeps the compiler from touching the accumulators while wgmma runs
   static __device__ __forceinline__ void fence(Acc (&d)[64]) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+    acc_fence(d);
   }
 };
 
@@ -190,68 +162,9 @@ struct Int8 {
     return (float)best * INV_SCALE2;
   }
   static __device__ __forceinline__ void fence(Acc (&d)[64]) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+    acc_fence(d);
   }
 };
-
-// byte offset of 16-byte unit `unit` of row `row` in a tile of 128-byte
-// rows, in the 128-byte swizzle: unit ^ (row % 8) within each 1024-byte
-// group of 8 rows (the tile starts on a 1024-byte boundary)
-__device__ __forceinline__ uint32_t swz(int row, int unit) {
-  return (uint32_t)(row * CHUNK + ((unit ^ (row & 7)) << 4));
-}
-
-// wgmma's shared-memory descriptor of a K-major operand in that swizzle:
-// start address / 16, leading offset 1 (unused when swizzled), 1024 bytes
-// between groups of 8 rows, layout 1 = 128-byte swizzle. A step of 32
-// bytes of depth moves the start address by 32.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// 16 bytes global -> shared; bytes = 0 zero-fills and reads nothing
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
-                                     int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src,
-                                    int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// cp.async writes shared memory through the generic proxy, wgmma reads it
-// through the async proxy
-__device__ __forceinline__ void proxy_fence() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
 
 // a stage of a block's walk: its j-th video, frame chunk c, depth chunk kc,
 // and the ring slot it goes through

@@ -1,5 +1,8 @@
 // Encoder towers for inference: the query tower (pooled vectors) and the
 // video tower (frame features) of one branch or of two branches at once.
+// The f32 towers run this file's chain; the bf16 towers run the input
+// normalization, the products and the attention of csrc/tower_mma.cu on
+// the tensor cores, and this file's LayerNorm, pooling and int8 epilogue.
 //
 // Replaces dldkd_tpu/ops/pallas/query_tower.py:
 //   _dual_query_tower_kernel   (two branches, query tower)
@@ -36,15 +39,16 @@
 //   8. pool (query tower) or gemm out_mapping_linear (video tower)
 //   9. quantize_q8 (video tower with emit_q8): per-frame L2 norm and int8;
 //      the T frames of step 8 then live only in a scratch buffer
-// Every product is hand-written here: a shared-memory tiled SIMT GEMM of
-// IEEE f32 FMAs with f32 accumulation (bf16 operands widen exactly). Tensor
-// cores and fusing the chain are later work.
+// Every f32 product is hand-written here: a shared-memory tiled SIMT GEMM
+// of IEEE f32 FMAs with f32 accumulation, which f32 parity needs (the
+// tensor cores have no f32 product). Fusing the chain is later work.
 //
-// Rounding: with T = bf16 every value is rounded to bf16 where the Pallas
-// kernel casts to the tower dtype (query_tower.py:82, 85-86, 93, 107, 111,
-// 117, and the raw input before the input LayerNorm, 380-381 / 467-468);
-// the pooled query vectors are f32 and the frame features are T. With
-// T = f32 every rounding is the identity.
+// Rounding: the LayerNorm, pooling and int8 kernels, which the bf16 towers
+// share, take the tower dtype T; with T = bf16 every value is rounded to
+// bf16 where the Pallas kernel casts to the tower dtype (query_tower.py:82,
+// 85-86, 93, 107, 111, 117), and the pooled query vectors stay f32. With
+// T = f32 every rounding is the identity; steps 1, 2/4/6/8 and 5 here are
+// f32 only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,9 +94,8 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// 1. input LayerNorm statistics of round_to<T>(x): one warp per row
+// 1. input LayerNorm statistics of x: one warp per row
 // ---------------------------------------------------------------------------
-template <typename T>
 __global__ void row_stats_kernel(const float* __restrict__ x,
                                  float* __restrict__ mu,
                                  float* __restrict__ rstd, int M, int D) {
@@ -102,7 +105,7 @@ __global__ void row_stats_kernel(const float* __restrict__ x,
   const float* xr = x + (size_t)row * D;
   float s = 0.f, ss = 0.f;
   for (int k = lane; k < D; k += 32) {
-    const float v = round_to<T>(xr[k]);
+    const float v = xr[k];
     s += v;
     ss = fmaf(v, v, ss);
   }
@@ -118,11 +121,10 @@ __global__ void row_stats_kernel(const float* __restrict__ x,
 
 // ---------------------------------------------------------------------------
 // 2/4/6/8. C[b] = epilogue(A'[b] (M x K) @ W[b] (K x N)), batched over
-// blockIdx.z (the branch). A' is A, or with row statistics
-// round_to<T>((round_to<T>(a) - mu) * rstd) (the input LayerNorm applied
-// on load). Epilogue, in order: + bias[n] (f32); ReLU; round to T;
-// + pos[m % pos_period][n] (f32 holding T values), round to T;
-// + res[m][n] (T), round to T. All strides are in elements.
+// blockIdx.z (the branch). A' is A, or with row statistics (a - mu) * rstd
+// (the input LayerNorm applied on load). Epilogue, in order: + bias[n];
+// ReLU; + pos[m % pos_period][n] where m % pos_period < pos_rows;
+// + res[m][n]. All strides are in elements.
 // ---------------------------------------------------------------------------
 struct GemmArgs {
   const void* a; const void* w; const float* bias; void* c;
@@ -130,18 +132,17 @@ struct GemmArgs {
   int M, N, K;
   int lda, ldw, ldc, ldp, ldr;
   int sa, sw, sb, sc, sr;   // per-batch strides
-  int relu, pos_period;
+  int relu, pos_period, pos_rows;
 };
 
 constexpr int GB_M = 64, GB_N = 64, GB_K = 16, G_THREADS = 256;
 
-template <typename TA, typename T>
 __global__ void __launch_bounds__(G_THREADS) gemm_kernel(GemmArgs g) {
   __shared__ __align__(16) float As[GB_K][GB_M + 4];
   __shared__ __align__(16) float Ws[GB_K][GB_N + 4];
   const int b = blockIdx.z;
-  const TA* A = (const TA*)g.a + (size_t)b * g.sa;
-  const T* W = (const T*)g.w + (size_t)b * g.sw;
+  const float* A = (const float*)g.a + (size_t)b * g.sa;
+  const float* W = (const float*)g.w + (size_t)b * g.sw;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
@@ -158,16 +159,15 @@ __global__ void __launch_bounds__(G_THREADS) gemm_kernel(GemmArgs g) {
       const int gm = m0 + r, gk = k0 + k;
       float v = 0.f;
       if (gm < g.M && gk < g.K) {
-        v = widen(A[(size_t)gm * g.lda + gk]);
-        if (g.mu) v = round_to<T>((round_to<T>(v) - g.mu[gm]) * g.rstd[gm]);
+        v = A[(size_t)gm * g.lda + gk];
+        if (g.mu) v = (v - g.mu[gm]) * g.rstd[gm];
       }
       As[k][r] = v;
     }
     for (int e = tid; e < GB_K * GB_N; e += G_THREADS) {
       const int k = e / GB_N, n = e % GB_N;
       const int gk = k0 + k, gn = n0 + n;
-      Ws[k][n] = (gk < g.K && gn < g.N) ? widen(W[(size_t)gk * g.ldw + gn])
-                                        : 0.f;
+      Ws[k][n] = (gk < g.K && gn < g.N) ? W[(size_t)gk * g.ldw + gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -184,9 +184,9 @@ __global__ void __launch_bounds__(G_THREADS) gemm_kernel(GemmArgs g) {
     __syncthreads();
   }
 
-  T* C = (T*)g.c + (size_t)b * g.sc;
+  float* C = (float*)g.c + (size_t)b * g.sc;
   const float* bias = g.bias ? g.bias + (size_t)b * g.sb : nullptr;
-  const T* R = g.res ? (const T*)g.res + (size_t)b * g.sr : nullptr;
+  const float* R = g.res ? (const float*)g.res + (size_t)b * g.sr : nullptr;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int gm = m0 + ty * 4 + i;
@@ -198,11 +198,10 @@ __global__ void __launch_bounds__(G_THREADS) gemm_kernel(GemmArgs g) {
       float v = acc[i][j];
       if (bias) v += bias[gn];
       if (g.relu) v = fmaxf(v, 0.f);
-      v = round_to<T>(v);
-      if (g.pos)
-        v = round_to<T>(v + g.pos[(size_t)(gm % g.pos_period) * g.ldp + gn]);
-      if (R) v = round_to<T>(v + widen(R[(size_t)gm * g.ldr + gn]));
-      C[(size_t)gm * g.ldc + gn] = narrow<T>(v);
+      if (g.pos && gm % g.pos_period < g.pos_rows)
+        v += g.pos[(size_t)(gm % g.pos_period) * g.ldp + gn];
+      if (R) v += R[(size_t)gm * g.ldr + gn];
+      C[(size_t)gm * g.ldc + gn] = v;
     }
   }
 }
@@ -245,15 +244,14 @@ __global__ void layernorm_kernel(const T* __restrict__ x, T* __restrict__ y,
 // K and V of the (sequence, head) sit in shared memory as f32; each warp
 // takes query rows in turn: scores over keys (lane-strided), the key mask,
 // a softmax with the row max subtracted (an all-masked row stays finite),
-// probabilities rounded to T, then P @ V with lanes over the head dims.
+// then P @ V with lanes over the head dims. f32 only.
 // ---------------------------------------------------------------------------
 constexpr int A_THREADS = 256, A_WARPS = A_THREADS / 32;
 
-template <typename T>
 __global__ void __launch_bounds__(A_THREADS)
-attention_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
-                 T* __restrict__ ctx, int Nseq, int L, int H, int dh,
-                 float scale) {
+attention_kernel(const float* __restrict__ qkv,
+                 const float* __restrict__ mask, float* __restrict__ ctx,
+                 int Nseq, int L, int H, int dh, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ldk = dh + 1;  // odd stride: lanes on different keys hit
                            // different banks
@@ -265,14 +263,14 @@ attention_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
 
   const int head = blockIdx.x, seq = blockIdx.y, br = blockIdx.z;
   const size_t M = (size_t)Nseq * L;
-  const T* base = qkv + (size_t)br * M * 3 * H + (size_t)seq * L * 3 * H;
+  const float* base = qkv + (size_t)br * M * 3 * H + (size_t)seq * L * 3 * H;
   const int qoff = head * dh, koff = H + head * dh, voff = 2 * H + head * dh;
 
   for (int e = threadIdx.x; e < L * dh; e += A_THREADS) {
     const int j = e / dh, d = e % dh;
-    const T* row = base + (size_t)j * 3 * H;
-    Ks[j * ldk + d] = widen(row[koff + d]);
-    Vs[j * dh + d] = widen(row[voff + d]);
+    const float* row = base + (size_t)j * 3 * H;
+    Ks[j * ldk + d] = row[koff + d];
+    Vs[j * dh + d] = row[voff + d];
   }
   for (int j = threadIdx.x; j < L; j += A_THREADS)
     mb[j] = (1.0f - mask[(size_t)seq * L + j]) * NEG_BIG;
@@ -281,10 +279,10 @@ attention_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* q = qb + warp * dh;
   float* p = pb + warp * L;
-  T* out = ctx + (size_t)br * M * H + (size_t)seq * L * H + head * dh;
+  float* out = ctx + (size_t)br * M * H + (size_t)seq * L * H + head * dh;
   for (int i = warp; i < L; i += A_WARPS) {
-    const T* qrow = base + (size_t)i * 3 * H + qoff;
-    for (int d = lane; d < dh; d += 32) q[d] = widen(qrow[d]);
+    const float* qrow = base + (size_t)i * 3 * H + qoff;
+    for (int d = lane; d < dh; d += 32) q[d] = qrow[d];
     __syncwarp();
     float mx = -INFINITY;
     for (int j = lane; j < L; j += 32) {
@@ -303,12 +301,12 @@ attention_kernel(const T* __restrict__ qkv, const float* __restrict__ mask,
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < L; j += 32) p[j] = round_to<T>(p[j] / sum);
+    for (int j = lane; j < L; j += 32) p[j] = p[j] / sum;
     __syncwarp();
     for (int d = lane; d < dh; d += 32) {
       float acc = 0.f;
       for (int j = 0; j < L; ++j) acc = fmaf(p[j], Vs[j * dh + d], acc);
-      out[(size_t)i * H + d] = narrow<T>(acc);
+      out[(size_t)i * H + d] = acc;
     }
     __syncwarp();
   }
@@ -411,22 +409,20 @@ __global__ void quantize_q8_kernel(const T* __restrict__ x,
 
 inline int launch_rc() { return (int)cudaGetLastError(); }
 
-template <typename T>
 int row_stats(const void* x, void* mu, void* rstd, int M, int D, void* s) {
   if (M > 0) {
     const int rows_per_block = 256 / 32;
-    row_stats_kernel<T><<<(M + rows_per_block - 1) / rows_per_block, 256, 0,
-                          (cudaStream_t)s>>>((const float*)x, (float*)mu,
-                                             (float*)rstd, M, D);
+    row_stats_kernel<<<(M + rows_per_block - 1) / rows_per_block, 256, 0,
+                       (cudaStream_t)s>>>((const float*)x, (float*)mu,
+                                          (float*)rstd, M, D);
   }
   return launch_rc();
 }
 
-template <typename TA, typename T>
 int gemm(const GemmArgs& g, int batch, void* s) {
   if (g.M > 0 && g.N > 0 && batch > 0) {
     const dim3 grid((g.N + GB_N - 1) / GB_N, (g.M + GB_M - 1) / GB_M, batch);
-    gemm_kernel<TA, T><<<grid, G_THREADS, 0, (cudaStream_t)s>>>(g);
+    gemm_kernel<<<grid, G_THREADS, 0, (cudaStream_t)s>>>(g);
   }
   return launch_rc();
 }
@@ -449,19 +445,19 @@ size_t attention_smem(int L, int dh) {
                           (size_t)A_WARPS * dh + (size_t)A_WARPS * L);
 }
 
-template <typename T>
 int attention(const void* qkv, const void* mask, void* ctx, int G, int Nseq,
               int L, int H, int heads, float scale, void* s) {
   if (G > 0 && Nseq > 0 && L > 0) {
     const int dh = H / heads;
     const size_t smem = attention_smem(L, dh);
     cudaError_t e = cudaFuncSetAttribute(
-        attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
-    attention_kernel<T><<<dim3(heads, Nseq, G), A_THREADS, smem,
-                          (cudaStream_t)s>>>(
-        (const T*)qkv, (const float*)mask, (T*)ctx, Nseq, L, H, dh, scale);
+    attention_kernel<<<dim3(heads, Nseq, G), A_THREADS, smem,
+                       (cudaStream_t)s>>>(
+        (const float*)qkv, (const float*)mask, (float*)ctx, Nseq, L, H, dh,
+        scale);
   }
   return launch_rc();
 }
@@ -493,7 +489,7 @@ GemmArgs make_args(const void* a, const void* w, const void* bias, void* c,
                    const void* mu, const void* rstd, const void* pos,
                    const void* res, int M, int N, int K, int lda, int ldw,
                    int ldc, int ldp, int ldr, int sa, int sw, int sb, int sc,
-                   int sr, int relu, int pos_period) {
+                   int sr, int relu, int pos_period, int pos_rows) {
   GemmArgs g;
   g.a = a; g.w = w; g.bias = (const float*)bias; g.c = c;
   g.mu = (const float*)mu; g.rstd = (const float*)rstd;
@@ -502,35 +498,34 @@ GemmArgs make_args(const void* a, const void* w, const void* bias, void* c,
   g.lda = lda; g.ldw = ldw; g.ldc = ldc; g.ldp = ldp; g.ldr = ldr;
   g.sa = sa; g.sw = sw; g.sb = sb; g.sc = sc; g.sr = sr;
   g.relu = relu; g.pos_period = pos_period > 0 ? pos_period : 1;
+  g.pos_rows = pos_rows;
   return g;
 }
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// C interface. `bf16` selects T = bf16 (else f32). Pointers may be null
-// where the argument is unused (mu/rstd, pos, res, bias).
+// C interface. `bf16` selects T = bf16 (else f32); row statistics, the
+// products and the attention are f32 only here (bf16: csrc/tower_mma.cu).
+// Pointers may be null where the argument is unused (mu/rstd, pos, res,
+// bias).
 // ---------------------------------------------------------------------------
 extern "C" int tower_row_stats(const void* x, void* mu, void* rstd, int M,
-                               int D, int bf16, void* s) {
-  return bf16 ? row_stats<__nv_bfloat16>(x, mu, rstd, M, D, s)
-              : row_stats<float>(x, mu, rstd, M, D, s);
+                               int D, void* s) {
+  return row_stats(x, mu, rstd, M, D, s);
 }
 
-// a_f32: A is f32 (the raw input of the first product) whatever T is
+// W is (K, N) rows of ldw
 extern "C" int tower_gemm(const void* a, const void* w, const void* bias,
                           void* c, const void* mu, const void* rstd,
                           const void* pos, const void* res, int M, int N,
                           int K, int lda, int ldw, int ldc, int ldp, int ldr,
                           int sa, int sw, int sb, int sc, int sr, int relu,
-                          int pos_period, int batch, int a_f32, int bf16,
-                          void* s) {
+                          int pos_period, int pos_rows, int batch, void* s) {
   const GemmArgs g = make_args(a, w, bias, c, mu, rstd, pos, res, M, N, K,
                                lda, ldw, ldc, ldp, ldr, sa, sw, sb, sc, sr,
-                               relu, pos_period);
-  if (!bf16) return gemm<float, float>(g, batch, s);
-  if (a_f32) return gemm<float, __nv_bfloat16>(g, batch, s);
-  return gemm<__nv_bfloat16, __nv_bfloat16>(g, batch, s);
+                               relu, pos_period, pos_rows);
+  return gemm(g, batch, s);
 }
 
 extern "C" int tower_layernorm(const void* x, void* y, const void* gamma,
@@ -542,11 +537,8 @@ extern "C" int tower_layernorm(const void* x, void* y, const void* gamma,
 
 extern "C" int tower_attention(const void* qkv, const void* mask, void* ctx,
                                int G, int Nseq, int L, int H, int heads,
-                               int bf16, float scale, void* s) {
-  return bf16 ? attention<__nv_bfloat16>(qkv, mask, ctx, G, Nseq, L, H, heads,
-                                         scale, s)
-              : attention<float>(qkv, mask, ctx, G, Nseq, L, H, heads, scale,
-                                 s);
+                               float scale, void* s) {
+  return attention(qkv, mask, ctx, G, Nseq, L, H, heads, scale, s);
 }
 
 extern "C" int tower_pool(const void* x, const void* mask, const void* wm,

@@ -19,8 +19,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from dldkd_tpu_torch.ops.kernels.query_tower import (
-    context_weights_for_branch, fused_context_tower,
-    fused_context_tower_dual, fused_query_tower, fused_query_tower_dual,
+    context_towers, context_weights_for_branch, pack_weights, query_towers,
     weights_for_branch)
 from dldkd_tpu_torch.ops.masking import mask_logits
 
@@ -144,24 +143,53 @@ def encode_query_fast(model, feat: torch.Tensor, mask: torch.Tensor
     return outs[0], (outs[1] if len(outs) > 1 else None)
 
 
+def _launch_groups(model) -> List[List[int]]:
+    """Branch indices of each tower launch: both branches in one launch
+    when they share a hidden size, else one launch per branch."""
+    c = model.config
+    n = len(model.branches)
+    if n == 2 and c.inheritance_hidden == c.exploration_hidden:
+        return [[0, 1]]
+    return [[i] for i in range(n)]
+
+
 def tower_weights(model, device=None) -> Dict[str, list]:
     """Every branch's query and video weight tuples in the config's tower
-    dtype, on `device`: made once per eval instead of once per batch."""
+    dtype, on `device`, and under "packed" each launch's operands in the
+    kernels' layout (`pack_weights`, per tower kind, one entry per launch
+    group): made once per eval or Retriever model instead of once per
+    batch."""
     dtype = tower_dtype(model.config)
 
     def move(ws):
         return tuple(w.to(device) if device is not None else w for w in ws)
 
-    return {"query": [move(weights_for_branch(model, n, dtype))
-                      for n in model.branch_names],
-            "context": [move(context_weights_for_branch(model, n, dtype))
-                        for n in model.branch_names]}
+    ws = {"query": [move(weights_for_branch(model, n, dtype))
+                    for n in model.branch_names],
+          "context": [move(context_weights_for_branch(model, n, dtype))
+                      for n in model.branch_names]}
+    ws["packed"] = {kind: [pack_weights([ws[kind][i] for i in group], dtype,
+                                        device)
+                           for group in _launch_groups(model)]
+                    for kind in ("query", "context")}
+    return ws
 
 
-def _dual(model) -> bool:
-    c = model.config
-    return len(model.branches) == 2 and \
-        c.inheritance_hidden == c.exploration_hidden
+def _pair(outs: List[torch.Tensor]) -> Pair:
+    return outs[0], (outs[1] if len(outs) > 1 else None)
+
+
+def _context(model, feat, mask, weights, plain, emit_q8) -> Pair:
+    ws = weights or tower_weights(model, feat.device)
+    dtype = tower_dtype(model.config)
+    groups = _launch_groups(model)
+    what = "fused_context_tower" + ("_dual" if len(groups[0]) == 2 else "")
+    outs = []
+    for group, packed in zip(groups, ws["packed"]["context"]):
+        outs += context_towers(feat, mask, [ws["context"][i] for i in group],
+                               model.config.n_heads, dtype, what, plain,
+                               emit_q8, packed)
+    return _pair(outs)
 
 
 @torch.no_grad()
@@ -171,15 +199,7 @@ def encode_context_best(model, feat: torch.Tensor, mask: torch.Tensor,
     """Frame features per branch, (Nv, L, H) in the tower dtype: the
     two-branch kernel launch when the branches share a hidden size, else
     one one-branch launch per branch."""
-    ws = (weights or tower_weights(model))["context"]
-    dtype = tower_dtype(model.config)
-    n_heads = model.config.n_heads
-    if _dual(model):
-        return fused_context_tower_dual(feat, mask, ws[0], ws[1], n_heads,
-                                        dtype, plain=plain)
-    outs = [fused_context_tower(feat, mask, w, n_heads, dtype, plain=plain)
-            for w in ws]
-    return outs[0], (outs[1] if len(outs) > 1 else None)
+    return _context(model, feat, mask, weights, plain, emit_q8=False)
 
 
 @torch.no_grad()
@@ -190,15 +210,7 @@ def encode_context_q8(model, feat: torch.Tensor, mask: torch.Tensor,
     of the frame features that encode_context_best returns, computed by
     the towers' int8 epilogue (emit_q8) so the frames in the tower dtype
     never leave the launch (dldkd_tpu/ops/fast_eval.py:161-201)."""
-    ws = (weights or tower_weights(model))["context"]
-    dtype = tower_dtype(model.config)
-    n_heads = model.config.n_heads
-    if _dual(model):
-        return fused_context_tower_dual(feat, mask, ws[0], ws[1], n_heads,
-                                        dtype, plain=plain, emit_q8=True)
-    outs = [fused_context_tower(feat, mask, w, n_heads, dtype, plain=plain,
-                                emit_q8=True) for w in ws]
-    return outs[0], (outs[1] if len(outs) > 1 else None)
+    return _context(model, feat, mask, weights, plain, emit_q8=True)
 
 
 @torch.no_grad()
@@ -207,19 +219,18 @@ def encode_query_best(model, feat: torch.Tensor, mask: torch.Tensor,
                       plain: bool = False) -> Pair:
     """Pooled query vectors per branch, (Nq, H): f32, cast to bf16 in a
     bf16 config (dldkd_tpu/ops/fast_eval.py:247-251)."""
-    ws = (weights or tower_weights(model))["query"]
+    ws = weights or tower_weights(model, feat.device)
     dtype = tower_dtype(model.config)
-    n_heads = model.config.n_heads
-    if _dual(model):
-        outs = list(fused_query_tower_dual(feat, mask, ws[0], ws[1], n_heads,
-                                           dtype, plain=plain))
-    else:
-        # the smallest table across branches: every branch sees the same
-        # tail mask (fast_eval.py:237-246)
-        n_pos_min = min(w[2].shape[0] for w in ws)
-        outs = [fused_query_tower(feat, mask, w, n_heads, dtype,
-                                  n_pos_cap=n_pos_min, plain=plain)
-                for w in ws]
+    groups = _launch_groups(model)
+    what = "fused_query_tower" + ("_dual" if len(groups[0]) == 2 else "")
+    # the smallest table across branches: every branch sees the same tail
+    # mask (fast_eval.py:237-246)
+    n_pos = min(w[2].shape[0] for w in ws["query"])
+    outs = []
+    for group, packed in zip(groups, ws["packed"]["query"]):
+        outs += query_towers(feat, mask, [ws["query"][i] for i in group],
+                             model.config.n_heads, dtype, n_pos, what, plain,
+                             packed)
     if dtype == torch.bfloat16:
         outs = [o.to(torch.bfloat16) for o in outs]
-    return outs[0], (outs[1] if len(outs) > 1 else None)
+    return _pair(outs)

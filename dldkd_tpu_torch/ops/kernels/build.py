@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` compiles with nvcc for Hopper (`sm_90a`) into its own
 shared library with a plain C interface, under `_build/` beside the
 sources (listed in .gitignore). A library's file name carries a hash of its
-source and of the flags, so an edited source rebuilds and an unchanged one
-loads as it is. `build()` starts one nvcc per missing library, all at once,
-and waits for them together. A failed build raises with nvcc's output.
+source, of the shared headers (`csrc/*.cuh`) and of the flags, so an edited
+source or header rebuilds and an unchanged one loads as it is. `build()`
+starts one nvcc per missing library, all at once, and waits for them
+together. A failed build raises with nvcc's output.
 
 C entry points take pointers and the stream as `c_void_p` and return
 `cudaGetLastError()` after the launch; `check()` turns a non-zero code into
@@ -24,11 +25,12 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("sim_max", "sim_max_mma", "sim_max_exact", "tower")
+SOURCES = ("sim_max", "sim_max_mma", "sim_max_exact", "tower", "tower_mma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_BOUND: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -48,7 +50,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 
@@ -101,11 +104,16 @@ def load(name: str) -> ctypes.CDLL:
 def bind(name: str, symbol: str, n_ptrs: int, n_ints: int,
          n_floats: int = 0):
     """A C entry `int symbol(void* x n_ptrs, int x n_ints, float x n_floats,
-    void* stream)` with its ctypes signature declared."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    void* stream)` with its ctypes signature declared; declared once, since
+    the towers call their entries on every launch."""
+    key = (name, symbol, n_ptrs, n_ints, n_floats)
+    fn = _BOUND.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _BOUND[key] = fn
     return fn
 
 
