@@ -11,20 +11,24 @@ package. Phases, in order; any failure exits non-zero without the final
    nvcc per source, all at once, and print ptxas' register, spill and
    shared-memory summary;
 3. each kernel, in f32 and bf16, plus the one-branch tower launch, at the
-   per-launch shapes of a TVR test eval (bf16 scoring and the bf16 query
-   tower also at serving's 256 queries), against its plain PyTorch version
-   on the same inputs: max abs
-   error against a stated tolerance, kernel and plain times (CUDA events,
-   >= 20 launches after warm-up) and the least time the card could take
-   (bytes over 3.35 TB/s or operations over the peak rate of their type);
-   the scorers' kernel time is their C entry's alone, the wrapper's beside
-   it; then the same for the int8 scoring kernel (50 and 256 queries), the
-   exact-rescore kernel (256 queries), the towers' int8 epilogue (both
-   launches, 200 videos), and the rates that set the stage-2
-   dense-versus-gather cost model. Beside each scorer, `product_ms` times
-   the bare product at the same shapes (`torch.matmul`, `torch._int_mm`):
-   a yardstick, not the same function (it writes every frame score, with
-   no mask and no max), which the port never calls; beside each tower,
+   per-launch shapes of a TVR test eval (scoring and the bf16 query tower
+   also at serving's 256 queries), against its plain PyTorch version on
+   the same inputs: max abs error against a stated tolerance, kernel and
+   plain times (CUDA events, >= 20 launches after warm-up) and the least
+   time the card could take (bytes over 3.35 TB/s or the operations the
+   kernel runs over the peak rate of their arithmetic: f32 scoring counts
+   its three TF32 products, exact rescoring its three bf16 products, the
+   f32 towers f32 FMAs); the scorers' kernel time is their C entry's
+   alone, the wrapper's beside it; then the same for the int8 scoring
+   kernel (50 and 256 queries), the exact-rescore kernel (256 queries),
+   the towers' int8 epilogue (both launches, 200 videos), and the rates
+   that set the stage-2 dense-versus-gather cost model. Beside each
+   scorer, `product_ms` times the bare products at the same shapes
+   (`torch.matmul`, `torch._int_mm`; for exact rescoring the three bf16
+   products of the query's parts): a yardstick, not the same function (it
+   writes every frame score, with no mask and no max), which the port
+   never calls, and the launch's warpgroups and shared memory per block
+   (ptxas reports only static shared memory); beside each tower,
    `product_ms` times its three (query) or four (video) products with
    `torch.matmul` at the launch's shapes in the tower dtype, without the
    normalization, LayerNorms, attention, pooling or epilogues. The towers'
@@ -38,7 +42,7 @@ package. Phases, in order; any failure exits non-zero without the final
    three routes (exact, two-stage, int8-only);
 5. `evaluate.eval_retrieval` at TVR test-split scale (2,179 videos x 128
    frames, 10,895 queries, both branches), in bf16 and in f32: metrics,
-   wall time, peak memory and launch counts; for bf16 one more pass under
+   wall time, peak memory and launch counts; one more pass of each under
    torch.profiler (device time by kernel, device idle share); then the
    kernel path's score matrices and fused SumR against the plain path's;
    then the bf16 int8 eval (score_quant) the same way, profiled too; then
@@ -51,12 +55,12 @@ package. Phases, in order; any failure exits non-zero without the final
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails if a kernel of that path never launched. The counts
-in the kernels line come from the path that runs each kernel in the
-serving configuration (bf16): the TVR eval (masked-cosine scoring, both
-towers), the int8 eval (int8 scoring, the int8 epilogue) and two-stage
-serving with dense stage 2 (exact rescoring); each kernel's time there is
-the phase-3 time at that path's shapes (the eval's 50 queries, serving's
-256).
+in the kernels line come from the path that runs each kernel: the bf16 TVR
+eval (bf16 masked-cosine scoring, both towers), the f32 TVR eval (f32
+masked-cosine scoring), the int8 eval (int8 scoring, the int8 epilogue)
+and two-stage serving with dense stage 2 (exact rescoring); each kernel's
+time there is the phase-3 time at that path's shapes (the eval's 50
+queries, serving's 256).
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12,   # f32 outside the tensor cores
+            "tf32": 495e12,     # dense TF32 tensor cores
             "bfloat16": 989e12,  # dense bf16 tensor cores
             "int8": 1979e12}     # dense int8 tensor cores
 TVR = dict(n_videos=2179, n_queries=10895, frames=128, tokens=30,
@@ -78,8 +83,9 @@ TVR = dict(n_videos=2179, n_queries=10895, frames=128, tokens=30,
            query_bsz=50, context_bsz=200)
 # max abs error tolerances, kernel vs plain version on the same inputs
 TOL = {
-    # scores of unit vectors; f32: IEEE f32 FMAs, bf16: tensor-core
-    # products, exact in f32; sums in another order either way
+    # scores of unit vectors; f32: 3xTF32 tensor-core products, each
+    # within ~2^-22 of the f32 product; bf16: tensor-core products, exact
+    # in f32; sums in another order either way
     ("sim_max", "float32"): 1e-5, ("sim_max", "bfloat16"): 1e-5,
     # five chained products and three LayerNorms, f32 sums in another order
     ("tower", "float32"): 1e-4,
@@ -90,8 +96,8 @@ TOL = {
     ("scores", "float32"): 1e-4, ("scores", "bfloat16"): 3e-2,
     # integer sums: valid-video scores bitwise
     ("sim_max_int8", "int8"): 0.0,
-    # f32 FMAs of the f32 query and the widened bf16 frames, summed in
-    # another order than the plain version's matmul
+    # split-3 bf16 products of the f32 query and the bf16 frames, exact,
+    # summed in another order than the plain version's f32 matmul
     ("sim_max_exact", "float32"): 5e-6,
     # the epilogue's plain version sums in the kernel's order: bitwise
     ("context_tower_q8", "float32"): 0.0,
@@ -153,9 +159,12 @@ def device_ms(fn, n: int = 10) -> float:
                if e.device_type == DeviceType.CUDA) / n / 1e3
 
 
-def bound(n_bytes: float, n_ops: float, dtype: str):
+def bound(n_bytes: float, n_ops: float, arith: str):
+    """The least time for the work: n_bytes over the memory rate or the
+    n_ops the kernel runs over the peak rate of its arithmetic, the larger,
+    and which of the two it is."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    t_ops = n_ops / PEAK_OPS[arith] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -163,20 +172,22 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def scoring_launch(lib: str, symbol: str, q, ctx, per_frame):
-    """A scoring kernel alone: its C entry called on prepared CUDA tensors
-    without the wrapper's checks and bookkeeping, so that its time is the
-    kernel's (the wrapper's is timed beside it). Counts no launch."""
+def scoring_launch(symbol: str, q, ctx, *per_frame):
+    """A scoring kernel alone: its C entry in csrc/sim_max_mma.cu called on
+    prepared CUDA tensors without the wrapper's checks and bookkeeping, so
+    that its time is the kernel's (the wrapper's is timed beside it).
+    Counts no launch."""
     import torch
 
     from dldkd_tpu_torch.ops.kernels.build import bind
 
-    fn = bind(lib, symbol, 4, 4)
+    fn = bind("sim_max_mma", symbol, 3 + len(per_frame), 4)
     nq, d = q.shape
     nv, l_frames, _ = ctx.shape
     out = torch.empty((nq, nv), dtype=torch.float32, device=q.device)
-    args = (q.data_ptr(), ctx.data_ptr(), per_frame.data_ptr(),
-            out.data_ptr(), nq, nv, l_frames, d,
+    args = (q.data_ptr(), ctx.data_ptr(),
+            *(t.data_ptr() for t in per_frame), out.data_ptr(), nq, nv,
+            l_frames, d,
             torch.cuda.current_stream().cuda_stream)
     return lambda: fn(*args)
 
@@ -295,6 +306,27 @@ def _mma_smem(l: int, h: int, heads: int) -> dict:
             + (32 if l <= 32 else 128) * 4}
 
 
+def _scoring_smem(kind: str, nq: int, d: int) -> dict:
+    """Warpgroups per block and dynamic shared memory per block of
+    csrc/sim_max_mma.cu's launch at these shapes (its smem_bytes and
+    launch()): resident query tiles (one, or three split parts for exact,
+    none for f32), a 3-stage ring of 128 frames x 128 bytes (plus the
+    queries' slice for f32), f32's split scratch, the per-frame values."""
+    elem = {"float32": 4, "bfloat16": 2, "int8": 1, "exact": 2}[kind]
+    nk = -(-d * elem // 128)
+
+    def smem(wg):
+        parts = {"float32": 0, "exact": 3}.get(kind, 1)
+        stage = 128 * 128 + (wg * 64 * 128 if kind == "float32" else 0)
+        scratch = stage if kind == "float32" else 0
+        frames = 2 if kind == "exact" else 1
+        return (1024 + parts * nk * 64 * wg * 128 + 3 * stage + scratch
+                + 3 * frames * 128 * 4)
+
+    wg = 2 if nq > 64 and smem(2) <= 232448 else 1
+    return {"warpgroups": wg, "bytes": smem(wg)}
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the per-launch shapes."""
     import torch
@@ -311,14 +343,13 @@ def phase_kernels(dev):
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
         item = torch.tensor([], dtype=tdt).element_size()
-        # ---- kernel 1: scoring, one branch, the eval's 50 queries (and in
-        # bf16 the exact serving route's 256) x the corpus
+        # ---- kernel 1: scoring, one branch, the eval's 50 queries and the
+        # exact serving route's 256 x the corpus
         ctx = torch.randn(nv, lf, h, generator=gen).to(dev, tdt)
         mask = _ragged_mask(nv, lf, 8, gen, dev)
         cn = l2_normalize(ctx).contiguous()
         del ctx
-        for n_q in ((nq, SERVE["query_bsz"]) if dtype == "bfloat16"
-                    else (nq,)):
+        for n_q in (nq, SERVE["query_bsz"]):
             q = torch.randn(n_q, h, generator=gen).to(dev, tdt)
             qn = l2_normalize(q).contiguous()
             got = sim_max.fused_clip_scores(qn, cn, mask)
@@ -328,14 +359,17 @@ def phase_kernels(dev):
             tol = TOL[("sim_max", dtype)]
             n_bytes = ((n_q * h + nv * lf * h) * item + nv * lf * 4
                        + n_q * nv * 4)
-            b_ms, b_by = bound(n_bytes, 2 * n_q * nv * lf * h, dtype)
+            # f32: three TF32 products (3xTF32); bf16: one
+            b_ms, b_by = bound(n_bytes, (3 if dtype == "float32" else 1)
+                               * 2 * n_q * nv * lf * h,
+                               "tf32" if dtype == "float32" else dtype)
             c2 = cn.view(nv * lf, h)
-            entry = (("sim_max", "sim_max_f32") if dtype == "float32"
-                     else ("sim_max_mma", "sim_max_bf16"))
+            entry = ("sim_max_f32" if dtype == "float32"
+                     else "sim_max_bf16")
             rec = {"check": "sim_max", "dtype": dtype,
                    "shape": {"q": [n_q, h], "ctx": [nv, lf, h]},
                    "max_abs_err": err, "tol": tol,
-                   "kernel_ms": cuda_ms(scoring_launch(*entry, qn, cn,
+                   "kernel_ms": cuda_ms(scoring_launch(entry, qn, cn,
                                                        mask)),
                    "wrapper_ms": cuda_ms(lambda: sim_max.fused_clip_scores(
                        qn, cn, mask)),
@@ -344,7 +378,8 @@ def phase_kernels(dev):
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                    # yardstick only: the bare product, every frame score
                    # written, no mask, no max
-                   "product_ms": cuda_ms(lambda: torch.matmul(qn, c2.t()))}
+                   "product_ms": cuda_ms(lambda: torch.matmul(qn, c2.t())),
+                   "smem": _scoring_smem(dtype, n_q, h)}
             emit(rec)
             results[("sim_max", dtype) if n_q == nq
                     else ("sim_max", dtype, n_q)] = rec
@@ -561,10 +596,14 @@ def _tvr_data(dev, seed: int):
 
 
 def _short_kernel_name(name: str) -> str:
-    if "sim_max_mma_kernel" in name:   # csrc/sim_max_mma.cu, by element type
-        return "sim_max_int8" if "Int8" in name else "sim_max_kernel"
+    if "sim_max_mma_kernel" in name:   # csrc/sim_max_mma.cu, by instance
+        for inst, short in (("Int8", "sim_max_int8"), ("Tf32", "sim_max_f32"),
+                            ("Exact", "sim_max_exact")):
+            if inst in name:
+                return short
+        return "sim_max_kernel"
     for k in ("gemm_mma_kernel", "attention_mma_kernel", "normalize_kernel",
-              "sim_max_kernel", "gemm_kernel", "attention_kernel",
+              "gemm_kernel", "attention_kernel",
               "layernorm_kernel", "row_stats_kernel", "pool_kernel",
               "quantize_q8_kernel"):
         if k in name:
@@ -633,7 +672,7 @@ def phase_tvr_eval(dev):
     t0 = time.perf_counter()
     videos, queries = _tvr_data(dev, seed=5)
     setup_s = time.perf_counter() - t0
-    main_counts = None
+    counts_by_dtype = {}
     for dtype in ("bfloat16", "float32"):
         model = _serving_model(dtype, seed=6)
         torch.cuda.synchronize()
@@ -649,10 +688,9 @@ def phase_tvr_eval(dev):
         peak = torch.cuda.max_memory_allocated()
         _check_metrics(metrics, f"TVR eval {dtype}")
         _check_launched(counts, EVAL_KERNELS, f"TVR eval {dtype}")
-        if dtype == "bfloat16":
-            main_counts = counts
-            emit({"phase": "tvr_eval_profile", "dtype": dtype,
-                  **profile_eval(model, videos, queries, dev)})
+        counts_by_dtype[dtype] = counts
+        emit({"phase": "tvr_eval_profile", "dtype": dtype,
+              **profile_eval(model, videos, queries, dev)})
         # the kernel path's score matrices against the plain path's
         k_i, k_e = score_matrices(model, videos, queries,
                                   TVR["context_bsz"], TVR["query_bsz"], dev)
@@ -678,7 +716,7 @@ def phase_tvr_eval(dev):
                  f"> {tol}")
         del model, k_i, k_e, p_i, p_e
         torch.cuda.empty_cache()
-    return main_counts, videos, queries
+    return counts_by_dtype, videos, queries
 
 
 # ------------------------------------------- slice 2: int8, exact, serving
@@ -729,7 +767,7 @@ def phase_kernels_slice2(dev):
                "bitwise_valid_columns": bool(torch.equal(got[:, valid],
                                                          want[:, valid])),
                "kernel_ms": cuda_ms(scoring_launch(
-                   "sim_max_mma", "sim_max_int8", q8, c8, bias)),
+                   "sim_max_int8", q8, c8, bias)),
                "wrapper_ms": cuda_ms(lambda: sim_max.fused_clip_scores_int8(
                    q8, c8, bias)),
                "plain_ms": cuda_ms(lambda: sim_max.fused_clip_scores_int8(
@@ -738,7 +776,8 @@ def phase_kernels_slice2(dev):
                # yardstick only: the bare int8 product, every frame score
                # written in int32, no bias, no max
                "product_ms": cuda_ms(lambda: torch._int_mm(
-                   q8, c8.view(nv * lf, h).t()))}
+                   q8, c8.view(nv * lf, h).t())),
+               "smem": _scoring_smem("int8", nq, h)}
         emit(rec)
         results[("sim_max_int8", nq)] = rec
         if not rec["bitwise_valid_columns"]:
@@ -758,15 +797,29 @@ def phase_kernels_slice2(dev):
     err = max_err(got, want)
     tol = TOL[("sim_max_exact", "float32")]
     n_bytes = nq * h * 4 + nv * lf * h * 2 + 2 * nv * lf * 4 + nq * nv * 4
-    b_ms, b_by = bound(n_bytes, 2 * nq * nv * lf * h, "float32")
+    # three bf16 products, one per part of the split query
+    b_ms, b_by = bound(n_bytes, 3 * 2 * nq * nv * lf * h, "bfloat16")
     exact_ms = cuda_ms(lambda: sim_max.sim_max_exact_launch(qn, ctx, inv,
                                                             xbias))
+    parts = sim_max.split_bf16x3(qn)
+    c2 = ctx.view(nv * lf, h)
+
+    def products():
+        for p in parts:
+            torch.matmul(p, c2.t())
     rec = {"check": "sim_max_exact", "dtype": "float32 x bf16 frames",
            "shape": {"q": [nq, h], "ctx": [nv, lf, h]},
-           "max_abs_err": err, "tol": tol, "kernel_ms": exact_ms,
+           "max_abs_err": err, "tol": tol,
+           "kernel_ms": cuda_ms(scoring_launch("sim_max_exact", qn, ctx,
+                                               inv, xbias)),
+           "wrapper_ms": exact_ms,
            "plain_ms": cuda_ms(lambda: sim_max.sim_max_exact_plain(
                qn, ctx, inv, xbias), n=10),
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           # yardstick only: the three bf16 products, every frame score
+           # written, no scale, no max
+           "product_ms": cuda_ms(products, n=10),
+           "smem": _scoring_smem("exact", nq, h)}
     emit(rec)
     results[("sim_max_exact", nq)] = rec
     if not err <= tol:
@@ -804,7 +857,7 @@ def phase_kernels_slice2(dev):
               "dense_flops_f32": similarity._DENSE_FLOPS_F32,
               "dense_bytes_per_s_bf16": similarity._DENSE_BYTES_PER_S_BF16,
               "dense_bytes_per_s_f32": similarity._DENSE_BYTES_PER_S_F32}})
-    del ctx, ctx32, cn32, inv, xbias, got, want
+    del ctx, ctx32, cn32, inv, xbias, got, want, parts, c2
     torch.cuda.empty_cache()
 
     # ---- the towers' int8 epilogue: both launches, 200 videos
@@ -1078,6 +1131,64 @@ def phase_serving(dev, videos, queries):
     return counts_by_route
 
 
+def kernels_line(checks, launches, int8_launches, serve_launches):
+    """Every ported kernel: its source, the TPU kernel it replaces, its
+    launches on its main path and its phase-3 numbers."""
+    # (launch counter, source, TPU kernel replaced, check record, path whose
+    # launches count)
+    mma = "dldkd_tpu_torch/csrc/sim_max_mma.cu"
+    sources = {
+        "sim_max": ("sim_max", mma, "dldkd_tpu/ops/pallas/sim_max.py:36",
+                    ("sim_max", "bfloat16"), "tvr_eval bfloat16",
+                    launches["bfloat16"]),
+        "sim_max_f32": ("sim_max", mma, "dldkd_tpu/ops/pallas/sim_max.py:36",
+                        ("sim_max", "float32"), "tvr_eval float32",
+                        launches["float32"]),
+        "sim_max_int8": ("sim_max_int8", mma,
+                         "dldkd_tpu/ops/pallas/sim_max.py:195",
+                         ("sim_max_int8", TVR["query_bsz"]),
+                         "tvr_int8_eval", int8_launches),
+        "sim_max_exact": ("sim_max_exact", mma,
+                          "dldkd_tpu/ops/pallas/sim_max.py:66",
+                          ("sim_max_exact", SERVE["query_bsz"]),
+                          "serving two_stage_dense",
+                          serve_launches["two_stage_dense"]),
+        "query_tower": ("query_tower", "dldkd_tpu_torch/csrc/tower_mma.cu",
+                        "dldkd_tpu/ops/pallas/query_tower.py:211",
+                        ("query_tower", "bfloat16", 2), "tvr_eval bfloat16",
+                        launches["bfloat16"]),
+        "context_tower": ("context_tower",
+                          "dldkd_tpu_torch/csrc/tower_mma.cu",
+                          "dldkd_tpu/ops/pallas/query_tower.py:246",
+                          ("context_tower", "bfloat16", 2),
+                          "tvr_eval bfloat16", launches["bfloat16"]),
+        "context_tower_q8": ("context_tower_q8",
+                             "dldkd_tpu_torch/csrc/tower.cu",
+                             "dldkd_tpu/ops/pallas/query_tower.py:144",
+                             ("context_tower_q8", "bfloat16", 2),
+                             "tvr_int8_eval", int8_launches),
+    }
+    kernels = []
+    for name, (counter, src, replaces, key, path, counts) in sources.items():
+        rec = checks[key]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": counts[counter],
+                        "launches_path": path,
+                        "max_abs_err": rec["max_abs_err"],
+                        "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"], "library_ms": None,
+                        "product_ms": rec.get("product_ms")})
+        if "device_ms" in rec:
+            kernels[-1]["device_ms"] = rec["device_ms"]
+        if name in ("query_tower", "context_tower"):
+            # the bf16 chain: tower_mma.cu's normalization, products and
+            # attention, tower.cu's LayerNorm and pooling
+            kernels[-1]["chain_sources"] = [
+                src, "dldkd_tpu_torch/csrc/tower.cu"]
+    return kernels
+
+
 def main() -> None:
     try:
         import torch
@@ -1104,51 +1215,8 @@ def main() -> None:
     int8_launches = phase_int8_eval(dev, videos, queries)
     serve_launches = phase_serving(dev, videos, queries)
 
-    # (source, TPU kernel replaced, check record, path whose launches count)
-    sources = {
-        "sim_max": ("dldkd_tpu_torch/csrc/sim_max_mma.cu",
-                    "dldkd_tpu/ops/pallas/sim_max.py:36",
-                    ("sim_max", "bfloat16"), "tvr_eval", launches),
-        "sim_max_int8": ("dldkd_tpu_torch/csrc/sim_max_mma.cu",
-                         "dldkd_tpu/ops/pallas/sim_max.py:195",
-                         ("sim_max_int8", TVR["query_bsz"]),
-                         "tvr_int8_eval", int8_launches),
-        "sim_max_exact": ("dldkd_tpu_torch/csrc/sim_max_exact.cu",
-                          "dldkd_tpu/ops/pallas/sim_max.py:66",
-                          ("sim_max_exact", SERVE["query_bsz"]),
-                          "serving two_stage_dense",
-                          serve_launches["two_stage_dense"]),
-        "query_tower": ("dldkd_tpu_torch/csrc/tower_mma.cu",
-                        "dldkd_tpu/ops/pallas/query_tower.py:211",
-                        ("query_tower", "bfloat16", 2), "tvr_eval",
-                        launches),
-        "context_tower": ("dldkd_tpu_torch/csrc/tower_mma.cu",
-                          "dldkd_tpu/ops/pallas/query_tower.py:246",
-                          ("context_tower", "bfloat16", 2), "tvr_eval",
-                          launches),
-        "context_tower_q8": ("dldkd_tpu_torch/csrc/tower.cu",
-                             "dldkd_tpu/ops/pallas/query_tower.py:144",
-                             ("context_tower_q8", "bfloat16", 2),
-                             "tvr_int8_eval", int8_launches),
-    }
-    kernels = []
-    for name, (src, replaces, key, path, counts) in sources.items():
-        rec = checks[key]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": counts[name],
-                        "launches_path": path,
-                        "max_abs_err": rec["max_abs_err"],
-                        "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
-                        "bound_ms": rec["bound_ms"],
-                        "bound_by": rec["bound_by"], "library_ms": None,
-                        "product_ms": rec.get("product_ms")})
-        if "device_ms" in rec:
-            kernels[-1]["device_ms"] = rec["device_ms"]
-        if name in ("query_tower", "context_tower"):
-            # the bf16 chain: tower_mma.cu's normalization, products and
-            # attention, tower.cu's LayerNorm and pooling
-            kernels[-1]["chain_sources"] = [
-                src, "dldkd_tpu_torch/csrc/tower.cu"]
+    kernels = kernels_line(checks, launches, int8_launches,
+                           serve_launches)
     check_no_jax()
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

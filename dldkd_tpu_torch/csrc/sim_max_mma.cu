@@ -1,72 +1,109 @@
-// Max-over-frames scoring on Hopper's tensor cores, bf16 and int8: one
-// kernel, templated on the element type.
+// Max-over-frames scoring on Hopper's tensor cores: one kernel, templated
+// on its arithmetic, in four instances.
 //
-//   bf16: out[q, v] = max_l  s * m[v, l] + (1 - m[v, l]) * -1e10,
-//         s = <qn[q], cn[v, l]> with f32 accumulation
-//   int8: out[q, v] = float(max_l <q8[q], c8[v, l]> + bias[v, l]) / 127^2,
-//         the dot, the bias and the max in int32
+//   bf16:  out[q, v] = max_l  s * m[v, l] + (1 - m[v, l]) * -1e10,
+//          s = <qn[q], cn[v, l]> with f32 accumulation
+//   f32:   the same on f32 inputs, s from split TF32 products
+//   int8:  out[q, v] = float(max_l <q8[q], c8[v, l]> + bias[v, l]) / 127^2,
+//          the dot, the bias and the max in int32
+//   exact: out[q, v] = max_l  <qn[q], c[v, l]> * inv[v, l] + bias[v, l],
+//          f32 queries against raw bf16 frames, split bf16 products
 //
 // Replaces, in dldkd_tpu/ops/pallas/sim_max.py:
-// - _sim_max_kernel (:36; pallas_call :385, fused_clip_scores) on bf16
-//   inputs;
+// - _sim_max_kernel (:36; pallas_call :385, fused_clip_scores) on bf16 and
+//   f32 inputs;
 // - _sim_max_kernel_int8 (:195; pallas_call :319, fused_clip_scores_q8 and
-//   fused_clip_scores(quantized=True)).
-// Both Pallas kernels put the product on the MXU with a wide accumulator
-// (f32, :45-46; int32, :209-211). Here wgmma does the same: a bf16 product
-// is exact in f32 and only the order of the sums changes; s8 x s8 into s32
-// is exact, so int8 scores on valid videos are bitwise those of the plain
-// version (integers below 2^24, one multiply by the f32 constant).
+//   fused_clip_scores(quantized=True));
+// - _sim_max_kernel_exact (:66; pallas_call :159, fused_exact_scores).
 //
-// What bounds it on an H100 (3.35 TB/s; 989 TFLOP/s bf16, 1,979 TOPS int8):
-// a launch reads the whole corpus once. TVR's 2,179 x 128 x 384 frames are
-// 214 MB in bf16 and 107 MB in int8: at the eval's 50 queries 0.064 ms
-// (bf16) and 0.032 ms (int8), with 50 and 100 operations per byte against a
-// ridge of about 295 and 590, so bytes bound it. At 256 queries bf16 is
-// 0.065 ms of bytes against 0.055 ms of operations and int8 0.033 against
-// 0.028: both still bytes, int8 close to its operation bound.
+// Arithmetic. Every Pallas kernel puts the product on the MXU with a wide
+// accumulator; here wgmma does the same. bf16: a bf16 product is exact in
+// f32 and only the order of the sums changes. int8: s8 x s8 into s32 is
+// exact, so int8 scores on valid videos are bitwise those of the plain
+// version (integers below 2^24, one multiply by the f32 constant).
+// exact: the Pallas kernel's own split (sim_max.py:85-88, round to nearest
+// even): q1 = bf16(q), r = q - q1, q2 = bf16(r), q3 = bf16(r - q2), so q ==
+// q1 + q2 + q3 exactly and each bf16 x bf16 product is exact in f32; three
+// wgmma m64n128k16 bf16 products into one f32 accumulator.
+// f32: _sim_max_kernel runs f32 inputs at the process's matmul precision,
+// which the JAX package sets to "highest" (dldkd_tpu/infer.py:27-29): XLA's
+// multi-pass bf16 emulation of f32 on the MXU, not IEEE f32 products. The
+// counterpart here is 3xTF32: each operand x is split into big = x rounded
+// to TF32 (10 mantissa bits, to nearest with ties away from zero, as
+// cvt.rna.tf32.f32 rounds) and small = x - big, exact in f32; s = big.big +
+// big.small + small.big, three wgmma m64n128k8 tf32 products. big is
+// written with its low 13 bits zero, so the tensor core, which reads the
+// top 19 bits of an f32, reads exactly it (taking small against a value
+// the hardware might round otherwise would leave 2^-11-grade errors). The
+// dropped small.small term is below 2^-22 of |q||c| = 1 and the tensor
+// core's reading of small to TF32 costs another 2^-22: scores stay within
+// about 1e-7 of f32 products. ops/kernels/sim_max.py holds both splits
+// (`split_tf32`, `split_bf16x3`) for the tests.
+//
+// What bounds it on an H100 (3.35 TB/s; 989 TFLOP/s bf16, 495 tf32, 1,979
+// TOPS int8): a launch reads the whole corpus once. TVR's 2,179 x 128 x 384
+// frames are 428 MB in f32, 214 MB in bf16 and 107 MB in int8. At the
+// eval's 50 queries bytes bound every instance: 0.128 ms (f32, against 3 x
+// 10.7 GFLOP of tf32, 0.065 ms), 0.064 ms (bf16), 0.032 ms (int8). At 256
+// queries bf16 is 0.065 ms of bytes against 0.055 ms of operations and int8
+// 0.033 against 0.028; the exact instance is 3 x 54.8 GFLOP of bf16,
+// 0.166 ms, against 0.064 ms of bytes: operations.
 //
 // What the design does about it:
-// - A block owns a tile of queries whose rows stay in shared memory for the
-//   whole launch (64 x 384 bf16 = 48 KB): they are read from device memory
-//   once per block, not once per video. One warpgroup (4 warps) per 64
-//   queries: up to 64 queries (the eval's 50) a block has one, above (256
-//   for serving) two, so the corpus streams half as often.
 // - The grid is persistent: as many blocks as fit on the SMs, spread over
 //   the query tiles; block (x, y) walks videos x, x + gridDim.x, ... So the
 //   corpus streams once per query tile, and the blocks of other query tiles
 //   that share a video run beside it and find its frames in L2.
+// - One warpgroup (4 warps) per 64 queries: up to 64 queries (the eval's
+//   50) a block has one, above (256 for serving) two, so the corpus
+//   streams half as often, where their shared memory fits (launch()).
 // - Frames stream through a ring of 3 stages of 128 frames x 128 bytes of
-//   depth (64 bf16 or 128 int8), filled by 16-byte cp.async copies in the
-//   128-byte swizzle that wgmma reads; two stages are in flight while the
-//   tensor cores work on the third. Frames past L and depth past D are
-//   zero-filled, not read. Each block steps through its (video, frame
-//   chunk, depth chunk) stages with counters: no division in the loop.
+//   depth (64 bf16, 128 int8 or 32 f32 values), filled by 16-byte cp.async
+//   copies in the 128-byte swizzle that wgmma reads; two stages are in
+//   flight while the tensor cores work on the third. Frames past L and
+//   depth past D are zero-filled, not read. Each block steps through its
+//   (video, frame chunk, depth chunk) stages with counters: no division in
+//   the loop.
+// - Queries. bf16, int8: the block's rows stay in shared memory for the
+//   whole launch (64 x 384 bf16 = 48 KB), read from device memory once per
+//   block. exact: the block splits its f32 rows once, in its prologue,
+//   into three resident bf16 tiles (3 x 48 KB at D = 384): two warpgroups
+//   do not fit, so 256 queries run as four 64-query tiles, and D above 448
+//   fits none (the wrapper refuses it). f32: the rows do not fit (64 x 384
+//   f32 = 96 KB, twice that split), so each ring stage carries the
+//   queries' 32-value depth slice beside the frames'; once a stage has
+//   landed the block splits it in place (big) and into a scratch tile of
+//   the same layout (small; the swizzle is a byte layout, so the split is
+//   elementwise), then fences and waits at a barrier before its wgmmas. A
+//   one-warpgroup block then takes 98.5 KB, so two blocks share an SM and
+//   one splits while the other multiplies.
 // - Each warpgroup multiplies its 64 queries by a chunk's 128 frames with
-//   wgmma m64n128k16 bf16 or m64n128k32 s8, both operands K-major in shared
-//   memory (the port's (Nq, D) and (Nv, L, D) rows as they are): no
-//   transpose, no fragment loads through registers. The two types share
-//   every byte of the data path: one wgmma takes 32 bytes of depth either
-//   way.
-// - The epilogue folds the mask (bf16: s * m + (1 - m) * -1e10, as
-//   csrc/sim_max.cu) or the bias (int8: s + bias) and the max over frames
-//   into the accumulator registers: within a thread, then across the four
-//   lanes of a row (shfl_xor 1, 2); one warpgroup holds all 128 frames of
-//   its rows, so one f32 store per (query, video) follows. The (Nq, Nv x L)
+//   wgmma m64n128k16 bf16, m64n128k32 s8 or m64n128k8 tf32, both operands
+//   K-major in shared memory (the port's (Nq, D) and (Nv, L, D) rows as they
+//   are): no transpose, no fragment loads through registers. Every type
+//   shares every byte of the data path: one wgmma takes 32 bytes of depth.
+// - The epilogue folds the mask (bf16, f32: s * m + (1 - m) * -1e10), the
+//   bias (int8: s + bias) or the frame scales (exact: s * inv + bias,
+//   inv = 0 and bias = -1e10 on masked frames) and the max over frames into
+//   the accumulator registers: within a thread, then across the four lanes
+//   of a row (shfl_xor 1, 2); one warpgroup holds all 128 frames of its
+//   rows, so one f32 store per (query, video) follows. The (Nq, Nv x L)
 //   frame scores never exist. Columns past L are skipped, not scored (a
 //   zero-filled frame would score 0); an all-masked video scores -1e10
-//   (bf16) or -2^30 / 127^2 (int8). L above 128 walks frame chunks of 128
-//   with the running max kept in registers.
+//   (bf16, f32, exact) or -2^30 / 127^2 (int8). L above 128 walks frame
+//   chunks of 128 with the running max kept in registers.
 //
-// What it leaves unused: the TMA engine and warp specialisation. Every
-// thread issues its share of the cp.async copies, and each stage waits for
-// its products before a block barrier. At the eval's 50 queries the bytes
-// still bound the kernel; at 256 in bf16 those turns are the likely gap to
-// its bound (PERF.md).
-//
-// f32 inputs stay on the SIMT kernel of csrc/sim_max.cu: f32 parity needs
-// IEEE f32 products and sums, and the tensor cores have no f32 product
-// (TF32 rounds the inputs to 10 bits of mantissa).
+// What it leaves unused: the TMA engine, warp specialisation and thread
+// block clusters. Every thread issues its share of the cp.async copies,
+// and each stage waits for its products before a block barrier. Above 64
+// queries the corpus streams once per query tile (exact: four times at
+// 256 queries, 856 MB), and exact with one product instead of three moves
+// it at about the device memory's rate (scripts/sim_max_variants.py,
+// PERF.md): a cluster of the query tiles' blocks sharing each frame stage
+// would stream it once. A deeper ring and products left in flight across
+// stages did not move it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -84,7 +121,7 @@ constexpr int CHUNK = ROW_BYTES;    // bytes of depth per stage
 constexpr int UNITS = CHUNK / 16;   // 16-byte units per row of a stage
 constexpr int STAGES = 3;
 constexpr int KSTEPS = CHUNK / 32;  // one wgmma takes 32 bytes of depth
-constexpr int STAGE_BYTES = BN * CHUNK;
+constexpr int FRAME_TILE = BN * CHUNK;  // bytes of frames in a stage
 constexpr float NEG_INF = -1e10f;
 // float(1 / (127 * 127)): the f32 constant of sim_max.py:216-217
 constexpr float INV_SCALE2 = (float)(1.0 / (127.0 * 127.0));
@@ -92,36 +129,92 @@ constexpr float INV_SCALE2 = (float)(1.0 / (127.0 * 127.0));
 // (cudaDevAttrMaxSharedMemoryPerBlockOptin)
 constexpr size_t MAX_SMEM = 232448;
 
+// How a block holds its queries.
+enum class Query {
+  kCopy,    // rows copied once into a resident tile (bf16, int8)
+  kSplit3,  // f32 rows split once into three resident bf16 tiles (exact)
+  kStaged,  // f32 depth slices ride each stage, split there (f32)
+};
+
 // accumulator d[4 t + x] of a thread: row lane / 4 + 8 (x / 2) of its
 // warp's 16, column 8 t + 2 (lane % 4) + x % 2 of the 128
 struct Bf16 {
   using Acc = float;
   using Frame = float;  // the (Nv, L) mask, 1 or 0
-  static constexpr int ELEM = 2;
+  static constexpr Query QUERY = Query::kCopy;
+  static constexpr int ELEM = 2;    // bytes of a frame value
+  static constexpr int FRAMES = 1;  // (Nv, L) arrays the epilogue reads
   static __device__ __forceinline__ Acc lowest() { return -INFINITY; }
-  static __device__ __forceinline__ void wgmma(Acc (&d)[64], uint64_t a,
-                                               uint64_t b, int accumulate) {
+  static __device__ __forceinline__ void mma(Acc (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
     wgmma_bf16(d, a, b, accumulate);
   }
-  static __device__ __forceinline__ Acc masked(Acc s, Frame m) {
+  // f: the stage's [FRAMES][BN] per-frame values, n: the column
+  static __device__ __forceinline__ Acc masked(Acc s, const Frame* f, int n) {
+    const Frame m = f[n];
     return s * m + (1.f - m) * NEG_INF;
   }
   static __device__ __forceinline__ Acc top(Acc a, Acc b) {
     return fmaxf(a, b);
   }
   static __device__ __forceinline__ float finish(Acc best) { return best; }
-  static __device__ __forceinline__ void fence(Acc (&d)[64]) {
-    acc_fence(d);
+};
+
+struct Tf32 : Bf16 {
+  static constexpr Query QUERY = Query::kStaged;
+  static constexpr int ELEM = 4;
+  // d (+)= A (64 x 8) x B (128 x 8)^T, TF32 inputs read from f32 tiles
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+struct Exact : Bf16 {
+  static constexpr Query QUERY = Query::kSplit3;
+  static constexpr int FRAMES = 2;  // inv, then bias
+  static __device__ __forceinline__ Acc masked(Acc s, const Frame* f, int n) {
+    return __fadd_rn(__fmul_rn(s, f[n]), f[BN + n]);
   }
 };
 
 struct Int8 {
   using Acc = int;
   using Frame = int;    // the (Nv, L) bias, 0 or -2^30
+  static constexpr Query QUERY = Query::kCopy;
   static constexpr int ELEM = 1;
+  static constexpr int FRAMES = 1;
   static __device__ __forceinline__ Acc lowest() { return INT_MIN; }
-  static __device__ __forceinline__ void wgmma(Acc (&d)[64], uint64_t a,
-                                               uint64_t b, int accumulate) {
+  static __device__ __forceinline__ void mma(Acc (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
@@ -152,8 +245,8 @@ struct Int8 {
           "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
         : "l"(a), "l"(b), "r"(accumulate));
   }
-  static __device__ __forceinline__ Acc masked(Acc s, Frame b) {
-    return s + b;
+  static __device__ __forceinline__ Acc masked(Acc s, const Frame* f, int n) {
+    return s + f[n];
   }
   static __device__ __forceinline__ Acc top(Acc a, Acc b) {
     return max(a, b);
@@ -161,10 +254,21 @@ struct Int8 {
   static __device__ __forceinline__ float finish(Acc best) {
     return (float)best * INV_SCALE2;
   }
-  static __device__ __forceinline__ void fence(Acc (&d)[64]) {
-    acc_fence(d);
-  }
 };
+
+// x rounded to TF32 with its low 13 bits zero: to nearest, ties away from
+// zero (add half of the last kept bit to the magnitude, then truncate), as
+// cvt.rna.tf32.f32 rounds; ops/kernels/sim_max.py:split_tf32 is the same
+__device__ __forceinline__ float tf32_big(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// two bf16 values as one 32-bit word, a at the lower address
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 a,
+                                              __nv_bfloat16 b) {
+  return (uint32_t)__bfloat16_as_ushort(a) |
+         ((uint32_t)__bfloat16_as_ushort(b) << 16);
+}
 
 // a stage of a block's walk: its j-th video, frame chunk c, depth chunk kc,
 // and the ring slot it goes through
@@ -182,38 +286,67 @@ struct Stage {
   }
 };
 
-// 1,024 bytes of slack to start the tiles on a 1,024-byte boundary, the
-// query tile [nk][64 WG][CHUNK], the ring [STAGES][BN][CHUNK] and the
-// mask or bias of each stage [STAGES][BN]
-template <int WG>
-size_t smem_bytes(int dbytes) {
-  const int nk = (dbytes + CHUNK - 1) / CHUNK;
-  return 1024 + (size_t)nk * 64 * WG * CHUNK + (size_t)STAGES * STAGE_BYTES +
-         (size_t)STAGES * BN * 4;
+// bytes of a ring stage: the frames' slice, and for kStaged the queries'
+template <typename S, int WG>
+__host__ __device__ constexpr int stage_bytes() {
+  return FRAME_TILE + (S::QUERY == Query::kStaged ? WG * 64 * CHUNK : 0);
 }
 
-// q (nq, D) and ctx (nv, L, D) as rows of dbytes bytes (a multiple of 16,
-// 16-byte aligned); frame = the (nv, L) mask or bias; out (nq, nv) f32.
-// WG warpgroups, each owning 64 queries of the block's tile.
+// bytes of the resident query tiles: [parts][nk][64 WG][CHUNK]
+template <typename S, int WG>
+__host__ __device__ constexpr size_t resident_bytes(int nk) {
+  return (size_t)(S::QUERY == Query::kCopy     ? 1
+                  : S::QUERY == Query::kSplit3 ? 3
+                                               : 0) *
+         nk * 64 * WG * CHUNK;
+}
+
+// bytes of the split's scratch tile (kStaged): one stage's small parts
+template <typename S, int WG>
+__host__ __device__ constexpr int scratch_bytes() {
+  return S::QUERY == Query::kStaged ? stage_bytes<S, WG>() : 0;
+}
+
+// 1,024 bytes of slack to start the tiles on a 1,024-byte boundary, the
+// resident query tiles, the ring [STAGES][stage], the scratch tile and
+// the per-frame values of each stage [STAGES][FRAMES][BN]
+template <typename S, int WG>
+size_t smem_bytes(int dbytes) {
+  const int nk = (dbytes + CHUNK - 1) / CHUNK;
+  return 1024 + resident_bytes<S, WG>(nk) +
+         (size_t)STAGES * stage_bytes<S, WG>() + scratch_bytes<S, WG>() +
+         (size_t)STAGES * S::FRAMES * BN * 4;
+}
+
+// q (nq, D) and ctx (nv, L, D) as rows (ctx rows of dbytes bytes, a
+// multiple of 16; q rows the same, or f32 rows of dbytes / 2 values for
+// exact; 16-byte aligned); frame, frame2 = the (nv, L) mask or bias, or
+// inv and bias; out (nq, nv) f32. WG warpgroups, each owning 64 queries of
+// the block's tile.
 template <typename S, int WG>
 __global__ void __launch_bounds__(WG * 128, 1)
 sim_max_mma_kernel(const unsigned char* __restrict__ q,
                    const unsigned char* __restrict__ ctx,
                    const typename S::Frame* __restrict__ frame,
+                   const typename S::Frame* __restrict__ frame2,
                    float* __restrict__ out, int nq, int nv, int L,
                    int dbytes) {
   using Acc = typename S::Acc;
   constexpr int BQ = WG * 64, THREADS = WG * 128;
+  constexpr int STAGE_BYTES = stage_bytes<S, WG>();
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw_s = (uint32_t)__cvta_generic_to_shared(smem_raw);
   unsigned char* smem = smem_raw + (((raw_s + 1023) & ~1023u) - raw_s);
   const int nk = (dbytes + CHUNK - 1) / CHUNK;  // depth chunks
   const int nc = (L + BN - 1) / BN;             // frame chunks per video
-  unsigned char* ring = smem + (size_t)nk * BQ * CHUNK;
-  const typename S::Frame* fs =
-      reinterpret_cast<const typename S::Frame*>(ring + STAGES * STAGE_BYTES);
+  const size_t part = (size_t)nk * BQ * CHUNK;  // a resident query tile
+  unsigned char* ring = smem + resident_bytes<S, WG>(nk);
+  unsigned char* scratch = ring + STAGES * STAGE_BYTES;
+  const typename S::Frame* fs = reinterpret_cast<const typename S::Frame*>(
+      scratch + scratch_bytes<S, WG>());
   const uint32_t qs_s = (uint32_t)__cvta_generic_to_shared(smem);
   const uint32_t ring_s = (uint32_t)__cvta_generic_to_shared(ring);
+  const uint32_t scratch_s = (uint32_t)__cvta_generic_to_shared(scratch);
   const uint32_t fs_s = (uint32_t)__cvta_generic_to_shared(fs);
 
   const int tid = threadIdx.x;
@@ -223,18 +356,57 @@ sim_max_mma_kernel(const unsigned char* __restrict__ q,
   const int q0 = blockIdx.y * BQ;
   const int n_mine = (nv - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
   const int total = n_mine * nc * nk;
+  const int q_units = nk * UNITS;  // 16-byte units of a resident row
 
-  // the query tile, once per block; rows past nq and depth past D are 0
-  const int q_units = nk * UNITS;
-  for (int e = tid; e < BQ * q_units; e += THREADS) {
-    const int r = e / q_units, u = e % q_units;
-    const bool ok = q0 + r < nq && u * 16 < dbytes;
-    cp16(qs_s + (u / UNITS) * (BQ * CHUNK) + swz(r, u % UNITS),
-         ok ? q + (size_t)(q0 + r) * dbytes + u * 16 : q, ok ? 16 : 0);
+  if constexpr (S::QUERY == Query::kCopy) {
+    // the query tile, once per block; rows past nq and depth past D are 0
+    for (int e = tid; e < BQ * q_units; e += THREADS) {
+      const int r = e / q_units, u = e % q_units;
+      const bool ok = q0 + r < nq && u * 16 < dbytes;
+      cp16(qs_s + (u / UNITS) * (BQ * CHUNK) + swz(r, u % UNITS),
+           ok ? q + (size_t)(q0 + r) * dbytes + u * 16 : q, ok ? 16 : 0);
+    }
+  } else if constexpr (S::QUERY == Query::kSplit3) {
+    // the three bf16 parts of the f32 query tile, once per block: a unit
+    // of 8 bf16 values of a part is 8 f32 values of the row
+    const float* qf = reinterpret_cast<const float*>(q);
+    const int d = dbytes / 2;
+    for (int e = tid; e < BQ * q_units; e += THREADS) {
+      const int r = e / q_units, u = e % q_units;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (q0 + r < nq && u * 16 < dbytes) {
+        const float4* src = reinterpret_cast<const float4*>(
+            qf + (size_t)(q0 + r) * d + u * 8);
+        const float4 lo = src[0], hi = src[1];
+        v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+        v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+      }
+      uint32_t w[3][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        __nv_bfloat16 p[3][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float x = v[2 * i + h];
+          p[0][h] = __float2bfloat16_rn(x);
+          const float rem = x - __bfloat162float(p[0][h]);
+          p[1][h] = __float2bfloat16_rn(rem);
+          p[2][h] = __float2bfloat16_rn(rem - __bfloat162float(p[1][h]));
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) w[k][i] = pack_bf16(p[k][0], p[k][1]);
+      }
+      const size_t off = (u / UNITS) * (BQ * CHUNK) + swz(r, u % UNITS);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        *reinterpret_cast<uint4*>(smem + k * part + off) =
+            make_uint4(w[k][0], w[k][1], w[k][2], w[k][3]);
+    }
   }
 
   // this thread copies unit tid % 8 of rows tid / 8 + k * THREADS / 8
   static_assert(BN * UNITS % THREADS == 0, "copies per thread");
+  static_assert(BQ * UNITS % THREADS == 0, "copies per thread");
   const int unit = tid & 7;
   Stage ld;  // the next stage to load
   auto load_next = [&]() {
@@ -250,17 +422,29 @@ sim_max_mma_kernel(const unsigned char* __restrict__ q,
       cp16(dst + swz(r, unit), ok ? ctx + (row0 + r) * dbytes + byte : ctx,
            ok ? 16 : 0);
     }
-    if (ld.kc == nk - 1) {  // the epilogue's mask or bias rides the last stage
-      for (int e = tid; e < BN; e += THREADS)
-        cp4(fs_s + (ld.slot * BN + e) * 4, e < rows ? frame + row0 + e : frame,
-            e < rows ? 4 : 0);
+    if constexpr (S::QUERY == Query::kStaged) {  // the queries' slice
+#pragma unroll
+      for (int k = 0; k < BQ * UNITS / THREADS; ++k) {
+        const int r = (tid >> 3) + k * (THREADS / 8);
+        const bool ok = q0 + r < nq && byte < dbytes;
+        cp16(dst + FRAME_TILE + swz(r, unit),
+             ok ? q + (size_t)(q0 + r) * dbytes + byte : q, ok ? 16 : 0);
+      }
+    }
+    if (ld.kc == nk - 1) {  // the epilogue's per-frame values ride the last
+      for (int e = tid; e < S::FRAMES * BN; e += THREADS) {
+        const int f = e / BN, n = e % BN;
+        const typename S::Frame* src = f ? frame2 : frame;
+        cp4(fs_s + ((ld.slot * S::FRAMES + f) * BN + n) * 4,
+            n < rows ? src + row0 + n : src, n < rows ? 4 : 0);
+      }
     }
     ld.next(nk, nc);
   };
 
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < total) load_next();
-    cp_commit();  // the first group also holds the query tile
+    cp_commit();  // with kCopy the first group also holds the query tile
   }
 
   Acc acc[64];
@@ -271,36 +455,73 @@ sim_max_mma_kernel(const unsigned char* __restrict__ q,
   for (int i = 0; i < total; ++i, st.next(nk, nc)) {
     cp_wait<STAGES - 2>();
     proxy_fence();
-    __syncthreads();  // stage i landed; stage i - 1's slot is free
+    // stage i landed; every warpgroup is done with stage i - 1's slot and
+    // with the scratch tile
+    __syncthreads();
     if (i + STAGES - 1 < total) load_next();
     cp_commit();
 
-    if (st.c == 0 && st.kc == 0) best[0] = best[1] = S::lowest();
-    const uint32_t a = qs_s + st.kc * (BQ * CHUNK) + wg * (64 * CHUNK);
     const uint32_t b = ring_s + st.slot * STAGE_BYTES;
-    S::fence(acc);
+    if constexpr (S::QUERY == Query::kStaged) {
+      // split the stage: big in place, small into the scratch tile
+      unsigned char* slot = ring + st.slot * STAGE_BYTES;
+      for (int o = tid * 16; o < STAGE_BYTES; o += THREADS * 16) {
+        const float4 x = *reinterpret_cast<const float4*>(slot + o);
+        const float4 big = make_float4(tf32_big(x.x), tf32_big(x.y),
+                                       tf32_big(x.z), tf32_big(x.w));
+        *reinterpret_cast<float4*>(slot + o) = big;
+        *reinterpret_cast<float4*>(scratch + o) = make_float4(
+            x.x - big.x, x.y - big.y, x.z - big.z, x.w - big.w);
+      }
+      proxy_fence();
+      __syncthreads();
+    }
+
+    if (st.c == 0 && st.kc == 0) best[0] = best[1] = S::lowest();
+    acc_fence(acc);
     wgmma_fence();
     // the first step of a frame chunk overwrites the accumulators
+    if constexpr (S::QUERY == Query::kCopy) {
+      const uint32_t a = qs_s + st.kc * (BQ * CHUNK) + wg * (64 * CHUNK);
 #pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks)
-      S::wgmma(acc, desc(a + ks * 32), desc(b + ks * 32),
+      for (int ks = 0; ks < KSTEPS; ++ks)
+        S::mma(acc, desc(a + ks * 32), desc(b + ks * 32),
                st.kc > 0 || ks > 0);
+    } else if constexpr (S::QUERY == Query::kSplit3) {
+      const uint32_t a = qs_s + st.kc * (BQ * CHUNK) + wg * (64 * CHUNK);
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          S::mma(acc, desc(a + p * (uint32_t)part + ks * 32),
+                 desc(b + ks * 32), st.kc > 0 || ks > 0 || p > 0);
+    } else {
+      // A: the queries' big and small, B: the frames'; small.small dropped
+      const uint32_t a = b + FRAME_TILE + wg * (64 * CHUNK);
+      const uint32_t sb = scratch_s, sa = scratch_s + (a - b);
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        S::mma(acc, desc(sa + ks * 32), desc(b + ks * 32),
+               st.kc > 0 || ks > 0);
+        S::mma(acc, desc(a + ks * 32), desc(sb + ks * 32), 1);
+        S::mma(acc, desc(a + ks * 32), desc(b + ks * 32), 1);
+      }
+    }
     wgmma_commit();
     wgmma_wait();  // before the slot is refilled and the epilogue reads
-    S::fence(acc);
+    acc_fence(acc);
     if (st.kc != nk - 1) continue;
 
     // epilogue of frame chunk c
-    const typename S::Frame* f = fs + st.slot * BN;
+    const typename S::Frame* f = fs + st.slot * S::FRAMES * BN;
 #pragma unroll
     for (int t = 0; t < BN / 8; ++t)
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
         const int n = t * 8 + (lane & 3) * 2 + x;
         if (st.c * BN + n < L) {
-          const typename S::Frame fv = f[n];
-          best[0] = S::top(best[0], S::masked(acc[4 * t + x], fv));
-          best[1] = S::top(best[1], S::masked(acc[4 * t + 2 + x], fv));
+          best[0] = S::top(best[0], S::masked(acc[4 * t + x], f, n));
+          best[1] = S::top(best[1], S::masked(acc[4 * t + 2 + x], f, n));
         }
       }
     if (st.c != nc - 1) continue;
@@ -365,15 +586,16 @@ int resident_blocks(size_t smem, int* blocks) {
 }
 
 template <typename S, int WG>
-int launch_tile(const void* q, const void* ctx, const void* frame, void* out,
-                int nq, int nv, int L, int D, void* stream) {
+int launch_tile(const void* q, const void* ctx, const void* frame,
+                const void* frame2, void* out, int nq, int nv, int L, int D,
+                void* stream) {
   if (nq <= 0 || nv <= 0) return (int)cudaGetLastError();
   const int dbytes = D * S::ELEM;
   const int q_tiles = (nq + WG * 64 - 1) / (WG * 64);
   if (L <= 0 || D <= 0 || dbytes % 16 || (uintptr_t)q % 16 ||
       (uintptr_t)ctx % 16 || q_tiles > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<WG>(dbytes);
+  const size_t smem = smem_bytes<S, WG>(dbytes);
   int blocks = 0;
   const int rc = resident_blocks<S, WG>(smem, &blocks);
   if (rc != 0) return rc;
@@ -382,20 +604,26 @@ int launch_tile(const void* q, const void* ctx, const void* frame, void* out,
   sim_max_mma_kernel<S, WG>
       <<<dim3(gx, q_tiles), WG * 128, smem, (cudaStream_t)stream>>>(
           (const unsigned char*)q, (const unsigned char*)ctx,
-          (const typename S::Frame*)frame, (float*)out, nq, nv, L, dbytes);
+          (const typename S::Frame*)frame, (const typename S::Frame*)frame2,
+          (float*)out, nq, nv, L, dbytes);
   return (int)cudaGetLastError();
 }
 
 // 64 queries or fewer: one warpgroup per block. More: two, which read the
-// corpus half as often, unless their query rows do not fit in shared memory
-// (D above 704 bf16 or 1,408 int8). D above 1,408 bf16 or 2,816 int8 fits
-// neither: the launch returns cudaErrorInvalidValue.
+// corpus half as often, unless two warpgroups' shared memory does not fit
+// (bf16 resident rows above D = 704, int8 above 1,408; exact always, at
+// 144 KB of split query rows per warpgroup at D = 384). One warpgroup fits
+// bf16 up to D = 1,408, int8 up to 2,816, exact up to 448 and f32 at any D
+// (its queries ride the ring); beyond, the launch returns
+// cudaErrorInvalidValue.
 template <typename S>
-int launch(const void* q, const void* ctx, const void* frame, void* out,
-           int nq, int nv, int L, int D, void* stream) {
-  if (nq > 64 && smem_bytes<2>(D * S::ELEM) <= MAX_SMEM)
-    return launch_tile<S, 2>(q, ctx, frame, out, nq, nv, L, D, stream);
-  return launch_tile<S, 1>(q, ctx, frame, out, nq, nv, L, D, stream);
+int launch(const void* q, const void* ctx, const void* frame,
+           const void* frame2, void* out, int nq, int nv, int L, int D,
+           void* stream) {
+  if (nq > 64 && smem_bytes<S, 2>(D * S::ELEM) <= MAX_SMEM)
+    return launch_tile<S, 2>(q, ctx, frame, frame2, out, nq, nv, L, D,
+                             stream);
+  return launch_tile<S, 1>(q, ctx, frame, frame2, out, nq, nv, L, D, stream);
 }
 
 }  // namespace
@@ -405,7 +633,15 @@ int launch(const void* q, const void* ctx, const void* frame, void* out,
 extern "C" int sim_max_bf16(const void* q, const void* ctx, const void* mask,
                             void* out, int nq, int nv, int L, int D,
                             void* stream) {
-  return launch<Bf16>(q, ctx, mask, out, nq, nv, L, D, stream);
+  return launch<Bf16>(q, ctx, mask, mask, out, nq, nv, L, D, stream);
+}
+
+// q (nq, D) f32, ctx (nv, L, D) f32, mask (nv, L) f32 -> out (nq, nv) f32.
+// D % 4 == 0 and q, ctx 16-byte aligned (the wrapper pads and checks).
+extern "C" int sim_max_f32(const void* q, const void* ctx, const void* mask,
+                           void* out, int nq, int nv, int L, int D,
+                           void* stream) {
+  return launch<Tf32>(q, ctx, mask, mask, out, nq, nv, L, D, stream);
 }
 
 // q (nq, D) int8, ctx (nv, L, D) int8, bias (nv, L) int32 -> out (nq, nv)
@@ -413,5 +649,14 @@ extern "C" int sim_max_bf16(const void* q, const void* ctx, const void* mask,
 extern "C" int sim_max_int8(const void* q, const void* ctx, const void* bias,
                             void* out, int nq, int nv, int L, int D,
                             void* stream) {
-  return launch<Int8>(q, ctx, bias, out, nq, nv, L, D, stream);
+  return launch<Int8>(q, ctx, bias, bias, out, nq, nv, L, D, stream);
+}
+
+// q (nq, D) f32 L2-normalized, ctx (nv, L, D) raw bf16, inv and bias
+// (nv, L) f32 -> out (nq, nv) f32. D % 8 == 0, D <= 448, and q, ctx
+// 16-byte aligned (the wrapper pads and checks).
+extern "C" int sim_max_exact(const void* q, const void* ctx, const void* inv,
+                             const void* bias, void* out, int nq, int nv,
+                             int L, int D, void* stream) {
+  return launch<Exact>(q, ctx, inv, bias, out, nq, nv, L, D, stream);
 }

@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "_build"
-SOURCES = ("sim_max", "sim_max_mma", "sim_max_exact", "tower", "tower_mma")
+SOURCES = ("sim_max_mma", "tower", "tower_mma")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

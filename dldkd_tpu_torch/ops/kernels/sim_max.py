@@ -3,25 +3,35 @@
 
 Replaces, in dldkd_tpu/ops/pallas/sim_max.py:
 - `_sim_max_kernel`, through `fused_clip_scores(quantized=False)`:
-  `fused_clip_scores` here, CUDA sources `csrc/sim_max_mma.cu` (bf16, on
-  the tensor cores) and `csrc/sim_max.cu` (f32, IEEE FMAs);
+  `fused_clip_scores` here;
 - `_sim_max_kernel_int8`, through `fused_clip_scores_q8` and
   `fused_clip_scores(quantized=True)`: `fused_clip_scores_int8` and
-  `fused_clip_scores_q8` here, CUDA source `csrc/sim_max_mma.cu`;
+  `fused_clip_scores_q8` here;
 - `_sim_max_kernel_exact`, through `fused_exact_scores`: `fused_exact_scores`
-  here, CUDA source `csrc/sim_max_exact.cu`.
-Each source's header says what bounds it on an H100 and how the design
-answers that. Normalization, quantization of the query side and the frame
-scales stay outside the kernels, in plain torch, as the JAX package keeps
-them outside pallas_call.
+  here.
+All four instances are one tensor-core kernel, `csrc/sim_max_mma.cu`
+(entries `sim_max_bf16`, `sim_max_f32`, `sim_max_int8`, `sim_max_exact`),
+whose header says what bounds it on an H100 and how the design answers
+that. Normalization, quantization of the query side and the frame scales
+stay outside the kernel, in plain torch, as the JAX package keeps them
+outside pallas_call.
+
+Split products. f32 scoring multiplies on the tensor cores in 3xTF32:
+each operand is split into a TF32 part and an exact f32 remainder
+(`split_tf32`) and three products are summed, as the JAX package's f32
+scoring runs at "highest" precision (XLA's multi-pass bf16 emulation of f32
+on the MXU), not in IEEE f32 products. Exact rescoring splits the f32 query
+into three bf16 parts (`split_bf16x3`), the Pallas kernel's own rounding,
+so that its three bf16 products are exact. The kernel makes both splits
+itself; the helpers here are the same arithmetic for the tests.
 
 The int8 index keeps the port's own layout: (Nv, L, D) int8 rows and an
 (Nv, L) int32 bias, 0 on valid frames and INT8_MASK_BIAS on masked or padded
 ones (no transpose, no padding to a lane grid).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
-it runs its plain PyTorch version, which the CPU tests hold against the
-Pallas kernels in interpret mode.
+it runs its plain PyTorch version (full f32 products), which the CPU tests
+hold against the Pallas kernels in interpret mode.
 """
 
 from __future__ import annotations
@@ -44,6 +54,11 @@ NEG_BIG_INT8 = INT8_MASK_BIAS / (INT8_SCALE * INT8_SCALE)   # dequantized
 # float32(1 / 127^2), the constant the TPU kernel multiplies by
 # (sim_max.py:216-217), held as the Python float of that f32 value
 INV_SCALE2 = float(np.float32(1.0 / (INT8_SCALE * INT8_SCALE)))
+
+# the exact kernel's deepest rows: its three resident bf16 query parts
+# (3 x 64 rows x D x 2 bytes), its ring and frame scales fit in 227 KB of
+# shared memory up to 7 depth chunks of 64 values
+EXACT_MAX_DEPTH = 448
 
 # bytes of f32 frame scores the plain versions hold at once
 _PLAIN_CHUNK_BYTES = 256 * 1024 * 1024
@@ -76,6 +91,28 @@ def pad_depth(multiple: int, *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     if d % multiple == 0:
         return ts
     return tuple(F.pad(t, (0, multiple - d % multiple)) for t in ts)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(big, small) of f32 x as the f32 scoring kernel splits each operand:
+    big is x rounded to TF32 (10 mantissa bits, to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 rounds), its low 13 bits zero; small =
+    x - big, exact in f32, so big + small == x."""
+    bits = x.float().contiguous().view(torch.int32)
+    big = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return big, x.float() - big
+
+
+def split_bf16x3(q: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three bf16 parts of f32 q that the exact kernel multiplies,
+    dldkd_tpu/ops/pallas/sim_max.py:85-88's rounding (to nearest even):
+    q1 + q2 + q3 == q exactly for normal f32 values."""
+    q = q.float()
+    q1 = q.to(torch.bfloat16)
+    r = q - q1.float()
+    q2 = r.to(torch.bfloat16)
+    return q1, q2, (r - q2.float()).to(torch.bfloat16)
 
 
 def _aligned16(what: str, **ts) -> None:
@@ -140,12 +177,14 @@ def fused_clip_scores(qn: torch.Tensor, cn: torch.Tensor,
         return sim_max_plain(qn, cn, mask)
     from dldkd_tpu_torch.ops.kernels.build import bind, check
 
-    if qn.dtype == torch.float32:   # IEEE f32 FMAs on the CUDA cores
-        sym, fn = "sim_max_f32", bind("sim_max", "sim_max_f32", 4, 4)
-    else:   # bf16 rows of 16-byte multiples, on the tensor cores
+    # rows of 16-byte multiples: 4 f32 (3xTF32) or 8 bf16 values
+    if qn.dtype == torch.float32:
+        qn, cn = pad_depth(4, qn, cn)
+        sym, fn = "sim_max_f32", bind("sim_max_mma", "sim_max_f32", 4, 4)
+    else:
         qn, cn = pad_depth(8, qn, cn)
-        _aligned16("fused_clip_scores", qn=qn, cn=cn)
         sym, fn = "sim_max_bf16", bind("sim_max_mma", "sim_max_bf16", 4, 4)
+    _aligned16("fused_clip_scores", qn=qn, cn=cn)
     nq, d = qn.shape
     nv, l_frames, _ = cn.shape
     out = torch.empty((nq, nv), dtype=torch.float32, device=qn.device)
@@ -316,12 +355,18 @@ def sim_max_exact_launch(qn: torch.Tensor, ctx: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"{what}: the kernel runs on CUDA tensors")
     _contiguous(what, qn=qn, ctx=ctx, inv=inv, bias=bias)
+    qn, ctx = pad_depth(8, qn, ctx)   # bf16 frame rows of 16-byte multiples
+    _aligned16(what, qn=qn, ctx=ctx)
     nq, d = qn.shape
+    if d > EXACT_MAX_DEPTH:
+        raise ValueError(f"{what}: depth {d} above {EXACT_MAX_DEPTH}: the "
+                         f"kernel keeps three bf16 parts of 64 query rows "
+                         f"in shared memory")
     nv, l_frames, _ = ctx.shape
     out = torch.empty((nq, nv), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = bind("sim_max_exact", "sim_max_exact", 5, 4)(
+        rc = bind("sim_max_mma", "sim_max_exact", 5, 4)(
             qn.data_ptr(), ctx.data_ptr(), inv.data_ptr(), bias.data_ptr(),
             out.data_ptr(), nq, nv, l_frames, d, stream)
     check(rc, what)

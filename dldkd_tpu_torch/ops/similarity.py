@@ -17,9 +17,9 @@ from typing import Optional, Tuple
 import torch
 
 from dldkd_tpu_torch.ops.kernels.sim_max import (
-    INT8_MASK_BIAS, INV_SCALE2, fused_clip_scores, fused_clip_scores_int8,
-    fused_clip_scores_q8, fused_exact_scores, q8_index_bias,
-    quantize_unit_int8, sim_max_plain)
+    EXACT_MAX_DEPTH, INT8_MASK_BIAS, INV_SCALE2, fused_clip_scores,
+    fused_clip_scores_int8, fused_clip_scores_q8, fused_exact_scores,
+    q8_index_bias, quantize_unit_int8, sim_max_plain)
 from dldkd_tpu_torch.ops.masking import l2_normalize, mask_logits
 
 
@@ -184,15 +184,16 @@ def exact_clip_scores(query: torch.Tensor,   # (Nq, D)
 # to three digits:
 # - the candidate gather of rescore_shortlist: 6.05 ms, i.e. 166 GB/s of
 #   gathered bf16 frames;
-# - the exact kernel (bf16 frames): 2.78 ms, 19.7 T multiply-add operations
-#   (2 per product) per second; the f32 masked-cosine kernel (f32 frames):
-#   2.76 ms, 19.9 T/s;
+# - the exact kernel (bf16 frames; split-3 bf16 products on the tensor
+#   cores): 0.372 ms, 148 T multiply-add operations (2 per product of the
+#   f32 query, counted once) per second; the f32 masked-cosine kernel (f32
+#   frames; 3xTF32): 0.822 ms, 66.7 T/s;
 # - the dense route's per-call pass over the stored frames: the frame
 #   scales of bf16 frames, 0.138 ms (1.56 TB/s of frames read); the
 #   normalization of f32 frames, 0.517 ms (0.829 TB/s).
 _GATHER_BYTES_PER_S = 166e9
-_DENSE_FLOPS_BF16 = 19.7e12
-_DENSE_FLOPS_F32 = 19.9e12
+_DENSE_FLOPS_BF16 = 148e12
+_DENSE_FLOPS_F32 = 66.7e12
 _DENSE_BYTES_PER_S_BF16 = 1.56e12
 _DENSE_BYTES_PER_S_F32 = 0.829e12
 
@@ -224,6 +225,8 @@ def dense_rescore_wins(nq: int, k_short: int, nv: int, l_frames: int,
         return False
     if mode == "always":
         return True
+    if itemsize <= 2 and d > EXACT_MAX_DEPTH:   # the exact kernel's limit
+        return False
     flops, rate = ((_DENSE_FLOPS_BF16, _DENSE_BYTES_PER_S_BF16)
                    if itemsize <= 2 else
                    (_DENSE_FLOPS_F32, _DENSE_BYTES_PER_S_F32))

@@ -6,17 +6,20 @@ run it without the suite's conftest (which configures JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: scores 1e-5 abs (f32 scoring: IEEE f32 FMAs on both sides;
-bf16 scoring: tensor-core products of bf16 values, exact in f32, summed
-with f32 accumulation in another order than the plain version's f32
+Tolerances: scores 1e-5 abs (f32 scoring: 3xTF32 tensor-core products,
+each within ~2^-22 of the f32 product, against the plain version's f32
+matmul; bf16 scoring: tensor-core products of bf16 values, exact in f32,
+summed with f32 accumulation in another order than the plain version's f32
 matmul of the widened values); tower outputs 1e-4 abs in f32 (five chained
 products, sums in another order) and 3e-2 abs in bf16 (the same rounding
 points; another accumulation order flips a bf16 rounding now and then);
 int8 scores bitwise on valid videos (integer sums); exact-rescore scores
-5e-6 abs (f32 FMAs against the same stored frames, summed in another
-order); the int8 epilogue bitwise (the plain version sums in the kernel's
-order) and, through the towers, bitwise against the epilogue's plain
-version applied to the same launch's frames. The bf16 towers run the
+5e-6 abs (split-3 bf16 products, exact, against the same stored frames,
+summed in another order); both split kernels within 1e-6 of an f64
+reference on the same inputs (f32 grade: one TF32 product alone is
+~1e-4 off); the int8 epilogue bitwise (the plain version sums in the
+kernel's order) and, through the towers, bitwise against the epilogue's
+plain version applied to the same launch's frames. The bf16 towers run the
 tensor-core kernels of csrc/tower_mma.cu (products exact in f32, sums in
 another order), under the same 3e-2.
 """
@@ -75,13 +78,13 @@ def bound_symbols(monkeypatch):
 # striding over the videos): query counts around the 64-row tile, video
 # counts that no grid divides, one frame, a ragged chunk, two chunks, a
 # depth that needs padding (bf16 rows to 16 bytes) and TVR's shapes. Every
-# case has an all-masked video (column 0). f32 runs the SIMT kernel of
-# csrc/sim_max.cu on the same shapes.
+# case has an all-masked video (column 0). f32 runs the 3xTF32 instance of
+# the same kernel on the same shapes.
 _SIM_MAX_SHAPES = [(50, 2179, 128, 384), (256, 2179, 128, 384),
                    (7, 13, 5, 24), (65, 9, 17, 40), (1, 13, 1, 24),
                    (64, 263, 7, 64), (65, 131, 130, 128),
                    (128, 37, 128, 384), (5, 11, 6, 20), (256, 19, 130, 72)]
-_SIM_MAX_ENTRY = {torch.float32: ("sim_max", "sim_max_f32"),
+_SIM_MAX_ENTRY = {torch.float32: ("sim_max_mma", "sim_max_f32"),
                   torch.bfloat16: ("sim_max_mma", "sim_max_bf16")}
 
 
@@ -284,6 +287,140 @@ def test_exact_kernel_matches_plain(dev, nq, nv, l_frames, d):
     assert sim_max.LAUNCHES["sim_max_exact"] == before + 1
     torch.testing.assert_close(got, want, atol=5e-6, rtol=0)
     assert bool((got[:, 0] <= -1e9).all())
+
+
+# Edges of the split kernels (f32 scoring in 3xTF32, exact rescoring in
+# split-3 bf16): query counts around the 64-query tiles and serving's 256,
+# frame counts around the 128-frame chunk and over two chunks, a depth of
+# one and a half f32 stages (48), one that needs padding (100: f32 rows to
+# 4 values, bf16 frame rows to 8) and TVR's 384; 23 videos, which no grid
+# divides, column 0 all-masked.
+_SPLIT_NQ = (1, 50, 64, 65, 256)
+_SPLIT_L = (1, 127, 128, 129, 300)
+_SPLIT_D = (48, 100, 384)
+
+
+def _split_inputs(nq, l_frames, d, dev, nv=23):
+    gen = torch.Generator().manual_seed(nq * 1000 + l_frames + d)
+    q = torch.randn(nq, d, generator=gen).to(dev)
+    ctx = torch.randn(nv, l_frames, d, generator=gen).to(dev)
+    return q, ctx, _mask(nv, l_frames, gen, dev)
+
+
+def _f64_scores(q, c, mask, inv=None, bias=None):
+    """The scorers' function in f64 on the same inputs: the reference that
+    shows f32-grade error."""
+    s = torch.einsum("qd,vld->qvl", q.double(), c.double())
+    if inv is None:
+        m = mask.double()
+        s = s * m + (1 - m) * -1e10
+    else:
+        s = s * inv.double() + bias.double()
+    return s.amax(dim=-1)
+
+
+def _valid_err(got, ref, mask):
+    valid = mask.amax(dim=1) > 0
+    return float((got.double() - ref)[:, valid].abs().max())
+
+
+@pytest.mark.parametrize("d", _SPLIT_D)
+@pytest.mark.parametrize("l_frames", _SPLIT_L)
+@pytest.mark.parametrize("nq", _SPLIT_NQ)
+def test_f32_split_kernel_edges(dev, bound_symbols, nq, l_frames, d):
+    q, ctx, mask = _split_inputs(nq, l_frames, d, dev)
+    qn, cn = l2_normalize(q).contiguous(), l2_normalize(ctx).contiguous()
+    before = sim_max.LAUNCHES["sim_max"]
+    got = sim_max.fused_clip_scores(qn, cn, mask)
+    want = sim_max.sim_max_plain(qn, cn, mask)
+    torch.cuda.synchronize()
+    assert sim_max.LAUNCHES["sim_max"] == before + 1
+    assert bound_symbols == [("sim_max_mma", "sim_max_f32")]
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert _valid_err(got, _f64_scores(qn, cn, mask), mask) <= 1e-6
+    assert bool((got[:, 0] <= -1e9).all())
+
+
+@pytest.mark.parametrize("d", _SPLIT_D)
+@pytest.mark.parametrize("l_frames", _SPLIT_L)
+@pytest.mark.parametrize("nq", _SPLIT_NQ)
+def test_exact_split_kernel_edges(dev, bound_symbols, nq, l_frames, d):
+    q, ctx, mask = _split_inputs(nq, l_frames, d, dev)
+    ctx = (3 * ctx).to(torch.bfloat16)
+    before = sim_max.LAUNCHES["sim_max_exact"]
+    got = sim_max.fused_exact_scores(q, ctx, mask)
+    want = sim_max.fused_exact_scores(q, ctx, mask, plain=True)
+    torch.cuda.synchronize()
+    assert sim_max.LAUNCHES["sim_max_exact"] == before + 1
+    assert bound_symbols == [("sim_max_mma", "sim_max_exact")]
+    torch.testing.assert_close(got, want, atol=5e-6, rtol=0)
+    inv, bias = sim_max.exact_frame_scales(ctx, mask)
+    ref = _f64_scores(l2_normalize(q), ctx, mask, inv, bias)
+    assert _valid_err(got, ref, mask) <= 1e-6
+    assert bool((got[:, 0] <= -1e9).all())
+
+
+def test_f32_split_small_terms_matter(dev):
+    """Queries and frames whose every value has low mantissa bits set, so
+    no value is a TF32 number: the product of the TF32 parts alone is
+    ~1e-5 off; the kernel, with its small terms, stays within 1e-6 of
+    f64."""
+    gen = torch.Generator().manual_seed(12)
+
+    def rough(x):   # low 12 bits of every mantissa set
+        return (l2_normalize(x).view(torch.int32) | 0xFFF).view(
+            torch.float32).to(dev).contiguous()
+
+    q = rough(torch.randn(65, 384, generator=gen))
+    c = rough(torch.randn(37, 129, 384, generator=gen))
+    mask = _mask(37, 129, gen, dev)
+    got = sim_max.fused_clip_scores(q, c, mask)
+    ref = _f64_scores(q, c, mask)
+    big_only = _f64_scores(sim_max.split_tf32(q)[0],
+                           sim_max.split_tf32(c)[0], mask)
+    err, err_big = _valid_err(got, ref, mask), _valid_err(big_only, ref,
+                                                          mask)
+    assert err <= 1e-6 and err_big >= 10 * err and err_big > 2e-6
+
+
+def _kernel_names(fn):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("kind,nq,instance", [
+    ("exact", 256, "Exact, 1>"), ("exact", 50, "Exact, 1>"),
+    ("f32", 256, "Tf32, 2>"), ("f32", 50, "Tf32, 1>")])
+def test_split_kernels_warpgroups_per_block(dev, kind, nq, instance):
+    """exact keeps three bf16 parts of its query rows in shared memory, so
+    its launch takes one warpgroup (64 queries) per block even at 256
+    queries; f32 stages its queries through the ring and takes two."""
+    q, ctx, mask = _split_inputs(nq, 128, 384, dev)
+    if kind == "exact":
+        ctx = ctx.to(torch.bfloat16)
+        names = _kernel_names(lambda: sim_max.fused_exact_scores(q, ctx,
+                                                                 mask))
+    else:
+        qn, cn = l2_normalize(q).contiguous(), l2_normalize(ctx).contiguous()
+        names = _kernel_names(lambda: sim_max.fused_clip_scores(qn, cn,
+                                                                mask))
+    mine = [n for n in names if "sim_max_mma_kernel" in n]
+    assert len(mine) == 1 and instance in mine[0], names
+
+
+def test_exact_kernel_rejects_depth_above_its_limit(dev):
+    d = sim_max.EXACT_MAX_DEPTH + 8
+    q = torch.randn(3, d, device=dev)
+    ctx = torch.randn(2, 5, d, device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="depth"):
+        sim_max.fused_exact_scores(q, ctx, torch.ones(2, 5, device=dev))
 
 
 @pytest.mark.parametrize("h", [384, 40, 8])

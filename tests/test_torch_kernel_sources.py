@@ -7,10 +7,12 @@ CPU: no compiler and no card needed.
   (pointers, then ints, then floats, then the stream; an int return). A
   mismatch would pass arguments in the wrong registers, which only a card
   would show.
-- Every source is in `build.SOURCES`, once.
-- The scoring wrappers' depth padding (bf16 rows to 8 values, int8 rows to
-  16) leaves the plain versions' results bitwise unchanged; at TVR's depth
-  it copies nothing.
+- Every source is in `build.SOURCES`, once; the four scoring entries live
+  in the one tensor-core source.
+- The scoring wrappers' depth padding (f32 rows to 4 values, bf16 rows to
+  8, int8 rows to 16, the exact kernel's f32 query and bf16 frames to 8)
+  leaves the plain versions' results bitwise unchanged; at TVR's depth it
+  copies nothing.
 """
 
 import ast
@@ -123,6 +125,17 @@ def test_every_source_is_built_once():
     assert bound == set(build.SOURCES)
 
 
+def test_scoring_entries_live_in_the_tensor_core_source():
+    """f32 scoring and exact rescoring moved into csrc/sim_max_mma.cu beside
+    bf16 and int8 scoring; no SIMT scoring source is left to build."""
+    for symbol in ("sim_max_bf16", "sim_max_f32", "sim_max_int8",
+                   "sim_max_exact"):
+        assert ENTRIES[symbol][0] == "sim_max_mma", symbol
+    assert build.SOURCES == ("sim_max_mma", "tower", "tower_mma")
+    calls = {c[1]: c[0] for c in _bind_calls()}
+    assert calls["sim_max_f32"] == calls["sim_max_exact"] == "sim_max_mma"
+
+
 def _dyadic(rng, shape, scale):
     """Small multiples of 1/scale: every product and partial sum of the
     scoring functions is exact in f32, so any summation order gives the
@@ -146,6 +159,44 @@ def test_bf16_depth_padding_keeps_plain_scores(nq, nv, l_frames, d):
     assert torch.equal(cp[..., :d], c) and not cp[..., d:].any()
     assert torch.equal(sim_max.sim_max_plain(qp, cp, mask),
                        sim_max.sim_max_plain(q, c, mask))
+
+
+@pytest.mark.parametrize("nq,nv,l_frames,d", [(3, 5, 4, 22), (7, 2, 9, 5),
+                                              (1, 6, 1, 13)])
+def test_f32_depth_padding_keeps_plain_scores(nq, nv, l_frames, d):
+    """f32 rows pad to 4 values (16 bytes) for the 3xTF32 instance."""
+    rng = np.random.RandomState(d + 1)
+    q = torch.from_numpy(_dyadic(rng, (nq, d), 8))
+    c = torch.from_numpy(_dyadic(rng, (nv, l_frames, d), 8))
+    mask = torch.from_numpy((rng.rand(nv, l_frames) > 0.3).astype(
+        np.float32))
+    mask[0] = 0.0
+    qp, cp = sim_max.pad_depth(4, q, c)
+    assert qp.dtype == torch.float32 and qp.shape[-1] % 4 == 0
+    assert qp.shape[-1] - d < 4
+    assert torch.equal(cp[..., :d], c) and not cp[..., d:].any()
+    assert torch.equal(sim_max.sim_max_plain(qp, cp, mask),
+                       sim_max.sim_max_plain(q, c, mask))
+
+
+@pytest.mark.parametrize("nq,nv,l_frames,d", [(3, 5, 4, 22), (2, 3, 9, 100)])
+def test_exact_depth_padding_keeps_plain_scores(nq, nv, l_frames, d):
+    """The exact kernel pads its f32 query and bf16 frames to 8 values; the
+    frame scales come from the unpadded frames and do not change."""
+    rng = np.random.RandomState(d + 2)
+    q = torch.from_numpy(_dyadic(rng, (nq, d), 8))
+    c = torch.from_numpy(_dyadic(rng, (nv, l_frames, d), 8)).to(
+        torch.bfloat16)
+    mask = torch.from_numpy((rng.rand(nv, l_frames) > 0.3).astype(
+        np.float32))
+    mask[0] = 0.0
+    inv, bias = sim_max.exact_frame_scales(c, mask)
+    qp, cp = sim_max.pad_depth(8, q, c)
+    assert qp.dtype == torch.float32 and cp.dtype == torch.bfloat16
+    assert qp.shape[-1] % 8 == 0 and cp.shape[-1] == qp.shape[-1]
+    assert torch.equal(sim_max.exact_frame_scales(cp, mask)[0], inv)
+    assert torch.equal(sim_max.sim_max_exact_plain(qp, cp, inv, bias),
+                       sim_max.sim_max_exact_plain(q, c, inv, bias))
 
 
 @pytest.mark.parametrize("nq,nv,l_frames,d", [(3, 5, 4, 22), (7, 2, 9, 40),
@@ -172,3 +223,7 @@ def test_depth_padding_copies_nothing_at_tvr_depth():
     for multiple in (8, 16):
         qp, cp = sim_max.pad_depth(multiple, q, c)
         assert qp is q and cp is c
+    q32, c32 = q.float(), c.float()
+    for multiple, pair in ((4, (q32, c32)), (8, (q32, c))):
+        out = sim_max.pad_depth(multiple, *pair)
+        assert all(a is b for a, b in zip(out, pair))
