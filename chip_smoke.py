@@ -16,9 +16,11 @@ package. Phases, in order; any failure exits non-zero without the final
    the same inputs: max abs error against a stated tolerance, kernel and
    plain times (CUDA events, >= 20 launches after warm-up) and the least
    time the card could take (bytes over 3.35 TB/s or the operations the
-   kernel runs over the peak rate of their arithmetic: f32 scoring counts
-   its three TF32 products, exact rescoring its three bf16 products, the
-   f32 towers f32 FMAs); the scorers' kernel time is their C entry's
+   kernel runs over the peak rate of their arithmetic: f32 scoring and the
+   f32 towers count their three TF32 products, exact rescoring its three
+   bf16 products; beside the f32 towers' bound, `bound_ms_f32_fma` is the
+   rule of the SIMT chain they replaced, one product at the f32 FMA rate);
+   the scorers' kernel time is their C entry's
    alone, the wrapper's beside it; then the same for the int8 scoring
    kernel (50 and 256 queries), the exact-rescore kernel (256 queries),
    the towers' int8 epilogue (both launches, 200 videos), and the rates
@@ -34,7 +36,10 @@ package. Phases, in order; any failure exits non-zero without the final
    normalization, LayerNorms, attention, pooling or epilogues. The towers'
    kernel time is the chain alone on weights packed once, as the eval and
    serving run it, with `device_ms` beside it: the chain's kernels alone
-   (torch.profiler), without the host's time between launches;
+   (torch.profiler), without the host's time between launches; then the
+   towers at the shapes the kernels once refused (sequences of 136 and 300
+   rows, an input width of 44 with hidden 36 in 4 heads, one 256-dim head),
+   both kinds, both dtypes, against their plain versions;
 4. `dldkd_tpu_torch.infer.main` on a synthetic dataset at full feature
    widths, with a checkpoint written by the port's own writer: the bf16
    serving config and the f32 parity config, then `--score_quant`; and
@@ -44,7 +49,8 @@ package. Phases, in order; any failure exits non-zero without the final
    frames, 10,895 queries, both branches), in bf16 and in f32: metrics,
    wall time, peak memory and launch counts; one more pass of each under
    torch.profiler (device time by kernel, device idle share); then the
-   kernel path's score matrices and fused SumR against the plain path's;
+   kernel path's score matrices and fused SumR against the plain path's
+   (f32: SumR equal, and no SIMT product (`gemm_kernel`) in the profile);
    then the bf16 int8 eval (score_quant) the same way, profiled too; then
    the serving `Retriever` at the same scale (query batch 256, k = 10) as
    exact, two-stage with dense and with gather stage 2, and int8-only:
@@ -291,19 +297,30 @@ def _tower_products(n, l, d, h, branches, kind, dtype, gen, dev):
     return run
 
 
-def _mma_smem(l: int, h: int, heads: int) -> dict:
+def _mma_smem(l: int, h: int, heads: int, dtype: str) -> dict:
     """Dynamic shared memory per block of csrc/tower_mma.cu's kernels at a
     launch's shapes (their launchers' formulas): the GEMM's 1 KB of
     alignment slack and 3 stages of (64 or 128 rows + 128 columns) x 128
-    bytes; attention's Q, K, V of the head, rows and dims padded to 16, 8
-    values of row padding, and the key biases."""
-    def r16(v):
-        return -(-v // 16) * 16
+    bytes, plus for f32 one more such tile for a stage's small TF32 parts;
+    attention's query tile (32 rows up to L = 32, else 128, or 64 above 128
+    dims per head) and K and V key tiles (bf16 as the query tile, f32 32
+    rows), each at most L rounded to 16 rows of the head's depth (bf16:
+    dims padded to 16; f32: to 8) plus 16 bytes, and the key tile's
+    biases."""
+    def r(v, m):
+        return -(-v // m) * m
 
-    return {"gemm_64_rows": 1024 + 3 * (64 + 128) * 128,
-            "gemm_128_rows": 1024 + 3 * (128 + 128) * 128,
-            "attention": 3 * r16(l) * (r16(h // heads) + 8) * 2
-            + (32 if l <= 32 else 128) * 4}
+    f32 = dtype == "float32"
+    elem, tiles = (4, 4) if f32 else (2, 3)
+    dh = r(h // heads, 8)
+    depth = dh if f32 else r(dh, 16)
+    tile = 32 if l <= 32 else (64 if depth > 128 else 128)
+    keys = 32 if f32 else tile
+    ld = (depth + 16 // elem) * elem
+    return {"gemm_64_rows": 1024 + tiles * (64 + 128) * 128,
+            "gemm_128_rows": 1024 + tiles * (128 + 128) * 128,
+            "attention": (min(tile, r(l, 16)) + 2 * min(keys, r(l, 16))) * ld
+            + keys * 4}
 
 
 def _scoring_smem(kind: str, nq: int, d: int) -> dict:
@@ -404,7 +421,7 @@ def phase_kernels(dev):
             xm = _ragged_mask(n, l, 3, gen, dev)
             for branches in (2, 1):
                 w = ws[kind][:branches]
-                packed = qt.pack_weights(w, tdt, dev)
+                packed = qt.pack_weights(w, tdt, TVR["heads"], dev)
                 if kind == "query":
                     lp = -(-l // 8) * 8
                     xp = torch.nn.functional.pad(x, (0, 0, 0, lp - l))
@@ -436,8 +453,11 @@ def phase_kernels(dev):
                 out_n = n * h if kind == "query" else n * l * h
                 n_bytes = (n * lp * d * 4 + n * lp * 4 + w_bytes
                            + branches * out_n * out_item)
-                b_ms, b_by = bound(
-                    n_bytes, branches * _tower_flops(n, lp, d, h, kind), dtype)
+                flops = branches * _tower_flops(n, lp, d, h, kind)
+                # f32: three TF32 products (3xTF32); bf16: one
+                b_ms, b_by = bound(n_bytes,
+                                   (3 if dtype == "float32" else 1) * flops,
+                                   "tf32" if dtype == "float32" else dtype)
                 name = f"{kind}_tower"
                 rec = {"check": name, "dtype": dtype, "branches": branches,
                        "shape": {"x": [n, l, d], "hidden": h},
@@ -451,8 +471,10 @@ def phase_kernels(dev):
                        # yardstick only: the products alone, torch.matmul
                        "product_ms": cuda_ms(_tower_products(
                            n, lp, d, h, branches, kind, tdt, gen, dev))}
-                if dtype == "bfloat16":
-                    rec["mma_smem_bytes"] = _mma_smem(lp, h, TVR["heads"])
+                rec["mma_smem_bytes"] = _mma_smem(lp, h, TVR["heads"], dtype)
+                if dtype == "float32":  # the replaced SIMT chain's rule
+                    rec["bound_ms_f32_fma"] = bound(n_bytes, flops,
+                                                    "float32")[0]
                 emit(rec)
                 results[(name, dtype, branches) if n != SERVE["query_bsz"]
                         else (name, dtype, branches, n)] = rec
@@ -465,6 +487,68 @@ def phase_kernels(dev):
         del model, ws
         torch.cuda.empty_cache()
     return results
+
+
+# (L, input width, hidden, heads) the tower kernels once refused: two and
+# three key tiles, widths that are not multiples of 8 (4 heads of 9 dims),
+# one 256-dim head
+TOWER_SHAPES = ((136, 64, 32, 4), (300, 64, 32, 4), (20, 44, 36, 4),
+                (20, 48, 256, 1))
+
+
+def phase_tower_shapes(dev):
+    """Both towers, two branches, both dtypes, at TOWER_SHAPES on a few
+    sequences, through the kernels, against their plain versions."""
+    import torch
+
+    from dldkd_tpu_torch.config import ModelConfig
+    from dldkd_tpu_torch.models import DLDKD
+    from dldkd_tpu_torch.ops.fast_eval import tower_weights
+    from dldkd_tpu_torch.ops.kernels import query_tower as qt
+
+    gen = torch.Generator().manual_seed(13)
+    for l, d, h, heads in TOWER_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            cfg = ModelConfig(visual_input_size=d, query_input_size=d,
+                              inheritance_hidden=h, exploration_hidden=h,
+                              max_ctx_l=l, max_desc_l=l, n_heads=heads,
+                              double_branch=True, dtype=dtype)
+            model = DLDKD(cfg).init_weights(
+                torch.Generator().manual_seed(14)).eval()
+            tw = tower_weights(model, dev)
+            x = torch.randn(5, l, d, generator=gen).to(dev)
+            xm = _ragged_mask(5, l, 3, gen, dev)
+            for kind in ("query", "context"):
+                ws, packed = tw[kind], tw["packed"][kind][0]
+                before = _counts()[f"{kind}_tower"]
+                if kind == "query":
+                    got = qt.query_towers(x, xm, ws, heads, tdt, l, "check",
+                                          packed=packed)
+                    want = qt.query_towers(x, xm, ws, heads, tdt, l, "check",
+                                           plain=True)
+                else:
+                    got = qt.context_towers(x, xm, ws, heads, tdt, "check",
+                                            packed=packed)
+                    want = qt.context_towers(x, xm, ws, heads, tdt, "check",
+                                             plain=True)
+                torch.cuda.synchronize()
+                launched = _counts()[f"{kind}_tower"] - before
+                err = max(max_err(a, b) for a, b in zip(got, want))
+                finite = all(bool(torch.isfinite(a.float()).all())
+                             for a in got)
+                tol = TOL[("tower", dtype)]
+                emit({"check": "tower_shapes", "kind": kind, "dtype": dtype,
+                      "shape": {"L": l, "d": d, "hidden": h, "heads": heads,
+                                "n": 5},
+                      "launches": launched, "max_abs_err": err, "tol": tol,
+                      "finite": finite})
+                if launched != 1 or not finite or not err <= tol:
+                    fail(f"{kind} tower {dtype} at L={l} d={d} hidden={h} "
+                         f"heads={heads}: {launched} launches, max abs error "
+                         f"{err} (tol {tol}), finite {finite}")
+            del model, tw
+    torch.cuda.empty_cache()
 
 
 def _write_run(run_dir: str, root: str, dtype: str, seed: int) -> None:
@@ -602,15 +686,20 @@ def _short_kernel_name(name: str) -> str:
             if inst in name:
                 return short
         return "sim_max_kernel"
+    # gemm_kernel: a SIMT product, which the f32 profile must not show
     for k in ("gemm_mma_kernel", "attention_mma_kernel", "normalize_kernel",
-              "gemm_kernel", "attention_kernel",
-              "layernorm_kernel", "row_stats_kernel", "pool_kernel",
+              "gemm_kernel", "layernorm_kernel", "pool_kernel",
               "quantize_q8_kernel"):
         if k in name:
             return k
     if name.startswith("Memcpy") or name.startswith("Memset"):
         return name.split(" (")[0]
     return "other: " + name[:60]
+
+
+# the towers' kernels as _short_kernel_name names them
+TOWER_KERNELS = ("normalize_kernel", "gemm_mma_kernel", "attention_mma_kernel",
+                 "layernorm_kernel", "pool_kernel", "quantize_q8_kernel")
 
 
 def profile_eval(model, videos, queries, dev, score_quant=False) -> dict:
@@ -653,8 +742,11 @@ def profile_eval(model, videos, queries, dev, score_quant=False) -> dict:
     if cur_e is not None:
         busy += cur_e - cur_s
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    towers = sum(by_name.get(k, (0.0, 0))[0] for k in TOWER_KERNELS)
     return {"profiled_wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
+            "towers_device_ms": towers / 1e3,
+            "simt_products": by_name.get("gemm_kernel", (0.0, 0))[1],
             "device_idle_share": (1.0 - busy / wall_us) if wall_us else None,
             "device_events": len(spans),
             "device_ms_by_kernel": {k: {"ms": t / 1e3, "count": c}
@@ -689,8 +781,11 @@ def phase_tvr_eval(dev):
         _check_metrics(metrics, f"TVR eval {dtype}")
         _check_launched(counts, EVAL_KERNELS, f"TVR eval {dtype}")
         counts_by_dtype[dtype] = counts
-        emit({"phase": "tvr_eval_profile", "dtype": dtype,
-              **profile_eval(model, videos, queries, dev)})
+        prof = profile_eval(model, videos, queries, dev)
+        emit({"phase": "tvr_eval_profile", "dtype": dtype, **prof})
+        if prof["simt_products"]:
+            fail(f"TVR eval {dtype}: {prof['simt_products']} SIMT products "
+                 f"(gemm_kernel) in the profile")
         # the kernel path's score matrices against the plain path's
         k_i, k_e = score_matrices(model, videos, queries,
                                   TVR["context_bsz"], TVR["query_bsz"], dev)
@@ -714,6 +809,10 @@ def phase_tvr_eval(dev):
         if not err <= tol:
             fail(f"TVR eval {dtype}: kernel vs plain scores differ by {err} "
                  f"> {tol}")
+        if dtype == "float32" and metrics["fused"]["sumr"] \
+                != plain_fused["sumr"]:
+            fail(f"TVR eval float32: fused SumR {metrics['fused']['sumr']} "
+                 f"vs the plain path's {plain_fused['sumr']}")
         del model, k_i, k_e, p_i, p_e
         torch.cuda.empty_cache()
     return counts_by_dtype, videos, queries
@@ -1162,6 +1261,16 @@ def kernels_line(checks, launches, int8_launches, serve_launches):
                           "dldkd_tpu/ops/pallas/query_tower.py:246",
                           ("context_tower", "bfloat16", 2),
                           "tvr_eval bfloat16", launches["bfloat16"]),
+        "query_tower_f32": ("query_tower",
+                            "dldkd_tpu_torch/csrc/tower_mma.cu",
+                            "dldkd_tpu/ops/pallas/query_tower.py:211",
+                            ("query_tower", "float32", 2), "tvr_eval float32",
+                            launches["float32"]),
+        "context_tower_f32": ("context_tower",
+                              "dldkd_tpu_torch/csrc/tower_mma.cu",
+                              "dldkd_tpu/ops/pallas/query_tower.py:246",
+                              ("context_tower", "float32", 2),
+                              "tvr_eval float32", launches["float32"]),
         "context_tower_q8": ("context_tower_q8",
                              "dldkd_tpu_torch/csrc/tower.cu",
                              "dldkd_tpu/ops/pallas/query_tower.py:144",
@@ -1181,9 +1290,9 @@ def kernels_line(checks, launches, int8_launches, serve_launches):
                         "product_ms": rec.get("product_ms")})
         if "device_ms" in rec:
             kernels[-1]["device_ms"] = rec["device_ms"]
-        if name in ("query_tower", "context_tower"):
-            # the bf16 chain: tower_mma.cu's normalization, products and
-            # attention, tower.cu's LayerNorm and pooling
+        if name.startswith(("query_tower", "context_tower")):
+            # the chain (both dtypes): tower_mma.cu's normalization,
+            # products and attention, tower.cu's LayerNorm and pooling
             kernels[-1]["chain_sources"] = [
                 src, "dldkd_tpu_torch/csrc/tower.cu"]
     return kernels
@@ -1207,6 +1316,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     phase_build()
     checks = phase_kernels(dev)
+    phase_tower_shapes(dev)
     checks.update(phase_kernels_slice2(dev))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         root = phase_infer(workdir)

@@ -163,38 +163,9 @@ struct Bf16 {
 struct Tf32 : Bf16 {
   static constexpr Query QUERY = Query::kStaged;
   static constexpr int ELEM = 4;
-  // d (+)= A (64 x 8) x B (128 x 8)^T, TF32 inputs read from f32 tiles
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
                                              uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
+    wgmma_tf32(d, a, b, accumulate);
   }
 };
 
@@ -255,13 +226,6 @@ struct Int8 {
     return (float)best * INV_SCALE2;
   }
 };
-
-// x rounded to TF32 with its low 13 bits zero: to nearest, ties away from
-// zero (add half of the last kept bit to the magnitude, then truncate), as
-// cvt.rna.tf32.f32 rounds; ops/kernels/sim_max.py:split_tf32 is the same
-__device__ __forceinline__ float tf32_big(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
-}
 
 // two bf16 values as one 32-bit word, a at the lower address
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 a,

@@ -169,7 +169,7 @@ def tower_weights(model, device=None) -> Dict[str, list]:
           "context": [move(context_weights_for_branch(model, n, dtype))
                       for n in model.branch_names]}
     ws["packed"] = {kind: [pack_weights([ws[kind][i] for i in group], dtype,
-                                        device)
+                                        model.config.n_heads, device)
                            for group in _launch_groups(model)]
                     for kind in ("query", "context")}
     return ws

@@ -6,11 +6,15 @@ and `_dual_context_tower_kernel`, and through the one-branch launch
 `_query_tower_kernel` and `_context_tower_kernel`; with `emit_q8=True` the
 video towers end in `quantize_frames_q8` (the epilogue `_quantize_q8` /
 `_map_context(emit_q8=True)`), which also builds the two-stage serving
-index from stored frames. The CUDA sources are `csrc/tower.cu` (the f32
-chain; LayerNorm, pooling and the int8 epilogue in both dtypes) and
-`csrc/tower_mma.cu` (the bf16 towers' normalization, products and
-attention on the tensor cores); their headers say what bounds the towers on
-an H100 and how the chain of kernels answers that.
+index from stored frames. Both dtypes run one chain of CUDA kernels:
+`csrc/tower_mma.cu` (the input normalization, every product on wgmma and
+the attention on mma.sync, on the tensor cores: bf16 products in bf16,
+f32 products in 3xTF32, the f32-grade split products of the f32 scorer)
+and `csrc/tower.cu` (LayerNorm, pooling and the int8 epilogue). The
+attention streams its keys in tiles, so every sequence the positional
+table allows computes. What bounds the towers on an H100 is operations (3
+TF32 products over 495 TFLOP/s in f32, bf16 products over 989); the
+sources' headers say how the chain answers that.
 
 Weight tuples are in the JAX layout (Dense kernels (in, out)), as
 `weights_for_branch` / `context_weights_for_branch` return them:
@@ -20,16 +24,20 @@ with the input LayerNorm's affine folded into (wp, bp).
 
 The kernels read the weights as `pack_weights` lays them out, which the
 eval and the serving `Retriever` do once (`fast_eval.tower_weights`), not
-once per launch.
+once per launch: every product's weight K-major in the tower dtype, and
+every width the chain sees (input width, hidden size, head dims)
+zero-padded to a multiple of 8, so the kernels take any shape the model
+has.
 
 The entry points pad and mask the inputs like the Pallas wrappers (query
 tokens to a multiple of 8, positions past the learned table forced to
 padding), then run the CUDA kernels for a CUDA tensor, or the plain
 PyTorch version (`tower_plain`, on the weight tuples) for a CPU tensor.
-The plain version rounds to the tower dtype at the Pallas kernel's points;
-the CPU tests hold it against the Pallas kernels in interpret mode, and
-`tower_packed_plain` (the plain version on the packed operands) against
-it bitwise.
+The plain version rounds to the tower dtype at the Pallas kernel's points
+and keeps IEEE f32 products; the CPU tests hold it against the Pallas
+kernels in interpret mode, `tower_packed_plain` (the plain version on the
+packed operands) against it bitwise, and an emulation of the kernels'
+split arithmetic against both.
 """
 
 from __future__ import annotations
@@ -263,63 +271,104 @@ def tower_plain(x: torch.Tensor, mask: torch.Tensor,
 # CUDA chain
 # ---------------------------------------------------------------------- #
 
+def _r8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _head_columns(hdim: int, n_heads: int) -> torch.Tensor:
+    """Column of each of the hdim Q/K/V (or context) dims in the kernels'
+    layout, where each head's dims are zero-padded to a multiple of 8."""
+    dh = hdim // n_heads
+    return (torch.arange(n_heads)[:, None] * _r8(dh)
+            + torch.arange(dh)[None]).reshape(-1)
+
+
 def pack_weights(weights: Sequence[Weights], dtype: torch.dtype,
-                 device=None) -> Dict[str, torch.Tensor]:
-    """The kernel chains' operands for one launch over the G = len(weights)
-    branches of one hidden size H, in the layout the kernels read; made
-    once per eval or Retriever model (fast_eval.tower_weights). Matrices
-    are in the tower dtype, the rest f32 (holding tower-dtype values where
-    the Pallas kernel casts them). Each product's weight is (K, N) for the
-    f32 SIMT product and transposed, (N, K) K-major, for the bf16 tensor
-    cores:
-      wp    the folded projections side by side (one read of the raw input
-            for all branches): (D, G H) or (G H, D); bp (G H)
+                 n_heads: int, device=None) -> Dict[str, torch.Tensor]:
+    """The kernel chain's operands for one launch over the G = len(weights)
+    branches of one hidden size H with n_heads heads, in the layout the
+    kernels read; made once per eval or Retriever model
+    (fast_eval.tower_weights). Widths are padded with zeros to multiples of
+    8: the input width D to Dp, H to Hp, each head's H / n_heads dims to
+    dhp (Hq = n_heads dhp). Each product's weight is transposed, (N, K)
+    K-major, in the tower dtype. The rest is f32 (holding tower-dtype
+    values where the Pallas kernel casts them):
+      wp    the folded projections stacked (one read of the raw input for
+            all branches): (G Hp, Dp); bp (G Hp)
       pos   every branch's whole positional table side by side, zero rows
-            past a shorter one: (P, G H); a launch adds its first rows
-      g1, b1, g2, b2, bo   (G, H)
-      wqkv  Q|K|V per branch: (G, H, 3H) or (G, 3H, H); bqkv (G, 3H)
-      wo    (G, H, H)
-      query: wm (G, H), the pooling vectors;
-      video: wm (G, H, H) and bm (G, H), out_mapping_linear."""
+            past a shorter one: (P, G Hp); a launch adds its first rows
+      g1, b1, g2, b2, bo   (G, Hp)
+      wqkv  Q|K|V per branch, heads at dhp columns: (G, 3 Hq, Hp);
+            bqkv (G, 3 Hq)
+      wo    (G, Hp, Hq)
+      query: wm (G, Hp), the pooling vectors;
+      video: wm (G, Hp, Hp) and bm (G, Hp), out_mapping_linear;
+      dims  (H, n_heads, D), on the CPU."""
     kind = "query" if len(weights[0]) == 16 else "context"
+    d, hdim = weights[0][0].shape
+    if hdim % n_heads:
+        raise ValueError(f"pack_weights: hidden size {hdim} is not a "
+                         f"multiple of {n_heads} heads")
     PACKS[kind] += 1
     f32 = torch.float32
-    kmajor = dtype == torch.bfloat16
+    g_n, dp, hp = len(weights), _r8(d), _r8(hdim)
+    hq = n_heads * _r8(hdim // n_heads)
+    heads = _head_columns(hdim, n_heads).to(device)
 
-    def mat(w):
-        w = w.to(device=device, dtype=dtype)
-        return w.T if kmajor else w
+    def cast(w):  # a value the kernel reads in the tower dtype, as f32
+        return w.to(device=device, dtype=dtype).float()
 
-    def vec(i, cast):
-        return torch.stack([w[i].to(device=device, dtype=cast)
-                            for w in weights]).contiguous()
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=f32, device=device)
 
-    def mats(ws):
-        return torch.stack([mat(w) for w in ws]).contiguous()
+    def vec(i, cast_to=f32):  # (G, Hp), zeros past H
+        out = zeros(g_n, hp)
+        for b, w in enumerate(weights):
+            out[b, :hdim] = w[i].to(device=device, dtype=cast_to).float()
+        return out
 
+    packed = {}
+
+    def product(name, kn):
+        """kn: the (..., K, N) weight, padded; stored (..., N, K)."""
+        packed[name] = kn.transpose(-1, -2).contiguous().to(dtype)
+
+    wp = zeros(dp, g_n * hp)
+    wqkv = zeros(g_n, hp, 3 * hq)
+    wo = zeros(g_n, hq, hp)
     n_pos = max(w[2].shape[0] for w in weights)
-    packed = {
-        "wp": torch.cat([mat(w[0]) for w in weights],
-                        dim=0 if kmajor else 1).contiguous(),
-        "bp": torch.cat([w[1].to(device=device, dtype=dtype)
-                         for w in weights]).float(),
-        "pos": torch.cat([F.pad(w[2].to(device=device, dtype=dtype),
-                                (0, 0, 0, n_pos - w[2].shape[0]))
-                          for w in weights], dim=1).float().contiguous(),
-        "g1": vec(3, f32), "b1": vec(4, f32),
-        "wqkv": mats([torch.cat([w[5], w[7], w[9]], 1) for w in weights]),
-        "bqkv": torch.stack([torch.cat([w[6], w[8], w[10]]).to(
-            device=device, dtype=f32) for w in weights]).contiguous(),
-        "wo": mats([w[11] for w in weights]), "bo": vec(12, f32),
-        "g2": vec(13, f32), "b2": vec(14, f32),
-    }
+    pos = zeros(n_pos, g_n * hp)
+    for b, w in enumerate(weights):
+        c = slice(b * hp, b * hp + hdim)
+        wp[:d, c] = cast(w[0])
+        pos[:w[2].shape[0], c] = cast(w[2])
+        for i, j in enumerate((5, 7, 9)):
+            wqkv[b, :hdim, i * hq + heads] = cast(w[j])
+        wo[b, heads, :hdim] = cast(w[11])
+    product("wp", wp)
+    packed["bp"] = vec(1, cast_to=dtype).reshape(-1)
+    packed["pos"] = pos
+    packed["g1"], packed["b1"] = vec(3), vec(4)
+    product("wqkv", wqkv)
+    bqkv = zeros(g_n, 3 * hq)
+    for b, w in enumerate(weights):
+        for i, j in enumerate((6, 8, 10)):
+            bqkv[b, i * hq + heads] = w[j].to(device=device, dtype=f32)
+    packed["bqkv"] = bqkv
+    product("wo", wo)
+    packed["bo"] = vec(12)
+    packed["g2"], packed["b2"] = vec(13), vec(14)
     if kind == "query":
-        packed["wm"] = torch.stack([w[15].reshape(-1).to(device=device,
-                                                          dtype=dtype)
-                                    for w in weights]).float().contiguous()
+        packed["wm"] = zeros(g_n, hp)
+        for b, w in enumerate(weights):
+            packed["wm"][b, :hdim] = cast(w[15].reshape(-1))
     else:
-        packed["wm"], packed["bm"] = mats([w[15] for w in weights]), \
-            vec(16, f32)
+        wm = zeros(g_n, hp, hp)
+        for b, w in enumerate(weights):
+            wm[b, :hdim, :hdim] = cast(w[15])
+        product("wm", wm)
+        packed["bm"] = vec(16)
+    packed["dims"] = torch.tensor([hdim, n_heads, d])
     return packed
 
 
@@ -332,30 +381,34 @@ def _pos_rows(packed, l: int, pos_rows=None) -> int:
 def unpack_weights(packed: Dict[str, torch.Tensor], dtype: torch.dtype,
                    l: int, pos_rows=None) -> List[Weights]:
     """Each branch's weight tuple read back from the packed operands, in the
-    JAX layout, with the positions of a launch over sequences of l rows
-    (the table's first `_pos_rows` rows, zeros after)."""
-    g_n, _, hdim = packed["wo"].shape
-    kmajor = dtype == torch.bfloat16
+    JAX layout and the true widths, with the positions of a launch over
+    sequences of l rows (the table's first `_pos_rows` rows, zeros after)."""
+    hdim, n_heads, d = (int(v) for v in packed["dims"])
+    g_n, hp = packed["g1"].shape
+    hq = n_heads * _r8(hdim // n_heads)
+    heads = _head_columns(hdim, n_heads).to(packed["g1"].device)
+    h = slice(0, hdim)
 
-    def kn(w):  # a product's weight back to (K, N)
-        return w.T if kmajor else w
+    def kn(name, b=None):  # a product's weight back to (K, N), padded
+        w = packed[name] if b is None else packed[name][b]
+        return w.transpose(-1, -2)
 
     rows = _pos_rows(packed, l, pos_rows)
     pos = F.pad(packed["pos"][:rows], (0, 0, 0, l - rows))
-    wp = kn(packed["wp"])
+    wp = kn("wp")
     out = []
     for b in range(g_n):
-        c = slice(b * hdim, (b + 1) * hdim)
-        wqkv, bqkv = kn(packed["wqkv"][b]), packed["bqkv"][b]
-        q, k, v = (slice(i * hdim, (i + 1) * hdim) for i in range(3))
-        w = (wp[:, c], packed["bp"][c], pos[:, c], packed["g1"][b],
-             packed["b1"][b], wqkv[:, q], bqkv[q], wqkv[:, k], bqkv[k],
-             wqkv[:, v], bqkv[v], kn(packed["wo"][b]), packed["bo"][b],
-             packed["g2"][b], packed["b2"][b])
+        c = slice(b * hp, b * hp + hdim)
+        wqkv, bqkv = kn("wqkv", b), packed["bqkv"][b]
+        q, k, v = (i * hq + heads for i in range(3))
+        w = (wp[:d, c], packed["bp"][c], pos[:, c], packed["g1"][b, h],
+             packed["b1"][b, h], wqkv[:hdim, q], bqkv[q], wqkv[:hdim, k],
+             bqkv[k], wqkv[:hdim, v], bqkv[v], kn("wo", b)[heads, :hdim],
+             packed["bo"][b, h], packed["g2"][b, h], packed["b2"][b, h])
         if "bm" in packed:
-            w += (kn(packed["wm"][b]), packed["bm"][b])
+            w += (kn("wm", b)[:hdim, :hdim], packed["bm"][b, h])
         else:
-            w += (packed["wm"][b].reshape(-1, 1),)
+            w += (packed["wm"][b, h].reshape(-1, 1),)
         out.append(w)
     return out
 
@@ -373,51 +426,53 @@ def tower_packed_plain(x: torch.Tensor, mask: torch.Tensor,
                        n_heads, dtype, kind, emit_q8)
 
 
-def check_mma_shapes(d: int, hdim: int, n_heads: int, l: int,
-                     what: str) -> None:
-    """Raise on what the bf16 tensor-core chain does not take: 16-byte
-    rows for cp.async (input width and hidden size multiples of 8),
-    sequences of at most 128, heads of at most 128 dims."""
-    if d % 8 or hdim % 8:
-        raise ValueError(f"{what}: the bf16 tower kernels need the input "
-                         f"width ({d}) and hidden size ({hdim}) to be "
-                         f"multiples of 8")
-    if l > 128 or hdim % n_heads or hdim // n_heads > 128:
-        raise ValueError(f"{what}: the bf16 attention kernel takes at most "
-                         f"128 rows and 128 dims per head, got L = {l}, "
-                         f"H = {hdim}, {n_heads} heads")
-
-
 def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
                packed: Dict[str, torch.Tensor], n_heads: int,
                dtype: torch.dtype, kind: str, emit_q8: bool = False,
                pos_rows=None) -> List[torch.Tensor]:
     """The CUDA chain for one launch over the branches in `packed`
-    (pack_weights, in `dtype`'s layout); same contract as tower_plain. x
-    and mask are contiguous f32 CUDA tensors; each sequence's first
-    `pos_rows` rows (default: all) get positional rows. bf16: the input
-    normalization, products (wgmma) and attention (mma.sync) of
-    csrc/tower_mma.cu; f32: csrc/tower.cu's SIMT chain; both: tower.cu's
-    LayerNorm, pooling and int8 epilogue. With emit_q8 (video towers) the
-    out_mapping product goes to a scratch buffer and the int8 epilogue
-    writes the outputs."""
+    (pack_weights, in `dtype` and for n_heads heads); same contract as
+    tower_plain. x and mask are contiguous f32 CUDA tensors; each
+    sequence's first `pos_rows` rows (default: all) get positional rows.
+
+    One chain for both dtypes: csrc/tower_mma.cu's input normalization,
+    products (wgmma) and attention (mma.sync, tiled over keys: any L), and
+    csrc/tower.cu's LayerNorm, pooling and int8 epilogue. bf16 runs bf16
+    products with f32 accumulation. f32 runs every product in 3xTF32 (big
+    .big + big.small + small.big of TF32 parts, f32-grade; the Pallas
+    trunk's f32 products run at the global "highest"): each product splits
+    its operands in shared memory as they land, so the chain's buffers are
+    plain f32. The buffers carry the packer's padded widths (zeros past the
+    true ones); the outputs come back at the true widths. With emit_q8
+    (video towers) the out_mapping product goes to a scratch buffer and the
+    int8 epilogue writes the outputs. Bound: operations, 3 TF32 products
+    over 495 TFLOP/s in f32 and the bf16 products over 989 TFLOP/s in bf16;
+    at the query tower's sizes the chain's eight launches set the floor."""
     from dldkd_tpu_torch.ops.kernels.build import bind, check
 
-    g_n, _, hdim = packed["wo"].shape
+    hdim, heads_packed, d_packed = (int(v) for v in packed["dims"])
+    if heads_packed != n_heads:
+        raise ValueError(f"tower_cuda: weights packed for {heads_packed} "
+                         f"heads, called with {n_heads}")
     n, l, d = x.shape
+    if d != d_packed:
+        raise ValueError(f"tower_cuda: input width {d} vs packed weights "
+                         f"{d_packed}")
+    g_n, hp = packed["g1"].shape
+    dh = hdim // n_heads
+    hq = n_heads * _r8(dh)
+    dp = _r8(d)
     m = n * l
-    gh = g_n * hdim
-    bf = dtype == torch.bfloat16
-    if bf:
-        check_mma_shapes(d, hdim, n_heads, l, "tower_cuda")
+    ghp = g_n * hp
+    bf = int(dtype == torch.bfloat16)
     rows = _pos_rows(packed, l, pos_rows)
     dev = x.device
-    f32 = torch.float32
-    p = {k: v.data_ptr() for k, v in packed.items()}
+    if x.data_ptr() % 16:  # the normalization reads 16-byte rows
+        x = x.clone()
+    p = {k: v.data_ptr() for k, v in packed.items() if k != "dims"}
 
-    layernorm = bind("tower", "tower_layernorm", 4, 5)
-    mma = bind("tower_mma", "tower_gemm_mma", 6, 17) if bf else None
-    simt = None if bf else bind("tower", "tower_gemm", 8, 17)
+    layernorm = bind("tower", "tower_layernorm", 4, 6)
+    mma = bind("tower_mma", "tower_gemm_mma", 6, 18)
 
     # Each buffer is made when its kernel writes it and dropped after its
     # last reader, so the launch's peak holds only the live ones (at 200
@@ -430,80 +485,68 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
         s = torch.cuda.current_stream().cuda_stream
 
         def gemm(what, a, w, bias, c, res, dims, strides, relu=0,
-                 batch=g_n, pos=None, stats=(None, None)):
-            """dims (M, N, K, lda, ldw, ldc, ldp, ldr), strides (sa, sw,
-            sb, sc, sr); ldw is of the dtype's layout"""
-            if bf:
-                rc = mma(a, w, bias, c, pos, res, *dims, *strides, relu, l,
-                         rows, batch, s)
-            else:
-                rc = simt(a, w, bias, c, *stats, pos, res, *dims, *strides,
-                          relu, l, rows, batch, s)
-            check(rc, f"tower_gemm ({what})")
+                 batch=g_n, pos=None):
+            """dims (M, N, K, lda, ldw, ldc, ldp, ldr), strides (sa, sw, sb,
+            sc, sr)"""
+            check(mma(a, p[w], bias, c, pos, res, *dims, *strides, relu, l,
+                      rows, batch, 1 - bf, s), f"tower_gemm_mma ({what})")
 
-        if bf:
-            a = new(m, d)
-            check(bind("tower_mma", "tower_normalize", 2, 2)(
-                x.data_ptr(), a.data_ptr(), m, d, s), "tower_normalize")
-            stats = (None, None)
-        else:
-            a = x
-            mu = torch.empty(m, dtype=f32, device=dev)
-            rstd = torch.empty(m, dtype=f32, device=dev)
-            check(bind("tower", "tower_row_stats", 3, 2)(
-                x.data_ptr(), mu.data_ptr(), rstd.data_ptr(), m, d, s),
-                "tower_row_stats")
-            stats = (mu.data_ptr(), rstd.data_ptr())
+        xn = new(m, dp)
+        check(bind("tower_mma", "tower_normalize", 2, 4)(
+            x.data_ptr(), xn.data_ptr(), m, d, dp, 1 - bf, s),
+            "tower_normalize")
         # folded projection over every branch's columns: one read of x
-        h = new(m, gh)
-        gemm("projection", a.data_ptr(), p["wp"], p["bp"], h.data_ptr(),
-             None, (m, gh, d, d, d if bf else gh, gh, gh, gh),
-             (0, 0, 0, 0, 0), relu=1, batch=1, pos=p["pos"], stats=stats)
-        del a
-        h2 = new(m, gh)
-        check(layernorm(h.data_ptr(), h2.data_ptr(), p["g1"], p["b1"],
-                        m, g_n, hdim, gh, int(bf), s),
+        h = new(m, ghp)
+        gemm("projection", xn.data_ptr(), "wp", p["bp"], h.data_ptr(), None,
+             (m, ghp, dp, dp, dp, ghp, ghp, 0), (0, 0, 0, 0, 0), relu=1,
+             batch=1, pos=p["pos"])
+        del xn
+        h2 = new(m, ghp)
+        check(layernorm(h.data_ptr(), h2.data_ptr(), p["g1"], p["b1"], m,
+                        g_n, hdim, hp, ghp, bf, s),
               "tower_layernorm (positions)")
         del h
-        qkv = new(g_n, m, 3 * hdim)
-        gemm("qkv", h2.data_ptr(), p["wqkv"], p["bqkv"], qkv.data_ptr(),
-             None, (m, 3 * hdim, hdim, gh, hdim if bf else 3 * hdim,
-                    3 * hdim, 3 * hdim, 0),
-             (hdim, hdim * 3 * hdim, 3 * hdim, m * 3 * hdim, 0))
-        attention = (bind("tower_mma", "tower_attention_mma", 3, 5, 1) if bf
-                     else bind("tower", "tower_attention", 3, 5, 1))
-        ctx = new(g_n, m, hdim)
-        check(attention(qkv.data_ptr(), mask.data_ptr(), ctx.data_ptr(), g_n,
-                        n, l, hdim, n_heads, 1.0 / math.sqrt(hdim // n_heads),
-                        s), "tower_attention")
+        qkv = new(g_n, m, 3 * hq)
+        gemm("qkv", h2.data_ptr(), "wqkv", p["bqkv"], qkv.data_ptr(), None,
+             (m, 3 * hq, hp, ghp, hp, 3 * hq, 0, 0),
+             (hp, 3 * hq * hp, 3 * hq, m * 3 * hq, 0))
+        ctx = new(g_n, m, hq)
+        check(bind("tower_mma", "tower_attention_mma", 3, 7, 1)(
+            qkv.data_ptr(), mask.data_ptr(), ctx.data_ptr(), g_n, n, l, hq,
+            n_heads, _r8(dh), 1 - bf, 1.0 / math.sqrt(dh), s),
+            "tower_attention_mma")
         del qkv
-        o = new(m, gh)
-        gemm("output", ctx.data_ptr(), p["wo"], p["bo"], o.data_ptr(),
-             h2.data_ptr(), (m, hdim, hdim, hdim, hdim, gh, 0, gh),
-             (m * hdim, hdim * hdim, hdim, hdim, hdim))
+        o = new(m, ghp)
+        gemm("output", ctx.data_ptr(), "wo", p["bo"], o.data_ptr(),
+             h2.data_ptr(), (m, hp, hq, hq, hq, ghp, 0, ghp),
+             (m * hq, hp * hq, hp, hp, hp))
         del ctx, h2
-        out = new(m, gh)
-        check(layernorm(o.data_ptr(), out.data_ptr(), p["g2"], p["b2"],
-                        m, g_n, hdim, gh, int(bf), s),
-              "tower_layernorm (output)")
+        out = new(m, ghp)
+        check(layernorm(o.data_ptr(), out.data_ptr(), p["g2"], p["b2"], m,
+                        g_n, hdim, hp, ghp, bf, s), "tower_layernorm (output)")
         del o
         if kind == "query":
-            pooled = torch.empty((g_n, n, hdim), dtype=f32, device=dev)
-            check(bind("tower", "tower_pool", 4, 6)(
+            pooled = torch.empty((g_n, n, hdim), dtype=torch.float32,
+                                 device=dev)
+            check(bind("tower", "tower_pool", 4, 7)(
                 out.data_ptr(), mask.data_ptr(), p["wm"], pooled.data_ptr(),
-                g_n, n, l, hdim, gh, int(bf), s), "tower_pool")
+                g_n, n, l, hdim, hp, ghp, bf, s), "tower_pool")
             LAUNCHES["query_tower"] += 1
             return list(pooled.unbind(0))
-        y = new(g_n, m, hdim)
-        gemm("out_mapping", out.data_ptr(), p["wm"], p["bm"], y.data_ptr(),
-             None, (m, hdim, hdim, gh, hdim, hdim, 0, 0),
-             (hdim, hdim * hdim, hdim, m * hdim, 0))
-        if emit_q8:
-            y8 = torch.empty((g_n, m, hdim), dtype=torch.int8, device=dev)
+        y = new(g_n, m, hp)
+        gemm("out_mapping", out.data_ptr(), "wm", p["bm"], y.data_ptr(),
+             None, (m, hp, hp, ghp, hp, hp, 0, 0), (hp, hp * hp, hp, m * hp,
+                                                   0))
+        del out
+        if emit_q8:  # zero columns past H leave each row's sum unchanged
+            y8 = torch.empty((g_n, m, hp), dtype=torch.int8, device=dev)
             _launch_quantize(y, y8, s)
             y = y8
     LAUNCHES["context_tower"] += 1
-    return [t.view(n, l, hdim) for t in y.unbind(0)]
+    outs = [t.view(n, l, hp) for t in y.unbind(0)]
+    if hp != hdim:
+        outs = [t[..., :hdim].contiguous() for t in outs]
+    return outs
 
 
 # ---------------------------------------------------------------------- #
@@ -561,7 +604,7 @@ def _run(x, mask, weights, n_heads, dtype, kind, l, plain, emit_q8=False,
         weights = [_with_pos(w, l, x.shape[1]) for w in weights]
         return tower_plain(x, mask, weights, n_heads, dtype, kind, emit_q8)
     if packed is None:
-        packed = pack_weights(weights, dtype, x.device)
+        packed = pack_weights(weights, dtype, n_heads, x.device)
     return tower_cuda(x.contiguous(), mask.contiguous(), packed, n_heads,
                       dtype, kind, emit_q8, pos_rows=l)
 

@@ -19,9 +19,9 @@ summed in another order); both split kernels within 1e-6 of an f64
 reference on the same inputs (f32 grade: one TF32 product alone is
 ~1e-4 off); the int8 epilogue bitwise (the plain version sums in the
 kernel's order) and, through the towers, bitwise against the epilogue's
-plain version applied to the same launch's frames. The bf16 towers run the
-tensor-core kernels of csrc/tower_mma.cu (products exact in f32, sums in
-another order), under the same 3e-2.
+plain version applied to the same launch's frames. Both dtypes' towers
+run the tensor-core kernels of csrc/tower_mma.cu: bf16 products exact in
+f32, f32 products in 3xTF32 (f32-grade), sums in another order.
 """
 
 import pytest
@@ -139,32 +139,39 @@ def test_tower_kernels_match_plain(dev, dtype, branches, kind):
                                    atol=TOWER_TOL[tdt], rtol=0)
 
 
-# Edges of the bf16 towers' tensor-core kernels (csrc/tower_mma.cu): rows
-# M = N * L around the 64- and 128-row GEMM tiles (1, 63, 64, 65, 129),
-# depth K = 40 and 72 (multiples of 8, not of 16: a zero-filled last
-# k-step), hidden 96 (d_head 24) and 384 (d_head 96), and hidden 40
-# (d_head 10: the attention's copies element by element, not in 16-byte
-# rows), sequences of 1, 11 (padded to 16 on the query grid), 20, 43 and
-# 128 rows, each with an all-masked row; f32 runs the SIMT chain on the
-# same shapes.
-# (kind, n, l, d, hidden): 4 heads, positional tables of l rows
-_TOWER_EDGES = [("context", 1, 1, 72, 96), ("context", 7, 9, 40, 96),
-                ("context", 4, 16, 72, 96), ("context", 13, 5, 40, 96),
-                ("context", 3, 43, 72, 96), ("query", 9, 11, 40, 96),
-                ("context", 5, 20, 72, 96), ("context", 2, 128, 72, 384),
-                ("query", 65, 20, 40, 384), ("context", 5, 20, 72, 40),
-                ("query", 9, 11, 40, 40)]
+# Edges of the towers' tensor-core kernels (csrc/tower_mma.cu), both dtypes:
+# rows M = N * L around the 64- and 128-row GEMM tiles (1, 63, 64, 65, 129),
+# depth K = 40 and 72 (multiples of 8, not of 16: a zero-filled last bf16
+# k-step), hidden 96 (d_head 24) and 384 (d_head 96), and hidden 40 (d_head
+# 10, padded to 16 inside the packed operands); sequences of 1, 11 (padded
+# to 16 on the query grid), 20, 43 and 128 rows (one key tile), 136 and 300
+# (two and three key tiles of 128: the softmax's max and sum over every
+# tile first); an input width and hidden size that are not multiples of 8
+# (44 and 36: 4 heads of 9 dims); one 256-dim head (key tiles of 64). Each
+# case has an all-masked row.
+# (kind, n, l, d, hidden, heads): positional tables of l rows
+_TOWER_EDGES = [("context", 1, 1, 72, 96, 4), ("context", 7, 9, 40, 96, 4),
+                ("context", 4, 16, 72, 96, 4), ("context", 13, 5, 40, 96, 4),
+                ("context", 3, 43, 72, 96, 4), ("query", 9, 11, 40, 96, 4),
+                ("context", 5, 20, 72, 96, 4),
+                ("context", 2, 128, 72, 384, 4),
+                ("query", 65, 20, 40, 384, 4), ("context", 5, 20, 72, 40, 4),
+                ("query", 9, 11, 40, 40, 4), ("context", 3, 136, 72, 96, 4),
+                ("query", 3, 136, 40, 96, 4), ("context", 2, 300, 72, 96, 4),
+                ("query", 2, 300, 40, 96, 4), ("context", 6, 20, 44, 36, 4),
+                ("query", 9, 11, 44, 36, 4), ("context", 4, 20, 48, 256, 1),
+                ("query", 9, 11, 48, 256, 1)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("branches", [2, 1])
-@pytest.mark.parametrize("kind,n,l,d,hidden", _TOWER_EDGES)
+@pytest.mark.parametrize("kind,n,l,d,hidden,heads", _TOWER_EDGES)
 def test_tower_tiling_edges_match_plain(dev, dtype, branches, kind, n, l, d,
-                                        hidden):
+                                        hidden, heads):
     gen = torch.Generator().manual_seed(9)
     cfg = ModelConfig(visual_input_size=d, query_input_size=d,
                       inheritance_hidden=hidden, exploration_hidden=hidden,
-                      max_ctx_l=l, max_desc_l=l, n_heads=4,
+                      max_ctx_l=l, max_desc_l=l, n_heads=heads,
                       double_branch=True, dtype=dtype)
     model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(2))
     tdt = getattr(torch, dtype)
@@ -175,11 +182,11 @@ def test_tower_tiling_edges_match_plain(dev, dtype, branches, kind, n, l, d,
     mask = _mask(n, l, gen, dev)
     if kind == "query":
         def run(plain):
-            return qt.query_towers(x, mask, ws, 4, tdt, l, "test", plain,
+            return qt.query_towers(x, mask, ws, heads, tdt, l, "test", plain,
                                    packed)
     else:
         def run(plain):
-            return qt.context_towers(x, mask, ws, 4, tdt, "test", plain,
+            return qt.context_towers(x, mask, ws, heads, tdt, "test", plain,
                                      packed=packed)
     before = qt.LAUNCHES[f"{kind}_tower"]
     got, want = run(False), run(True)
@@ -192,20 +199,19 @@ def test_tower_tiling_edges_match_plain(dev, dtype, branches, kind, n, l, d,
                                    atol=TOWER_TOL[tdt], rtol=0)
 
 
-_TOWER_ENTRIES = {
-    "float32": {("tower", "tower_row_stats"), ("tower", "tower_gemm"),
-                ("tower", "tower_attention"), ("tower", "tower_layernorm"),
-                ("tower", "tower_pool")},
-    "bfloat16": {("tower_mma", "tower_normalize"),
-                 ("tower_mma", "tower_gemm_mma"),
-                 ("tower_mma", "tower_attention_mma"),
-                 ("tower", "tower_layernorm"), ("tower", "tower_pool")}}
+# one chain for both dtypes: the tensor-core entries of csrc/tower_mma.cu,
+# csrc/tower.cu's LayerNorm and pooling, and no SIMT product
+_TOWER_ENTRIES = {("tower_mma", "tower_normalize"),
+                  ("tower_mma", "tower_gemm_mma"),
+                  ("tower_mma", "tower_attention_mma"),
+                  ("tower", "tower_layernorm"), ("tower", "tower_pool")}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_towers_bind_their_dtype_entries(dev, bound_symbols, dtype):
-    """f32 towers still run the SIMT entries of csrc/tower.cu; bf16 towers
-    the tensor-core entries of csrc/tower_mma.cu and no SIMT product."""
+    """f32 and bf16 towers run the same tensor-core entries of
+    csrc/tower_mma.cu (f32 in 3xTF32) and csrc/tower.cu's LayerNorm and
+    pooling; csrc/tower.cu holds no product."""
     gen = torch.Generator().manual_seed(10)
     cfg = ModelConfig(visual_input_size=72, query_input_size=40,
                       inheritance_hidden=96, exploration_hidden=96,
@@ -218,20 +224,33 @@ def test_towers_bind_their_dtype_entries(dev, bound_symbols, dtype):
     qt.query_towers(x, _mask(5, 11, gen, dev), tw["query"], 4, tdt, 11,
                     "test", packed=tw["packed"]["query"][0])
     torch.cuda.synchronize()
-    assert set(bound_symbols) == _TOWER_ENTRIES[dtype]
+    assert set(bound_symbols) == _TOWER_ENTRIES
 
 
-def test_bf16_towers_reject_what_the_kernels_do_not_take(dev):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_towers_compute_at_l_136(dev, dtype):
+    """136 frames, past the 128 rows the attention once held whole: two key
+    tiles and two query tiles, through the kernels, within the tower
+    tolerance of the plain version."""
     cfg = ModelConfig(visual_input_size=72, query_input_size=40,
                       inheritance_hidden=96, exploration_hidden=96,
                       max_ctx_l=136, max_desc_l=11, n_heads=4,
-                      double_branch=True, dtype="bfloat16")
+                      double_branch=True, dtype=dtype)
     model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(2))
+    tdt = getattr(torch, dtype)
     ws = tower_weights(model, dev)["context"]
-    x = torch.randn(2, 136, 72, device=dev)
-    with pytest.raises(ValueError, match="128 rows"):
-        qt.context_towers(x, torch.ones(2, 136, device=dev), ws, 4,
-                          torch.bfloat16, "test")
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn(2, 136, 72, generator=gen).to(dev)
+    mask = _mask(2, 136, gen, dev)
+    before = qt.LAUNCHES["context_tower"]
+    got = qt.context_towers(x, mask, ws, 4, tdt, "test")
+    want = qt.context_towers(x, mask, ws, 4, tdt, "test", plain=True)
+    torch.cuda.synchronize()
+    assert qt.LAUNCHES["context_tower"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=TOWER_TOL[tdt], rtol=0)
 
 
 def test_kernel_wrappers_reject_bad_inputs(dev):

@@ -88,7 +88,7 @@ def _arity(kinds):
 
 def test_the_sources_define_entries():
     assert {"sim_max_f32", "sim_max_bf16", "sim_max_int8", "sim_max_exact",
-            "tower_gemm"} <= set(ENTRIES)
+            "tower_gemm_mma", "tower_attention_mma"} <= set(ENTRIES)
 
 
 @pytest.mark.parametrize("symbol", sorted(ENTRIES))

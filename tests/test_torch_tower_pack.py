@@ -1,7 +1,8 @@
 """The towers' packed operands (`query_tower.pack_weights`) on the CPU.
 
 - The plain version read from the packed operands, in the layout the
-  kernels read (bf16 products K-major, f32 ones (K, N), Q|K|V side by side,
+  kernels read (every product's weight K-major, f32 ones as TF32 big and
+  small planes, widths padded to multiples of 8, Q|K|V side by side,
   every branch's whole positional table with the rows past a launch's
   sequence cut by `pos_rows`), equals the plain version on the weight
   tuples bitwise, for both towers, one and two branches, f32 and bf16. The
@@ -10,7 +11,9 @@
   carries the JAX weights.
 - The eval and the serving `Retriever` pack once per tower kind and launch
   group, not once per batch.
-- The bf16 kernels' shape limits raise before any launch.
+- Every shape the bf16 kernels once refused (sequences past 128 rows,
+  widths that are not multiples of 8, heads past 128 dims) packs, with
+  zero padding to multiples of 8, and computes what the weight tuples do.
 """
 
 import numpy as np
@@ -69,11 +72,10 @@ def test_packed_plain_equals_plain_bitwise(kind, branches, dtype):
     else:                  # 16 frames, 20-row table
         l, l_p, d = 16, 16, _DIMS["visual_input_size"]
     x, mask = _inputs(7, l_p, d, seed=branches)
-    packed = qt.pack_weights(ws, tdt)
+    packed = qt.pack_weights(ws, tdt, 4)
     g_h = branches * 32
-    # the products' layouts: K-major for the bf16 tensor cores
-    want_wp = (g_h, d) if dtype == "bfloat16" else (d, g_h)
-    assert tuple(packed["wp"].shape) == want_wp
+    # the products' layouts: K-major for the tensor cores
+    assert tuple(packed["wp"].shape) == (g_h, d)
     assert packed["wp"].dtype == packed["wqkv"].dtype == tdt
     assert tuple(packed["pos"].shape) == (ws[0][2].shape[0], g_h)
     for emit_q8 in ([False, True] if kind == "context" else [False]):
@@ -151,13 +153,36 @@ def test_retriever_packs_once_per_model(kw):
     assert qt.PACKS == {"query": 1, "context": 1}
 
 
+# (input width, hidden, heads, L, taken by the bf16 kernels before they
+# padded widths and tiled the attention over keys)
 @pytest.mark.parametrize("d,hdim,heads,l,ok", [
     (1024, 384, 4, 128, True), (768, 384, 4, 32, True), (40, 96, 4, 20, True),
     (44, 96, 4, 20, False), (40, 36, 4, 20, False), (40, 96, 4, 129, False),
     (40, 256, 1, 20, False)])
 def test_bf16_kernel_shape_limits(d, hdim, heads, l, ok):
-    if ok:
-        qt.check_mma_shapes(d, hdim, heads, l, "t")
-    else:
-        with pytest.raises(ValueError, match="t: the bf16"):
-            qt.check_mma_shapes(d, hdim, heads, l, "t")
+    """Each shape packs, every width padded to a multiple of 8 with zeros,
+    and the plain version on the packed operands is the plain version on
+    the weight tuples, bitwise, for both towers."""
+    cfg = ModelConfig(visual_input_size=d, query_input_size=d,
+                      inheritance_hidden=hdim, exploration_hidden=hdim,
+                      max_ctx_l=l, max_desc_l=l, n_heads=heads,
+                      double_branch=True, dtype="bfloat16")
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(3)).eval()
+    tw = tower_weights(model)
+    x, mask = _inputs(2, l, d, seed=l)
+    dh8 = -(-(hdim // heads) // 8) * 8
+    for kind in ("query", "context"):
+        packed = tw["packed"][kind][0]
+        ws = [qt._with_pos(w, l, l) for w in tw[kind]]
+        hp = packed["g1"].shape[1]
+        assert hp % 8 == 0 and 0 <= hp - hdim < 8
+        assert tuple(packed["wp"].shape) == (2 * hp, -(-d // 8) * 8)
+        assert tuple(packed["wqkv"].shape) == (2, 3 * heads * dh8, hp)
+        want = qt.tower_plain(x, mask, ws, heads, torch.bfloat16, kind)
+        got = qt.tower_packed_plain(x, mask, packed, heads, torch.bfloat16,
+                                    kind, pos_rows=l)
+        assert (hp == hdim and dh8 == hdim // heads <= 128
+                and d % 8 == 0 and l <= 128) == ok
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(g.float()).all())
+            assert g.dtype == w.dtype and torch.equal(g, w)
