@@ -57,7 +57,24 @@ package. Phases, in order; any failure exits non-zero without the final
    queries/s, per-batch p50/p99 latency, peak memory, launches, dense
    against gather, and each route against its plain path on the first 512
    queries;
-6. one JSON line listing every ported kernel; then the final `ok` line.
+6. training (`dldkd_tpu_torch.train.main`) at do_tvr.sh's widths and
+   hyperparameters on a synthetic dataset (.npz stores; 1,024 train
+   videos, 8 steps of 128 per epoch, 500 val and 500 test videos):
+   `--eval_untrained --n_epoch 2`, then `--resume` from the best
+   checkpoint to epoch 3 under `--profile_dir` (5 steps). It fails on a
+   non-finite loss, a kernel of the validation (both f32 towers, f32
+   scoring) that never launched or a plain version that ran, a missing
+   best checkpoint or test metrics, a resumed run that does not start at
+   epoch 2. On the trained checkpoint: the validation's seconds, the
+   kernel path's fused SumR against the plain path's (equal), the step's
+   median time after the first step, samples/s and peak memory, the
+   forward-and-losses and optimizer device time per step, device time by
+   op class and the idle share over the 5 profiled steps, and one train
+   step on the card against the same step on the CPU (dropout 0, hard
+   negatives from a pool of 1: losses within 1e-4, the whole gradient
+   within 1e-4 of its norm; the parameters after the step are
+   reported);
+7. one JSON line listing every ported kernel; then the final `ok` line.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails if a kernel of that path never launched. The counts
@@ -66,7 +83,9 @@ eval (bf16 masked-cosine scoring, both towers), the f32 TVR eval (f32
 masked-cosine scoring), the int8 eval (int8 scoring, the int8 epilogue)
 and two-stage serving with dense stage 2 (exact rescoring); each kernel's
 time there is the phase-3 time at that path's shapes (the eval's 50
-queries, serving's 256).
+queries, serving's 256). Each kernel of the train phase's path (f32
+scoring, both f32 towers) also carries its launches in train.main
+(`train_launches`) and in one validation (`launches_per_validation`).
 """
 
 from __future__ import annotations
@@ -597,6 +616,15 @@ def _check_launched(counts, names, what: str) -> None:
 
 
 EVAL_KERNELS = ("sim_max", "query_tower", "context_tower")
+
+
+def _eval_kernels(dtype: str):
+    """EVAL_KERNELS' counters of one dtype (the wrappers count each launch
+    under the kernel's name and under its name and dtype)."""
+    suffix = {"bfloat16": "bf16", "float32": "f32"}[dtype]
+    return tuple(f"{k}_{suffix}" for k in EVAL_KERNELS)
+
+
 INT8_EVAL_KERNELS = ("sim_max_int8", "query_tower", "context_tower",
                      "context_tower_q8")
 
@@ -645,7 +673,7 @@ def phase_infer(workdir: str):
               "dataset_setup_s": setup_s, "seconds": secs,
               "launches": counts, "metrics": metrics})
         _check_metrics(metrics, f"infer.main {dtype}")
-        _check_launched(counts, EVAL_KERNELS, f"infer.main {dtype}")
+        _check_launched(counts, _eval_kernels(dtype), f"infer.main {dtype}")
     return root
 
 
@@ -697,6 +725,21 @@ def _short_kernel_name(name: str) -> str:
     return "other: " + name[:60]
 
 
+def _busy_us(spans) -> float:
+    """The time covered by the union of (start, end) spans."""
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(spans):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
 # the towers' kernels as _short_kernel_name names them
 TOWER_KERNELS = ("normalize_kernel", "gemm_mma_kernel", "attention_mma_kernel",
                  "layernorm_kernel", "pool_kernel", "quantize_q8_kernel")
@@ -730,17 +773,7 @@ def profile_eval(model, videos, queries, dev, score_quant=False) -> dict:
         key = _short_kernel_name(e.name)
         t, c = by_name.get(key, (0.0, 0))
         by_name[key] = (t + (end - start), c + 1)
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
+    busy = _busy_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     towers = sum(by_name.get(k, (0.0, 0))[0] for k in TOWER_KERNELS)
     return {"profiled_wall_ms": wall_us / 1e3,
@@ -779,7 +812,7 @@ def phase_tvr_eval(dev):
         counts = _counts()
         peak = torch.cuda.max_memory_allocated()
         _check_metrics(metrics, f"TVR eval {dtype}")
-        _check_launched(counts, EVAL_KERNELS, f"TVR eval {dtype}")
+        _check_launched(counts, _eval_kernels(dtype), f"TVR eval {dtype}")
         counts_by_dtype[dtype] = counts
         prof = profile_eval(model, videos, queries, dev)
         emit({"phase": "tvr_eval_profile", "dtype": dtype, **prof})
@@ -1230,17 +1263,502 @@ def phase_serving(dev, videos, queries):
     return counts_by_route
 
 
-def kernels_line(checks, launches, int8_launches, serve_launches):
+# ------------------------------------------------- slice 7: training
+
+# the train phase's dataset: do_tvr.sh's widths (video 1024, query 768,
+# teacher 512 as dldkd_tpu/tools/train_bench.py:107), 128 frames, 30 tokens;
+# noise 6 (the generator's default is 0.6) keeps val SumR rising over the
+# epochs (on the CPU: 23 untrained, then 306, 378, 386), where the default
+# noise saturates it at 400 after one epoch
+TRAIN = dict(n_train=1024, n_val=500, n_test=500, d_video=1024, d_query=768,
+             d_teacher=512, frames=128, tokens=30, noise=6.0, bsz=128,
+             timed_steps=10, profiled_steps=5)
+# scripts/do_tvr.sh's hyperparameters, and the dataset's layout
+TRAIN_ARGS = ["--collection", "synthetic", "--visual_feature", "i3d",
+              "--dset_name", "synthetic", "--q_feat_size", "768",
+              "--model_name", "DLDKD", "--margin", "0.1", "--exp_id", "smoke",
+              "--n_heads", "4", "--distill_loss_decay", "exp",
+              "--double_branch", "--drop", "0.2", "--input_drop", "0.2",
+              "--lr", "0.0003", "--label_style", "soft",
+              "--inheritance_hidden", "384", "--exploration_hidden", "384",
+              "--max_ctx_l", "128", "--max_desc_l", "30", "--bsz", "128",
+              "--torch_device", "cuda"]
+TRAIN_KERNELS = _eval_kernels("float32")
+
+
+class _PlainCalls:
+    """Counts calls of the scorers' and towers' plain versions while
+    active (the eval path on the card must make none)."""
+
+    def __enter__(self):
+        from dldkd_tpu_torch.ops import similarity
+        from dldkd_tpu_torch.ops.kernels import query_tower, sim_max
+
+        self.calls = {}
+        self._saved = []
+        for mod, name in ((query_tower, "tower_plain"),
+                          (sim_max, "sim_max_plain"),
+                          (similarity, "sim_max_plain")):
+            real = getattr(mod, name)
+
+            def counted(*a, _real=real, _name=name, **kw):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _real(*a, **kw)
+
+            self._saved.append((mod, name, real))
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self._saved:
+            setattr(mod, name, real)
+
+
+def _run_dir(results_root: str) -> str:
+    import glob
+
+    dirs = glob.glob(os.path.join(results_root, "*", "*-*"))
+    if len(dirs) != 1:
+        fail(f"train: expected one run directory under {results_root}, "
+             f"found {dirs}")
+    return dirs[0]
+
+
+def _train_history(run_dir: str):
+    """(per-step loss records, per-eval fused SumR, epochs in
+    train.log.txt) of a run."""
+    with open(os.path.join(run_dir, "tensorboard_log", "metrics.jsonl")) as f:
+        recs = [json.loads(x) for x in f]
+    steps = [r for r in recs if "Train/loss_overall" in r]
+    sumrs = [r["Val/fused_sumr"] for r in recs if "Val/fused_sumr" in r]
+    with open(os.path.join(run_dir, "train.log.txt")) as f:
+        epochs = [int(line.split("[Epoch] ")[1].split()[0])
+                  for line in f if "[Epoch]" in line]
+    return steps, sumrs, epochs
+
+
+def _check_losses(steps, what: str) -> None:
+    from dldkd_tpu_torch.train import LOSS_KEYS
+
+    bad = [r for r in steps
+           if not all(math.isfinite(r[f"Train/{k}"]) for k in LOSS_KEYS)]
+    if not steps or bad:
+        fail(f"{what}: {len(steps)} steps logged, non-finite losses in "
+             f"{bad[:2]}")
+
+
+def _op_class(name: str) -> str:
+    """A train-step kernel's class, by its name."""
+    low = name.lower()
+    for key, cls in (("memcpy", "copies"), ("memset", "copies"),
+                     ("gemm", "products"), ("xmma", "products"),
+                     ("cutlass", "products"), ("gemv", "products"),
+                     ("softmax", "softmax"), ("layer_norm", "layernorm"),
+                     ("sort", "sort"), ("reduce", "reductions"),
+                     ("index", "gather_scatter"), ("gather", "gather_scatter"),
+                     ("scatter", "gather_scatter"),
+                     ("elementwise", "elementwise"), ("cat", "elementwise"),
+                     ("fill", "elementwise"), ("copy", "elementwise")):
+        if key in low:
+            return cls
+    return "other"
+
+
+TRAIN_STEP_PARTS = ("train_step/forward_losses", "train_step/backward",
+                    "train_step/optimizer")
+
+
+def _trace_breakdown(path: str) -> dict:
+    """Device time by op class, by kernel and by part of the step, and the
+    device's idle share, over a chrome trace written by torch.profiler
+    (train.py's --profile_dir). A kernel or copy belongs to the part
+    (train_step's profiler ranges) whose host range holds its launch."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    parts = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e.get("name") in TRAIN_STEP_PARTS]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    spans, by_class, by_kernel, by_part = [], {}, {}, {}
+    t_lo, t_hi = None, None
+    for e in events:
+        if "ts" not in e or "dur" not in e:
+            continue
+        ts, dur = float(e["ts"]), float(e["dur"])
+        t_lo = ts if t_lo is None else min(t_lo, ts)
+        t_hi = ts + dur if t_hi is None else max(t_hi, ts + dur)
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((ts, ts + dur))
+        cls = _op_class(e.get("name", ""))
+        by_class[cls] = by_class.get(cls, 0.0) + dur
+        key = _short_kernel_name(e.get("name", ""))
+        t, c = by_kernel.get(key, (0.0, 0))
+        by_kernel[key] = (t + dur, c + 1)
+        at = launched.get(e.get("args", {}).get("correlation"))
+        part = next((name for a, b, name in parts
+                     if at is not None and a <= at <= b), "outside the step")
+        by_part[part] = by_part.get(part, 0.0) + dur
+    busy = _busy_us(spans)
+    wall = (t_hi - t_lo) if spans else 0.0
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"trace_wall_ms": wall / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": (1.0 - busy / wall) if wall else None,
+            "device_events": len(spans),
+            "device_ms_by_part": {k: v / 1e3 for k, v in by_part.items()},
+            "device_ms_by_class": {k: v / 1e3 for k, v in sorted(
+                by_class.items(), key=lambda kv: -kv[1])},
+            "top_kernels": {k: {"ms": t / 1e3, "count": c}
+                            for k, (t, c) in top}}
+
+
+def _step_times(model, mcfg, cfg, batches, dev):
+    """train_step on the card, synchronized after each: per-step wall ms
+    and peak memory."""
+    import statistics
+
+    import torch
+
+    from dldkd_tpu_torch import train
+    from dldkd_tpu_torch.optim import BertAdam, default_wd_mask
+
+    named = dict(model.named_parameters())
+    opt = BertAdam(named, cfg.train.lr, None, weight_decay=cfg.train.wd,
+                   wd_mask=default_wd_mask(named))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    scalars = train.epoch_scalars(cfg, 2, dev)
+    wall = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN["timed_steps"] + 1):
+        t0 = time.perf_counter()
+        train.train_step(model, mcfg, cfg.train, opt,
+                         batches[i % len(batches)], gen, scalars)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(wall[1:])
+    return {"first_step_ms": wall[0], "step_ms_median": med,
+            "step_ms_all": wall[1:],
+            "samples_per_s": TRAIN["bsz"] / med * 1e3,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+class _ReluBranches:
+    """Forward hooks on a model's ReLUs. Without `replay`, records each
+    call's sign pattern (input > 0) and input; with `replay` (an earlier
+    record's patterns), each ReLU follows that pattern instead, as
+    input * pattern, and its gradient follows it too."""
+
+    def __init__(self, model, replay=None):
+        import torch
+
+        self.masks, self.inputs, self._replay = [], [], replay
+        self._hooks = [m.register_forward_hook(self._hook)
+                       for m in model.modules()
+                       if isinstance(m, torch.nn.ReLU)]
+
+    def _hook(self, module, inp, out):
+        x = inp[0]
+        if self._replay is None:
+            self.masks.append((x > 0).cpu())
+            self.inputs.append(x.detach().double().cpu())
+            return None
+        mask = self._replay[len(self.masks)]
+        self.masks.append(mask)
+        return x * mask.to(x.device, x.dtype)
+
+    def close(self):
+        for h in self._hooks:
+            h.remove()
+
+
+def _cpu_step_check(state_dict, mcfg, cfg, batch_np, dev):
+    """One train step on the card against the same step on the CPU, from
+    the same state and batch, dropout 0, hard negatives from a pool of 1.
+
+    The step's gradient is discontinuous where a ReLU's input is 0: an
+    input within rounding of 0 passes its gradient on one device and not
+    on the other, and BertAdam's first step turns the gradient entries
+    that this moves (near 0 after its per-tensor clip) into updates of up
+    to ~3 lr. So the CPU float32 step is not the reference for the
+    parameters: both float32 steps are compared with the CPU float64 step,
+    their ReLU sign flips against it are counted with the float64 inputs
+    where they flip, and the card is held against the float64 step taken
+    on the card's ReLU signs. Held: the losses within 1e-4 of the CPU
+    float32 step's; every parameter within 1e-5 and the gradient within
+    1e-4 of its norm of the float64 step on the card's signs; each flip
+    at a float64 input within 1e-5 of 0."""
+    import torch
+
+    from dldkd_tpu_torch import train
+    from dldkd_tpu_torch.models import DLDKD
+    from dldkd_tpu_torch.optim import BertAdam, default_wd_mask
+
+    run_cfg = mcfg.replace(input_drop=0.0, drop=0.0, use_hard_negative=True,
+                           hard_pool_size=1)
+
+    def step(where, dtype, replay=None):
+        model = DLDKD(run_cfg)
+        model.load_state_dict(state_dict)
+        model.to(where, dtype)
+        named = dict(model.named_parameters())
+        opt = BertAdam(named, cfg.train.lr, None, weight_decay=cfg.train.wd,
+                       wd_mask=default_wd_mask(named))
+        grads = {}
+        real_step = opt.step
+
+        def opt_step(gs, _real=real_step, _names=list(named)):
+            grads.update({n: g.detach().double().cpu()
+                          for n, g in zip(_names, gs)})
+            return _real(gs)
+
+        opt.step = opt_step
+        batch = {k: torch.from_numpy(v).to(where) for k, v in batch_np.items()}
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in batch.items()}
+        branches = _ReluBranches(model, replay)
+        try:
+            losses = train.train_step(
+                model, run_cfg, cfg.train, opt, batch,
+                torch.Generator(device=where),
+                train.epoch_scalars(cfg, 0, where))
+        finally:
+            branches.close()
+        return {"losses": {k: float(v) for k, v in losses.items()},
+                "grads": grads, "branches": branches,
+                "params": {k: v.detach().double().cpu()
+                           for k, v in model.state_dict().items()}}
+
+    f64 = step("cpu", torch.float64)
+    cpu = step("cpu", torch.float32)
+    card = step(dev, torch.float32)
+    f64_card_signs = step("cpu", torch.float64, replay=card["branches"].masks)
+
+    def apart(a, b):
+        ga, gb = a["grads"], b["grads"]
+        g_err = math.sqrt(sum(float((ga[k] - gb[k]).norm()) ** 2
+                              for k in gb))
+        g_norm = math.sqrt(sum(float(gb[k].norm()) ** 2 for k in gb))
+        diffs = torch.cat([(a["params"][k] - b["params"][k]).abs().flatten()
+                           for k in b["params"]])
+        worst = max(b["params"], key=lambda k: float(
+            (a["params"][k] - b["params"][k]).abs().max()))
+        i = int((a["params"][worst] - b["params"][worst]).abs().argmax())
+        return {"loss_max_abs_err": max(abs(a["losses"][k] - b["losses"][k])
+                                        for k in b["losses"]),
+                "grad_norm_rel_err": g_err / g_norm,
+                "param_max_abs_err": float(diffs.max()),
+                "params_over_1e-5": int((diffs > 1e-5).sum()),
+                "worst_entry": {"name": worst, "index": i,
+                                "grad": float(ga[worst].flatten()[i]),
+                                "grad_ref": float(gb[worst].flatten()[i])}}
+
+    def flips(a):
+        ref = f64["branches"]
+        n, at = 0, 0.0
+        for ma, mr, x in zip(a["branches"].masks, ref.masks, ref.inputs):
+            d = ma != mr
+            n += int(d.sum())
+            if d.any():
+                at = max(at, float(x[d].abs().max()))
+        return {"relu_sign_flips": n, "flip_max_abs_input_f64": at}
+
+    out = {"card_vs_cpu": apart(card, cpu),
+           "cpu_vs_f64": {**apart(cpu, f64), **flips(cpu)},
+           "card_vs_f64": {**apart(card, f64), **flips(card)},
+           "card_vs_f64_on_card_signs": apart(card, f64_card_signs),
+           "relu_inputs": sum(m.numel() for m in f64["branches"].masks),
+           "loss_tol": 1e-4, "grad_tol": 1e-4, "param_tol": 1e-5,
+           "flip_input_tol": 1e-5,
+           "losses_card": card["losses"], "losses_cpu": cpu["losses"]}
+    same = out["card_vs_f64_on_card_signs"]
+    out["ok"] = (out["card_vs_cpu"]["loss_max_abs_err"] <= 1e-4
+                 and same["param_max_abs_err"] <= 1e-5
+                 and same["grad_norm_rel_err"] <= 1e-4
+                 and out["card_vs_f64"]["flip_max_abs_input_f64"] <= 1e-5)
+    return out
+
+
+def phase_train(workdir: str, dev):
+    """The do_tvr.sh path through dldkd_tpu_torch.train.main at full width
+    on a synthetic dataset, its resume, and the measurements."""
+    import numpy as np
+    import torch
+
+    from dldkd_tpu_torch import checkpoint as ckpt_lib
+    from dldkd_tpu_torch import train
+    from dldkd_tpu_torch.config import parse_args
+    from dldkd_tpu_torch.convert import load_jax_params
+    from dldkd_tpu_torch.data import TrainLoader
+    from dldkd_tpu_torch.data.synthetic import generate_dataset
+    from dldkd_tpu_torch.evaluate import (_metrics_from_score_matrices,
+                                          run_retrieval_eval, score_matrices)
+    from dldkd_tpu_torch.metrics import build_gt_indices
+    from dldkd_tpu_torch.models import DLDKD
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "train_data")
+    generate_dataset(root, n_videos={"train": TRAIN["n_train"],
+                                     "val": TRAIN["n_val"],
+                                     "test": TRAIN["n_test"]},
+                     frames_range=(20, 200), tokens_range=(5, 31),
+                     d_student=TRAIN["d_video"], d_query=TRAIN["d_query"],
+                     d_teacher=TRAIN["d_teacher"], seed=7,
+                     noise=TRAIN["noise"], feature_format="npz")
+    setup_s = time.perf_counter() - t_phase
+    base = TRAIN_ARGS + ["--root_path", root]
+
+    # 1. train.main: the untrained validation, 2 epochs with validation,
+    # the best checkpoint, then the test split's inference
+    res1 = os.path.join(workdir, "train_run")
+    _reset_counts()
+    with _PlainCalls() as plain:
+        t0 = time.perf_counter()
+        test_metrics = train.main(base + ["--results_root", res1,
+                                          "--eval_untrained",
+                                          "--n_epoch", "2"])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+    main_counts = _counts()
+    run_dir = _run_dir(res1)
+    steps, sumrs, epochs = _train_history(run_dir)
+    emit({"phase": "train.main", "seconds": main_s,
+          "dataset_setup_s": setup_s, "steps": len(steps),
+          "epochs_logged": epochs, "val_fused_sumr": sumrs,
+          "loss_overall": [r["Train/loss_overall"] for r in steps],
+          "launches": main_counts, "plain_calls": plain.calls,
+          "test_metrics": test_metrics})
+    _check_losses(steps, "train.main")
+    _check_launched(main_counts, TRAIN_KERNELS, "train.main")
+    if plain.calls:
+        fail(f"train.main: the eval path on the card ran plain versions "
+             f"{plain.calls}")
+    if test_metrics is None:
+        fail("train.main: no post-train test metrics")
+    _check_metrics(test_metrics, "train.main test split")
+    for rel in ("ckpt/model.ckpt", "eval.log.txt", "code.zip", "opt.json"):
+        if not os.path.isfile(os.path.join(run_dir, rel)):
+            fail(f"train.main: {rel} missing from the run directory")
+    if epochs != [0, 1] or len(sumrs) != 3 or len(steps) != 2 * TRAIN[
+            "n_train"] // TRAIN["bsz"]:
+        fail(f"train.main: epochs {epochs}, {len(sumrs)} validations, "
+             f"{len(steps)} steps")
+
+    # 2. --resume from the best checkpoint to epoch 3, with --profile_dir
+    # over steps [1, 6) of its first epoch; one validation
+    saved = int(ckpt_lib.read_checkpoint(os.path.join(run_dir, "ckpt"))
+                ["epoch"])
+    res2 = os.path.join(workdir, "train_resume")
+    prof_dir = os.path.join(workdir, "train_profile")
+    cfg = parse_args(base + ["--results_root", res2, "--n_epoch", "3",
+                             "--resume", os.path.join(run_dir, "ckpt"),
+                             "--profile_dir", prof_dir, "--profile_steps",
+                             str(TRAIN["profiled_steps"])])
+    _reset_counts()
+    t0 = time.perf_counter()
+    with _PlainCalls() as plain:
+        train.start_training(cfg, device=dev)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    per_val = _counts()
+    r_steps, r_sumrs, r_epochs = _train_history(_run_dir(res2))
+    breakdown = _trace_breakdown(os.path.join(prof_dir, "trace.json"))
+    emit({"phase": "train.resume", "seconds": resume_s,
+          "resumed_from_epoch": saved, "epochs_logged": r_epochs,
+          "val_fused_sumr": r_sumrs, "launches_per_validation": per_val,
+          "plain_calls": plain.calls})
+    emit({"phase": "train_profile", "steps": TRAIN["profiled_steps"],
+          **breakdown})
+    _check_losses(r_steps, "train resume")
+    if saved != 1 or r_epochs != [2] or len(r_sumrs) != 1:
+        fail(f"train resume: from epoch {saved}, logged epochs {r_epochs}; "
+             f"the resumed run must start at epoch 2")
+    _check_launched(per_val, TRAIN_KERNELS, "train resume validation")
+    if plain.calls:
+        fail(f"train resume: plain versions ran {plain.calls}")
+    if not breakdown["device_events"]:
+        fail("train profile: no device events in the trace")
+
+    # 3. on the trained checkpoint: the step's time, the validation's time,
+    # the kernel path against the plain path, the card against the CPU
+    mcfg, train_data, val_videos, val_queries, _ = \
+        train.build_model_and_data(cfg)
+    params, _ = ckpt_lib.restore_params_only(os.path.join(run_dir, "ckpt"))
+    model = load_jax_params(DLDKD(mcfg), params).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val_metrics = run_retrieval_eval(model, val_videos, val_queries, cfg.eval,
+                                     device=dev)
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    k_i, k_e = score_matrices(model, val_videos, val_queries,
+                              cfg.eval.eval_context_bsz,
+                              cfg.eval.eval_query_bsz, dev)
+    p_i, p_e = score_matrices(model, val_videos, val_queries,
+                              cfg.eval.eval_context_bsz,
+                              cfg.eval.eval_query_bsz, dev, plain=True)
+    gt = torch.from_numpy(build_gt_indices(val_queries.video_ids,
+                                           val_videos.ids)).to(dev)
+    k_fused = _metrics_from_score_matrices(k_i, k_e, gt, (0.7, 0.3))["fused"]
+    p_fused = _metrics_from_score_matrices(p_i, p_e, gt, (0.7, 0.3))["fused"]
+    score_err = max(max_err(k_i, p_i), max_err(k_e, p_e))
+
+    loader = TrainLoader(train_data, TRAIN["bsz"], seed=cfg.train.seed,
+                         query_pad_multiple=cfg.data.query_pad_multiple)
+    host_batches = list(loader.epoch(0))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in host_batches]
+    model.train()
+    timing = _step_times(model, mcfg.replace(use_hard_negative=True),
+                         cfg, batches, dev)
+    step_check = _cpu_step_check(
+        {k: v.detach().clone() for k, v in load_jax_params(
+            DLDKD(mcfg), params).state_dict().items()},
+        mcfg, cfg, host_batches[0], dev)
+    emit({"phase": "train_trained_checkpoint",
+          "validation_s": val_s, "val_videos": len(val_videos),
+          "val_queries": len(val_queries), "val_metrics": val_metrics,
+          "kernel_vs_plain_scores_max_abs_err": score_err,
+          "tol": TOL[("scores", "float32")],
+          "kernel_path_fused_sumr": k_fused["sumr"],
+          "plain_path_fused_sumr": p_fused["sumr"],
+          "bsz": TRAIN["bsz"], "queries_per_batch":
+              [int((b["text_labels"] >= 0).sum()) for b in host_batches],
+          **timing, "card_vs_cpu_step": step_check,
+          "phase_s": time.perf_counter() - t_phase})
+    if not score_err <= TOL[("scores", "float32")]:
+        fail(f"trained checkpoint: kernel vs plain scores differ by "
+             f"{score_err}")
+    if k_fused["sumr"] != p_fused["sumr"]:
+        fail(f"trained checkpoint: fused SumR {k_fused['sumr']} on the "
+             f"kernels vs {p_fused['sumr']} on the plain path")
+    if not step_check["ok"]:
+        fail(f"train step: card vs CPU {step_check}")
+    if not np.isfinite(timing["step_ms_median"]):
+        fail("train step timing failed")
+    del model, batches, k_i, k_e, p_i, p_e
+    torch.cuda.empty_cache()
+    return main_counts, per_val
+
+
+def kernels_line(checks, launches, int8_launches, serve_launches,
+                 train_launches):
     """Every ported kernel: its source, the TPU kernel it replaces, its
-    launches on its main path and its phase-3 numbers."""
+    launches on its main path and its phase-3 numbers; beside them, its
+    launches in the train phase (train.main: three validations and the
+    test split's inference, all f32) and in one validation, read from the
+    same counter (the scorer and the chains are counted by dtype)."""
     # (launch counter, source, TPU kernel replaced, check record, path whose
     # launches count)
     mma = "dldkd_tpu_torch/csrc/sim_max_mma.cu"
     sources = {
-        "sim_max": ("sim_max", mma, "dldkd_tpu/ops/pallas/sim_max.py:36",
+        "sim_max": ("sim_max_bf16", mma, "dldkd_tpu/ops/pallas/sim_max.py:36",
                     ("sim_max", "bfloat16"), "tvr_eval bfloat16",
                     launches["bfloat16"]),
-        "sim_max_f32": ("sim_max", mma, "dldkd_tpu/ops/pallas/sim_max.py:36",
+        "sim_max_f32": ("sim_max_f32", mma,
+                        "dldkd_tpu/ops/pallas/sim_max.py:36",
                         ("sim_max", "float32"), "tvr_eval float32",
                         launches["float32"]),
         "sim_max_int8": ("sim_max_int8", mma,
@@ -1252,21 +1770,22 @@ def kernels_line(checks, launches, int8_launches, serve_launches):
                           ("sim_max_exact", SERVE["query_bsz"]),
                           "serving two_stage_dense",
                           serve_launches["two_stage_dense"]),
-        "query_tower": ("query_tower", "dldkd_tpu_torch/csrc/tower_mma.cu",
+        "query_tower": ("query_tower_bf16",
+                        "dldkd_tpu_torch/csrc/tower_mma.cu",
                         "dldkd_tpu/ops/pallas/query_tower.py:211",
                         ("query_tower", "bfloat16", 2), "tvr_eval bfloat16",
                         launches["bfloat16"]),
-        "context_tower": ("context_tower",
+        "context_tower": ("context_tower_bf16",
                           "dldkd_tpu_torch/csrc/tower_mma.cu",
                           "dldkd_tpu/ops/pallas/query_tower.py:246",
                           ("context_tower", "bfloat16", 2),
                           "tvr_eval bfloat16", launches["bfloat16"]),
-        "query_tower_f32": ("query_tower",
+        "query_tower_f32": ("query_tower_f32",
                             "dldkd_tpu_torch/csrc/tower_mma.cu",
                             "dldkd_tpu/ops/pallas/query_tower.py:211",
                             ("query_tower", "float32", 2), "tvr_eval float32",
                             launches["float32"]),
-        "context_tower_f32": ("context_tower",
+        "context_tower_f32": ("context_tower_f32",
                               "dldkd_tpu_torch/csrc/tower_mma.cu",
                               "dldkd_tpu/ops/pallas/query_tower.py:246",
                               ("context_tower", "float32", 2),
@@ -1277,12 +1796,15 @@ def kernels_line(checks, launches, int8_launches, serve_launches):
                              ("context_tower_q8", "bfloat16", 2),
                              "tvr_int8_eval", int8_launches),
     }
+    main_counts, per_val = train_launches
     kernels = []
     for name, (counter, src, replaces, key, path, counts) in sources.items():
         rec = checks[key]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[counter],
                         "launches_path": path,
+                        "train_launches": main_counts[counter],
+                        "launches_per_validation": per_val[counter],
                         "max_abs_err": rec["max_abs_err"],
                         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],
@@ -1324,9 +1846,12 @@ def main() -> None:
     launches, videos, queries = phase_tvr_eval(dev)
     int8_launches = phase_int8_eval(dev, videos, queries)
     serve_launches = phase_serving(dev, videos, queries)
+    del videos, queries
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
+        train_launches = phase_train(workdir, dev)
 
     kernels = kernels_line(checks, launches, int8_launches,
-                           serve_launches)
+                           serve_launches, train_launches)
     check_no_jax()
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -5,6 +5,12 @@ is). It imports torch, numpy, h5py and msgpack, and nothing of JAX, Flax or
 `dldkd_tpu`: what it needs from there it keeps as its own copy.
 
 What is ported so far:
+- training (`train.start_training`, `python -m dldkd_tpu_torch.train`):
+  the packer and loader, the losses and objective, BertAdam and the
+  schedules, the epoch loop with per-epoch validation on the eval engine
+  below, the best-SumR checkpoint, early stop, full-state resume and the
+  SIGTERM checkpoint, then test-split inference; the train step is plain
+  PyTorch autograd (the JAX package's step calls no Pallas kernel);
 - the evaluation path of `scripts/do_test.sh` (`infer`, `evaluate`):
   checkpoint -> corpus and query towers -> masked cosine max-over-frames
   scoring -> rank -> R@K/SumR/mAP per branch and for the 0.7/0.3 fusion,
@@ -18,14 +24,17 @@ Every TPU kernel of the JAX package has a hand-written CUDA counterpart for
 Hopper (`csrc/`: masked-cosine, int8 and exact-rescore scoring; the query
 and video towers with the int8 epilogue), each with a plain PyTorch
 version and a launch counter beside it (`ops/kernels/`). Not ported yet:
-training, streaming eval, the raw serving store and index artifacts, and
-multi-GPU (ROADMAP queue A).
+streaming eval, the raw serving store and index artifacts, multi-GPU, the
+native packer, and the training speed knobs and ablations (ROADMAP queue
+A).
 
 Entry points take an explicit `device` and run on "cuda" unless the caller
 asks for "cpu"; on the CPU every kernel wrapper uses its plain version.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -44,3 +53,29 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+# --matmul_precision (the JAX package's jax_default_matmul_precision) ->
+# torch.set_float32_matmul_precision: "highest" keeps f32 products, "high"
+# allows TF32, "default" allows bf16 passes, as "default" does on a TPU.
+MATMUL_PRECISION = {"highest": "highest", "float32": "highest",
+                    "high": "high", "tensorfloat32": "high",
+                    "bfloat16_3x": "high", "default": "medium",
+                    "bfloat16": "medium", "fastest": "medium"}
+
+
+@contextlib.contextmanager
+def float32_matmul_precision(setting: str):
+    """Apply a --matmul_precision value to PyTorch's f32 products (plain
+    PyTorch only: the f32 CUDA kernels run 3xTF32 at every setting) for
+    the duration of the block, then restore the previous value."""
+    if setting and setting not in MATMUL_PRECISION:
+        raise ValueError(f"unknown matmul_precision {setting!r}; use one of "
+                         f"{sorted(MATMUL_PRECISION)}")
+    prev = torch.get_float32_matmul_precision()
+    if setting:
+        torch.set_float32_matmul_precision(MATMUL_PRECISION[setting])
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

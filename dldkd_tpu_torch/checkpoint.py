@@ -45,7 +45,7 @@ def _ext_hook(code: int, data: bytes):
 
 def _ext_default(obj):
     if isinstance(obj, np.ndarray):
-        arr = np.ascontiguousarray(obj)
+        arr = obj   # tobytes("C") is C order whatever the layout; 0-d stays 0-d
         return msgpack.ExtType(_EXT_NDARRAY, msgpack.packb(
             (arr.shape, arr.dtype.name, arr.tobytes("C")), use_bin_type=True))
     if isinstance(obj, np.generic):
@@ -59,6 +59,21 @@ def read_checkpoint(ckpt_dir: str) -> Dict[str, Any]:
     """The whole decoded checkpoint tree (numpy leaves)."""
     with open(os.path.join(ckpt_dir, CKPT_NAME), "rb") as f:
         return msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+
+
+STATE_KEYS = ("params", "opt_state", "epoch", "best_score", "rng")
+
+
+def restore_checkpoint(ckpt_dir: str) -> Dict[str, Any]:
+    """The full training state {"params": {"params": ...}, "opt_state":
+    {"step", "m", "v"}, "epoch", "best_score", "rng"} (numpy leaves) of a
+    checkpoint written by either package, for --resume."""
+    raw = read_checkpoint(ckpt_dir)
+    missing = [k for k in STATE_KEYS if k not in raw]
+    if missing:
+        raise KeyError(f"{ckpt_dir}: not a full training state, missing "
+                       f"{missing}")
+    return raw
 
 
 def restore_params_only(ckpt_dir: str) -> Tuple[Dict[str, Any], int]:

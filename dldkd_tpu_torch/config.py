@@ -55,7 +55,8 @@ class ModelConfig:
     # f32 matmul precision: 'highest' reproduces the reference bit-for-bit
     # class numerics; 'default' lets the MXU run bf16 passes (faster).
     # This JAX build's default is bf16-grade even on CPU, so parity work
-    # must pin 'highest'.
+    # must pin 'highest'. The port maps it onto
+    # torch.set_float32_matmul_precision (dldkd_tpu_torch.MATMUL_PRECISION).
     matmul_precision: str = "highest"
 
     def replace(self, **kw) -> "ModelConfig":
@@ -415,9 +416,18 @@ def build_parser(test: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--belta_decay", type=str, default="sigmoid")
     # TPU-native extensions
     p.add_argument("--dtype", type=str, default="float32",
-                   help="tower compute dtype: float32 or bfloat16")
+                   help="tower compute dtype: float32 or bfloat16 (the "
+                        "PyTorch port trains in float32 only: bfloat16 "
+                        "training raises NotImplementedError, ROADMAP A15)")
     p.add_argument("--matmul_precision", type=str, default="highest",
-                   help="f32 matmul precision: highest (parity) | default (fast)")
+                   help="f32 matmul precision: highest (parity) | high | "
+                        "default (fast). In the PyTorch port it sets "
+                        "torch.set_float32_matmul_precision for training "
+                        "and inference (highest -> 'highest', high -> "
+                        "'high' (TF32), default -> 'medium' (bf16 "
+                        "passes)); the f32 CUDA kernels (scoring, towers) "
+                        "run 3xTF32 at every setting, at least what each "
+                        "setting asks for")
     p.add_argument("--query_pad_multiple", type=int, default=64)
     p.add_argument("--no_pack_cache", action="store_true",
                    help="disable the content-keyed packed-dataset cache "
@@ -433,13 +443,16 @@ def build_parser(test: bool = False) -> argparse.ArgumentParser:
                    help="train both branches' towers as one vmapped "
                         "(2, ...) computation (bf16 speed knob; "
                         "branch-split dropout streams — keep off for f32 "
-                        "parity runs)")
+                        "parity runs). The PyTorch port raises "
+                        "NotImplementedError (ROADMAP A15)")
     p.add_argument("--rng_impl", choices=("threefry2x32", "rbg"),
                    default="threefry2x32",
                    help="PRNG for the training streams (dropout, negative "
                         "sampling): 'rbg' = TPU hardware RNG, ~1.2x the "
                         "bsz-128 step (same distributions, different "
-                        "streams — keep the default for parity runs)")
+                        "streams — keep the default for parity runs). "
+                        "n/a in the PyTorch port, which accepts it and "
+                        "draws every stream from one torch.Generator")
     p.add_argument("--score_quant", action="store_true",
                    help="int8-quantized retrieval scoring (2x MXU rate, "
                         "~2.7e-3 score error; rank-preserving on separated "

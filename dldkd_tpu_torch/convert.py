@@ -17,6 +17,9 @@ exploration and <t> = query | visual:
   out_mapping_linear/{kernel,bias}    -> <p>out_mapping_linear.{weight^T,bias}
 
 Flax Dense kernels are (in, out); torch Linear weights are (out, in).
+The optimizer state maps the same way: BertAdam's m and v are trees shaped
+like the parameters (`opt_state_from_jax`, `opt_state_to_jax`), and so is
+the JAX package's weight-decay mask (`wd_mask_from_jax`).
 """
 
 from __future__ import annotations
@@ -29,11 +32,12 @@ import torch
 from dldkd_tpu_torch.models.dldkd import BRANCH_PREFIX
 
 
-def _branch_state(tree: Mapping, prefix: str) -> Dict[str, np.ndarray]:
+def _branch_state(tree: Mapping, prefix: str, dtype=np.float32
+                  ) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
 
     def put(name, value, transpose=False):
-        arr = np.asarray(value, dtype=np.float32)
+        arr = np.asarray(value, dtype=dtype)
         out[prefix + name] = np.ascontiguousarray(arr.T if transpose else arr)
 
     def dense(name, p):
@@ -62,8 +66,8 @@ def _branch_state(tree: Mapping, prefix: str) -> Dict[str, np.ndarray]:
     return out
 
 
-def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX parameter tree (numpy leaves) -> the port's state_dict."""
+def _named_arrays(params: Mapping, dtype=np.float32
+                  ) -> Dict[str, np.ndarray]:
     tree = params["params"]
     unknown = set(tree) - set(BRANCH_PREFIX)
     if unknown:
@@ -72,8 +76,36 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, np.ndarray] = {}
     for branch, prefix in BRANCH_PREFIX.items():
         if branch in tree:
-            out.update(_branch_state(tree[branch], prefix))
-    return {k: torch.tensor(v) for k, v in out.items()}
+            out.update(_branch_state(tree[branch], prefix, dtype))
+    return out
+
+
+def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree (numpy leaves) -> the port's state_dict."""
+    return {k: torch.tensor(v) for k, v in _named_arrays(params).items()}
+
+
+def wd_mask_from_jax(mask: Mapping) -> Dict[str, bool]:
+    """The JAX package's weight-decay mask (a params-shaped tree of bools,
+    dldkd_tpu/optim/bert_adam.py:default_wd_mask) in the port's names."""
+    return {k: bool(v) for k, v in _named_arrays(mask, np.bool_).items()}
+
+
+def opt_state_from_jax(opt_state: Mapping) -> Dict[str, Any]:
+    """BertAdamState {"step", "m", "v"} of a JAX checkpoint -> the port's
+    `BertAdam.load_state_dict` form (m and v in the port's names)."""
+    return {"step": int(np.asarray(opt_state["step"])),
+            "m": state_dict_from_jax(opt_state["m"]),
+            "v": state_dict_from_jax(opt_state["v"])}
+
+
+def opt_state_to_jax(state: Mapping) -> Dict[str, Any]:
+    """`BertAdam.state_dict()` -> the JAX package's BertAdamState tree
+    {"step": int32 scalar, "m": params tree, "v": params tree}, numpy
+    leaves."""
+    return {"step": np.asarray(state["step"], np.int32),
+            "m": params_from_state_dict(state["m"]),
+            "v": params_from_state_dict(state["v"])}
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping

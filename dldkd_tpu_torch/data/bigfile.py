@@ -53,12 +53,14 @@ class BigFileWriter:
         self.names: List[str] = []
         self._bin = open(os.path.join(datadir, "feature.bin"), "wb")
 
-    def write(self, name: str, vec: Sequence[float]) -> None:
-        arr = np.asarray(vec, dtype=np.float32)
-        if arr.shape != (self.ndims,):
-            raise ValueError(f"expected ({self.ndims},), got {arr.shape}")
+    def write_rows(self, names: Sequence[str], rows: np.ndarray) -> None:
+        """Append len(names) rows (an (n, ndims) array) at once."""
+        arr = np.ascontiguousarray(rows, dtype=np.float32)
+        if arr.shape != (len(names), self.ndims):
+            raise ValueError(f"expected ({len(names)}, {self.ndims}), got "
+                             f"{arr.shape}")
         arr.tofile(self._bin)
-        self.names.append(name)
+        self.names.extend(names)
 
     def close(self) -> None:
         self._bin.close()

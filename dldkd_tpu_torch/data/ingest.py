@@ -1,16 +1,18 @@
-"""Dataset ingestion for the eval path: BigFile/HDF5 -> packed padded arrays.
+"""Dataset ingestion: BigFile/HDF5 -> packed padded arrays.
 
-The PyTorch port's own copy of the eval half of `dldkd_tpu/data/ingest.py`
-(same packing conventions, so both packages score identical inputs). The
-corpus packer here is the numpy path; the native C++ packer and the
-training-set packer are not part of the port yet.
+The PyTorch port's own copy of `dldkd_tpu/data/ingest.py` (same packing
+conventions, so both packages train on and score identical inputs). The
+packers here are the numpy path; the native C++ packer is not part of the
+port yet (ROADMAP A4b).
 
 On-disk layout consumed (SURVEY.md S2.3):
   $root/$collection/FeatureData/$visual_feature/          BigFile + video2frames.txt
+  $root/$collection/FeatureData/new_clip_vit_32_{c}_vid_features.hdf5
   $root/$collection/TextData/{c}{split}.caption.txt
   $root/$collection/TextData/roberta_{c}_query_feat.hdf5
-      (or roberta_{c}_query_feat.npz with the same keys, where the HDF5
-      file is absent: for machines without h5py)
+  $root/$collection/TextData/clip_ViT_B_32_{c}_query_feat.hdf5
+Each feature store may instead be an .npz archive with the same keys
+beside where the HDF5 file would be (for machines without h5py).
 """
 
 from __future__ import annotations
@@ -98,6 +100,7 @@ class PackedVideos:
     feats: np.ndarray          # (N, L, D) float32
     mask: np.ndarray           # (N, L) float32, 1=valid
     ids: List[str]
+    teacher_feats: Optional[np.ndarray] = None  # (N, L, Dt), raw CLIP
 
     def __len__(self):
         return len(self.ids)
@@ -111,14 +114,85 @@ class PackedQueries:
     mask: np.ndarray                  # (Ncap, Lq) float32
     cap_ids: List[str]
     video_ids: List[str]              # per caption
+    teacher_feats: Optional[np.ndarray] = None  # (Ncap, Dt) raw CLIP sentence
 
     def __len__(self):
         return len(self.cap_ids)
 
 
+@dataclass
+class TrainData:
+    videos: PackedVideos
+    queries: PackedQueries
+    vid_cap_index: List[np.ndarray]   # per video: caption row indices
+
+    @property
+    def max_caps_per_video(self) -> int:
+        return max(len(c) for c in self.vid_cap_index)
+
+
 # --------------------------------------------------------------------- #
 # Packing
 # --------------------------------------------------------------------- #
+
+def _teacher_text_key(store, cap_id: str) -> str:
+    """CLIP text stores sometimes key caps as 'vid#j' instead of
+    'vid#enc#j' (reference fallback, data_provider.py:250-257)."""
+    if cap_id in store:
+        return cap_id
+    alt = "#".join(cap_id.split("#enc#"))
+    if alt in store:
+        return alt
+    raise KeyError(cap_id)
+
+
+def pack_train_dataset(
+    cap_file: str,
+    visual_feat: BigFile,
+    video2frames: dict,
+    text_feat_path: str,
+    teacher_vid_feat_path: str,
+    teacher_text_feat_path: str,
+    max_ctx_l: int = 128,
+    max_desc_l: int = 30,
+) -> TrainData:
+    """Reference Dataset4DLDKD.__getitem__ semantics (data_provider.py:212-263)
+    applied to the whole split once:
+      student frames -> resample to TEACHER frame count -> resample to
+      max_ctx_l -> L2-normalize; teacher frames resampled to max_ctx_l, raw.
+      Captions: RoBERTa tokens L2-normalized, truncated to max_desc_l;
+      CLIP sentence feats raw.
+    """
+    _, _, video_ids, vid_caps = load_captions(cap_file)
+    n_vid = len(video_ids)
+    with open_features(teacher_vid_feat_path) as tv:
+        t_dim = np.asarray(tv[video_ids[0]]).shape[1]
+        feats = np.zeros((n_vid, max_ctx_l, visual_feat.ndims), np.float32)
+        mask = np.zeros((n_vid, max_ctx_l), np.float32)
+        t_feats = np.zeros((n_vid, max_ctx_l, t_dim), np.float32)
+        for i, vid in enumerate(video_ids):
+            teacher = np.asarray(tv[vid][:], np.float32)
+            student = visual_feat.read(video2frames[vid])
+            # align the student frame grid to the teacher's, then cap
+            student = uniform_feature_sampling(student, teacher.shape[0])
+            student = uniform_feature_sampling(student, max_ctx_l)
+            teacher = uniform_feature_sampling(teacher, max_ctx_l)
+            # after alignment both have at most the teacher's length
+            n = min(student.shape[0], teacher.shape[0])
+            feats[i, :n] = l2_normalize_rows(student[:n])
+            t_feats[i, :teacher.shape[0]] = teacher
+            mask[i, :n] = 1.0
+
+    videos = PackedVideos(feats=feats, mask=mask, ids=video_ids,
+                          teacher_feats=t_feats)
+    queries = pack_query_set(cap_file, text_feat_path, max_desc_l,
+                             teacher_text_feat_path=teacher_text_feat_path)
+    cap_row = {c: i for i, c in enumerate(queries.cap_ids)}
+    vid_cap_index = [np.asarray([cap_row[c] for c in vid_caps[v]], np.int64)
+                     for v in video_ids]
+    return TrainData(videos=videos, queries=queries,
+                     vid_cap_index=vid_cap_index)
+
 
 def pack_video_corpus(
     video_ids: List[str],
@@ -188,15 +262,23 @@ def pack_query_set(
     cap_file: str,
     text_feat_path: str,
     max_desc_l: int = 30,
+    teacher_text_feat_path: Optional[str] = None,
 ) -> PackedQueries:
     """Caption features (reference TxtDataSet4DLDKD, data_provider.py:315-357):
-    RoBERTa token features L2-normalized + truncated to max_desc_l."""
+    RoBERTa token features L2-normalized + truncated to max_desc_l; with a
+    teacher store, the raw CLIP sentence features too."""
     cap_ids, _, _, _ = load_captions(cap_file)
     with open_features(text_feat_path) as tf:
         feats, mask = pack_query_rows(tf, cap_ids, max_desc_l)
+    teacher = None
+    if teacher_text_feat_path is not None:
+        with open_features(teacher_text_feat_path) as cf:
+            teacher = np.stack([
+                np.asarray(cf[_teacher_text_key(cf, c)][...],
+                           np.float32).reshape(-1) for c in cap_ids])
     video_ids = [c.split("#")[0] for c in cap_ids]
     return PackedQueries(feats=feats, mask=mask, cap_ids=cap_ids,
-                         video_ids=video_ids)
+                         video_ids=video_ids, teacher_feats=teacher)
 
 
 # --------------------------------------------------------------------- #
@@ -209,12 +291,13 @@ def dataset_paths(root_path: str, collection: str, visual_feature: str) -> dict:
         "visual_feat_dir": os.path.join(base, "FeatureData", visual_feature),
         "video2frames": os.path.join(base, "FeatureData", visual_feature,
                                      "video2frames.txt"),
-        "teacher_vid_feat": os.path.join(
-            base, "FeatureData", f"new_clip_vit_32_{collection}_vid_features.hdf5"),
+        "teacher_vid_feat": _feature_file(os.path.join(
+            base, "FeatureData",
+            f"new_clip_vit_32_{collection}_vid_features.hdf5")),
         "text_feat": _feature_file(os.path.join(
             base, "TextData", f"roberta_{collection}_query_feat.hdf5")),
-        "teacher_text_feat": os.path.join(
-            base, "TextData", f"clip_ViT_B_32_{collection}_query_feat.hdf5"),
+        "teacher_text_feat": _feature_file(os.path.join(
+            base, "TextData", f"clip_ViT_B_32_{collection}_query_feat.hdf5")),
         "cap_file": {
             split: os.path.join(base, "TextData",
                                 f"{collection}{split}.caption.txt")

@@ -79,12 +79,12 @@ def generate_dataset(
                 vid = f"{collection}_{split}_v{v:04d}"
                 z = rng.randn(d_latent)
                 n_frames = rng.randint(*frames_range)
-                frame_ids = []
-                for t in range(n_frames):
-                    fid = f"{vid}_{t}"
-                    frame_ids.append(fid)
-                    vec = z @ w_student + noise * rng.randn(d_student)
-                    bf.write(fid, vec.astype(np.float32))
+                frame_ids = [f"{vid}_{t}" for t in range(n_frames)]
+                # one draw for all frames: the same stream (and bytes) as a
+                # draw per frame, without the per-frame Python loop
+                frames = z @ w_student + noise * rng.randn(n_frames,
+                                                           d_student)
+                bf.write_rows(frame_ids, frames.astype(np.float32))
                 video2frames[vid] = frame_ids
 
                 n_tf = rng.randint(*teacher_frames_range)

@@ -286,15 +286,22 @@ def run_retrieval_eval(model, videos: PackedVideos, queries: PackedQueries,
     """The drivers' entry point: routes by the config's corpus_stream_bsz
     (0 = auto, -1 = resident, > 0 = stream) and the mesh, as
     dldkd_tpu.evaluate.run_retrieval_eval does. Only the resident engine on
-    one device is ported."""
+    one device is ported. A module in training mode (the per-epoch
+    validation) is evaluated in eval mode and handed back in training
+    mode."""
     if mesh is not None:
         raise NotImplementedError(
             "corpus-sharded (multi-GPU) eval is ROADMAP A14, not ported")
     stream = eval_cfg.corpus_stream_bsz
-    return eval_retrieval(model, videos, queries,
-                          context_bsz=eval_cfg.eval_context_bsz,
-                          query_bsz=eval_cfg.eval_query_bsz,
-                          score_quant=eval_cfg.score_quant,
-                          corpus_stream_bsz=(None if stream == 0 else
-                                             0 if stream < 0 else stream),
-                          device=device)
+    was_training = model.training
+    model.eval()
+    try:
+        return eval_retrieval(model, videos, queries,
+                              context_bsz=eval_cfg.eval_context_bsz,
+                              query_bsz=eval_cfg.eval_query_bsz,
+                              score_quant=eval_cfg.score_quant,
+                              corpus_stream_bsz=(None if stream == 0 else
+                                                 0 if stream < 0 else stream),
+                              device=device)
+    finally:
+        model.train(was_training)

@@ -18,7 +18,7 @@ import time
 import torch
 
 from dldkd_tpu_torch import checkpoint as ckpt_lib
-from dldkd_tpu_torch import resolve_device
+from dldkd_tpu_torch import float32_matmul_precision, resolve_device
 from dldkd_tpu_torch.config import Config, parse_args
 from dldkd_tpu_torch.convert import load_jax_params
 from dldkd_tpu_torch.data import (BigFile, pack_query_set, pack_video_corpus,
@@ -33,8 +33,14 @@ logger = logging.getLogger("dldkd_tpu_torch")
 def start_inference(cfg: Config, split: str = "test", device=None):
     """Metric dicts {'inher', 'explore', 'fused'} of the checkpoint in
     cfg's model_dir on `split`, computed on `device` (default: the
-    config's torch_device, "cuda" unless set)."""
+    config's torch_device, "cuda" unless set), under the run's
+    --matmul_precision (as dldkd_tpu/infer.py:27-29 applies it)."""
     dev = resolve_device(device or cfg.torch_device)
+    with float32_matmul_precision(cfg.model.matmul_precision):
+        return _inference(cfg, split, dev)
+
+
+def _inference(cfg: Config, split: str, dev: torch.device):
     model_dir = cfg.eval.model_dir or cfg.results_dir
     ckpt_dir = f"{model_dir}/ckpt"
     mcfg = ckpt_lib.load_model_cfg(ckpt_dir)

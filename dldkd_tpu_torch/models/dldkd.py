@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from dldkd_tpu_torch.config import ModelConfig
-from dldkd_tpu_torch.models.components import (AttentionBlock,
+from dldkd_tpu_torch.models.components import (AttentionBlock, Generator,
                                                LinearInputProj,
                                                TrainablePositionalEncoding)
 from dldkd_tpu_torch.ops.masking import mask_logits
@@ -49,25 +49,25 @@ class Branch(nn.Module):
                                              cfg.drop)
         self.out_mapping_linear = nn.Linear(hidden, hidden)
 
-    def encode_query(self, feat: torch.Tensor, mask: torch.Tensor
-                     ) -> torch.Tensor:
+    def encode_query(self, feat: torch.Tensor, mask: torch.Tensor,
+                     generator: Generator = None) -> torch.Tensor:
         """(Nq, Lq, Dq), (Nq, Lq) -> pooled (Nq, hidden): encode tokens,
         then softmax-pool with the learned 1-d attention head (reference
         encode_query + get_modularized_queries, model.py:199-258)."""
-        x = self.query_input_proj(feat)
-        x = self.query_pos_embed(x)
-        x = self.query_encoder(x, mask)
+        x = self.query_input_proj(feat, generator)
+        x = self.query_pos_embed(x, generator)
+        x = self.query_encoder(x, mask, generator)
         att = self.modular_vector_mapping(x)                 # (Nq, Lq, 1)
         att = torch.softmax(mask_logits(att, mask[:, :, None]), dim=1)
         return (att * x).sum(dim=1)
 
-    def encode_context(self, feat: torch.Tensor, mask: torch.Tensor
-                       ) -> torch.Tensor:
+    def encode_context(self, feat: torch.Tensor, mask: torch.Tensor,
+                       generator: Generator = None) -> torch.Tensor:
         """(Nv, Lv, Dv), (Nv, Lv) -> frame features (Nv, Lv, hidden)
         (reference encode_context, model.py:215-227)."""
-        x = self.visual_input_proj(feat)
-        x = self.visual_pos_embed(x)
-        x = self.visual_encoder(x, mask)
+        x = self.visual_input_proj(feat, generator)
+        x = self.visual_pos_embed(x, generator)
+        x = self.visual_encoder(x, mask, generator)
         return self.out_mapping_linear(x)
 
 
@@ -106,12 +106,23 @@ class DLDKD(nn.Module):
                     mod.bias.zero_()
         return self
 
-    def encode_query(self, feat, mask
+    def encode_query(self, feat, mask, generator: Generator = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        outs = [br.encode_query(feat, mask) for br in self.branches]
+        outs = [br.encode_query(feat, mask, generator)
+                for br in self.branches]
         return outs[0], (outs[1] if len(outs) > 1 else None)
 
-    def encode_context(self, feat, mask
+    def encode_context(self, feat, mask, generator: Generator = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        outs = [br.encode_context(feat, mask) for br in self.branches]
+        outs = [br.encode_context(feat, mask, generator)
+                for br in self.branches]
         return outs[0], (outs[1] if len(outs) > 1 else None)
+
+    def forward(self, video_feat, video_mask, query_feat, query_mask,
+                generator: Generator = None):
+        """The training forward (dldkd.py:123-128): both modalities through
+        every branch, ((ctx_inher, ctx_explore), (q_inher, q_explore)).
+        In training mode with dropout on, `generator` gives every mask."""
+        ctx = self.encode_context(video_feat, video_mask, generator)
+        qry = self.encode_query(query_feat, query_mask, generator)
+        return ctx, qry

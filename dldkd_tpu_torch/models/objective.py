@@ -1,0 +1,126 @@
+"""Training objective: loss assembly over a batch (port of
+dldkd_tpu/models/objective.py:27-138).
+
+Reproduces reference `DLDKD.forward` (method/model.py:100-163):
+
+  loss = inher_trip
+       + inher_nce_weight   * (clip_nce | clip_nce_soft vs teacher)
+       + kl_intra_weight * kd_weight * frame_KL(student, teacher, T=0.2)
+       + explore_trip
+       + explore_nce_weight * (clip_nce | clip_nce_soft vs itself)
+
+kd_weight / alpha / belta are the per-epoch decay scalars
+(optim/schedules.py), float32 tensors on the step's device. The stacked
+towers and bf16 tower training of the JAX package are ROADMAP A15.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+from dldkd_tpu_torch.config import ModelConfig, TrainConfig
+from dldkd_tpu_torch.ops import losses
+from dldkd_tpu_torch.ops.similarity import (clip_scores,
+                                            clip_scores_unnormalized)
+
+
+class LossScalars(NamedTuple):
+    """Per-epoch decayed scalars (see optim/schedules.py)."""
+
+    kd_weight: torch.Tensor  # distill loss decay, reference train.py:73-82
+    alpha: torch.Tensor      # soft-NCE partition threshold, train.py:85-104
+    belta: torch.Tensor      # GT/soft mixing, train.py:106-125
+
+
+def check_trainable(mcfg: ModelConfig, tcfg: TrainConfig) -> None:
+    """Raise on the training settings the port does not run yet."""
+    if tcfg.stacked_towers:
+        raise NotImplementedError(
+            "--stacked_towers (both branches as one batched computation) "
+            "is ROADMAP A15, not ported")
+    if mcfg.dtype != "float32":
+        raise NotImplementedError(
+            f"training with --dtype {mcfg.dtype} is ROADMAP A15, not "
+            f"ported: train in float32")
+
+
+def compute_losses(model, batch: Dict[str, torch.Tensor],
+                   generator: torch.Generator, mcfg: ModelConfig,
+                   tcfg: TrainConfig, scalars: LossScalars
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full training loss for one batch, with the dropout masks (in
+    training mode) and the negatives drawn from `generator`.
+
+    batch keys (static shapes, see data/pipeline.py):
+      student_videos (B, Lv, Dv), student_videos_mask (B, Lv),
+      teacher_videos (B, Lv, Dt), student_text (Q, Lq, Dq),
+      student_text_mask (Q, Lq), teacher_text (Q, Dt),
+      text_labels (Q,) int with -1 padding.
+    mcfg is the epoch's model config (hard negatives flip per epoch), not
+    necessarily model.config.
+    """
+    check_trainable(mcfg, tcfg)
+    (inher_ctx, explore_ctx), (inher_q, explore_q) = model(
+        batch["student_videos"], batch["student_videos_mask"],
+        batch["student_text"], batch["student_text_mask"],
+        generator=generator)
+
+    vmask = batch["student_videos_mask"]
+    labels = batch["text_labels"].long()
+
+    # teacher scores straight from the precomputed CLIP features
+    # (reference model.py:113-116: the teacher has no runtime parameters)
+    _, teacher_frame = clip_scores(batch["teacher_text"],
+                                   batch["teacher_videos"], vmask)
+    teacher_raw = clip_scores_unnormalized(
+        batch["teacher_text"], batch["teacher_videos"], vmask)
+
+    inher_cos, inher_frame = clip_scores(inher_q, inher_ctx, vmask)
+    inher_raw = clip_scores_unnormalized(inher_q, inher_ctx, vmask)
+
+    inher_trip = losses.clip_triplet_loss(
+        inher_cos, labels, generator, mcfg.margin, mcfg.use_hard_negative,
+        mcfg.hard_pool_size)
+    if mcfg.label_style == "soft":
+        inher_nce = tcfg.inher_nce_weight * losses.clip_nce_soft(
+            inher_raw, teacher_raw, labels, scalars.alpha, scalars.belta)
+    else:
+        inher_nce = tcfg.inher_nce_weight * losses.clip_nce(inher_raw,
+                                                            labels)
+
+    kl_intra = tcfg.kl_intra_weight * scalars.kd_weight * \
+        losses.frame_kl_loss(inher_frame, teacher_frame, vmask, labels,
+                             temperature=0.2)
+
+    zero = torch.zeros((), dtype=torch.float32, device=inher_cos.device)
+    explore_trip, explore_nce = zero, zero
+    if mcfg.double_branch:
+        explore_cos, _ = clip_scores(explore_q, explore_ctx, vmask)
+        explore_raw = clip_scores_unnormalized(explore_q, explore_ctx,
+                                               vmask)
+        explore_trip = losses.clip_triplet_loss(
+            explore_cos, labels, generator, mcfg.margin,
+            mcfg.use_hard_negative, mcfg.hard_pool_size)
+        if mcfg.label_style == "soft":
+            # self-distillation: the branch's own scores are the soft
+            # target (reference model.py:149-150)
+            explore_nce = tcfg.explore_nce_weight * losses.clip_nce_soft(
+                explore_raw, explore_raw, labels, scalars.alpha,
+                scalars.belta)
+        else:
+            explore_nce = tcfg.explore_nce_weight * losses.clip_nce(
+                explore_raw, labels)
+
+    loss = inher_trip + inher_nce + kl_intra + explore_trip + explore_nce
+    loss_dict = {
+        "loss_overall": loss,
+        "inher_trip": inher_trip,
+        "inher_nce": inher_nce,
+        "explore_trip": explore_trip,
+        "explore_nce": explore_nce,
+        "kl": kl_intra,
+        "kl_intra": kl_intra,
+    }
+    return loss, loss_dict

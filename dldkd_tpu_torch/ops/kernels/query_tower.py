@@ -49,8 +49,10 @@ import torch
 import torch.nn.functional as F
 
 # launches of the CUDA chains and of the int8 epilogue since the counts
-# were last set to 0
-LAUNCHES = {"query_tower": 0, "context_tower": 0, "context_tower_q8": 0}
+# were last set to 0; the chains also by their dtype (query_tower_f32, ...)
+LAUNCHES = {"query_tower": 0, "query_tower_bf16": 0, "query_tower_f32": 0,
+            "context_tower": 0, "context_tower_bf16": 0,
+            "context_tower_f32": 0, "context_tower_q8": 0}
 # calls of pack_weights since the counts were last set to 0, by tower kind
 PACKS = {"query": 0, "context": 0}
 
@@ -532,6 +534,7 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
                 out.data_ptr(), mask.data_ptr(), p["wm"], pooled.data_ptr(),
                 g_n, n, l, hdim, hp, ghp, bf, s), "tower_pool")
             LAUNCHES["query_tower"] += 1
+            LAUNCHES["query_tower_" + ("bf16" if bf else "f32")] += 1
             return list(pooled.unbind(0))
         y = new(g_n, m, hp)
         gemm("out_mapping", out.data_ptr(), "wm", p["bm"], y.data_ptr(),
@@ -543,6 +546,7 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
             _launch_quantize(y, y8, s)
             y = y8
     LAUNCHES["context_tower"] += 1
+    LAUNCHES["context_tower_" + ("bf16" if bf else "f32")] += 1
     outs = [t.view(n, l, hp) for t in y.unbind(0)]
     if hp != hdim:
         outs = [t[..., :hdim].contiguous() for t in outs]

@@ -46,8 +46,10 @@ from dldkd_tpu_torch.ops.kernels.query_tower import (INT8_SCALE,
                                                      quantize_unit_int8)
 from dldkd_tpu_torch.ops.masking import NEG_INF, l2_normalize, mask_logits
 
-# launches of the CUDA kernels since the counts were last set to 0
-LAUNCHES = {"sim_max": 0, "sim_max_int8": 0, "sim_max_exact": 0}
+# launches of the CUDA kernels since the counts were last set to 0; the
+# masked-cosine scorer also by its dtype (sim_max_bf16, sim_max_f32)
+LAUNCHES = {"sim_max": 0, "sim_max_bf16": 0, "sim_max_f32": 0,
+            "sim_max_int8": 0, "sim_max_exact": 0}
 
 INT8_MASK_BIAS = -(1 << 30)   # int32 "-inf": dominates any |s| <= D * 127^2
 NEG_BIG_INT8 = INT8_MASK_BIAS / (INT8_SCALE * INT8_SCALE)   # dequantized
@@ -194,6 +196,7 @@ def fused_clip_scores(qn: torch.Tensor, cn: torch.Tensor,
                 out.data_ptr(), nq, nv, l_frames, d, stream)
     check(rc, sym)
     LAUNCHES["sim_max"] += 1
+    LAUNCHES[sym] += 1
     return out
 
 

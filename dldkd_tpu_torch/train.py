@@ -1,0 +1,410 @@
+"""The training loop and its CLI (port of dldkd_tpu/train.py).
+
+Reference flow (method/train.py): epoch loop over shuffled video batches,
+per-epoch distillation/alpha/belta decays, per-epoch validation retrieval,
+best-SumR checkpointing, early stop, then test-split inference.
+
+The train step (forward, backward, the global-norm clip, BertAdam) is plain
+PyTorch autograd: the JAX package's step calls no Pallas kernel. The
+per-epoch validation runs on the resident eval engine (`evaluate.py`), so
+on a CUDA device it goes through the hand-written tower and scoring
+kernels, on weights packed anew at every validation. Loss values stay on
+the device until the epoch ends. Dropout masks and negative samples come
+from one `torch.Generator` on the device, seeded from seed + 1 and saved in
+every checkpoint, so `--resume` continues a run exactly. Checkpoints are
+in the JAX package's format (`checkpoint.py`), in both directions.
+
+One GPU: the JAX package's data-parallel mesh (train.py:221-262) is
+ROADMAP A14, so every batch is kept (no drop_last). The compile cache has
+no counterpart; `--rng_impl` is accepted and means nothing here.
+
+Run: python -m dldkd_tpu_torch.train --collection tvr --root_path $root \
+        --visual_feature i3d_resnet ... [--torch_device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from dldkd_tpu_torch import checkpoint as ckpt_lib
+from dldkd_tpu_torch import float32_matmul_precision, resolve_device
+from dldkd_tpu_torch.config import Config, ModelConfig, parse_args
+from dldkd_tpu_torch.convert import (load_jax_params, opt_state_from_jax,
+                                     opt_state_to_jax,
+                                     params_from_state_dict)
+from dldkd_tpu_torch.data import (BigFile, TrainLoader, device_prefetch,
+                                  pack_query_set, pack_train_dataset,
+                                  pack_video_corpus, read_dict)
+from dldkd_tpu_torch.data.ingest import dataset_paths, read_video_ids
+from dldkd_tpu_torch.evaluate import run_retrieval_eval
+from dldkd_tpu_torch.infer import start_inference
+from dldkd_tpu_torch.models import DLDKD
+from dldkd_tpu_torch.models.objective import (LossScalars, check_trainable,
+                                              compute_losses)
+from dldkd_tpu_torch.optim import BertAdam, default_wd_mask, schedules
+from dldkd_tpu_torch.utils import (AverageMeter, MetricsWriter,
+                                   PreemptionGuard, make_code_zip,
+                                   setup_logging)
+from dldkd_tpu_torch.utils.preemption import agree_should_stop
+
+LOSS_KEYS = ("loss_overall", "inher_trip", "inher_nce", "explore_trip",
+             "explore_nce", "kl", "kl_intra")
+
+
+def train_step(model: DLDKD, mcfg: ModelConfig, tcfg, optimizer: BertAdam,
+               batch: Dict[str, torch.Tensor], generator: torch.Generator,
+               scalars: LossScalars) -> Dict[str, torch.Tensor]:
+    """One optimization step in place (train.py:57-80); returns the loss
+    dict, detached, on the device. Its parts are the profiler ranges
+    train_step/forward_losses, train_step/backward (the global clip
+    included) and train_step/optimizer."""
+    model.train()
+    with record_function("train_step/forward_losses"):
+        loss, loss_dict = compute_losses(model, batch, generator, mcfg, tcfg,
+                                         scalars)
+    with record_function("train_step/backward"):
+        params = list(optimizer.params.values())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, params)]
+        if tcfg.grad_clip > 0:
+            # global-norm clip before the optimizer (reference
+            # train.py:149-150); BertAdam then clips each tensor on its own
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            scale = torch.clamp(tcfg.grad_clip / (gnorm + 1e-6), max=1.0)
+            grads = [g * scale for g in grads]
+    with record_function("train_step/optimizer"):
+        optimizer.step(grads)
+    return {k: v.detach() for k, v in loss_dict.items()}
+
+
+def build_model_and_data(cfg: Config):
+    """Pack the train split and the val split, and resolve the
+    data-dependent model config (the JAX package's pack cache has no
+    counterpart: the port packs anew, ROADMAP A4b)."""
+    paths = dataset_paths(cfg.data.root_path, cfg.data.collection,
+                          cfg.data.visual_feature)
+    visual_feats = BigFile(paths["visual_feat_dir"])
+    video2frames = read_dict(paths["video2frames"])
+    train_data = pack_train_dataset(
+        paths["cap_file"]["train"], visual_feats, video2frames,
+        paths["text_feat"], paths["teacher_vid_feat"],
+        paths["teacher_text_feat"],
+        max_ctx_l=cfg.data.max_ctx_l, max_desc_l=cfg.data.max_desc_l)
+    val_videos = pack_video_corpus(
+        read_video_ids(paths["cap_file"]["val"]), visual_feats,
+        video2frames, max_ctx_l=cfg.data.max_ctx_l)
+    val_queries = pack_query_set(paths["cap_file"]["val"],
+                                 paths["text_feat"],
+                                 max_desc_l=cfg.data.max_desc_l)
+    mcfg = cfg.model.replace(
+        visual_input_size=visual_feats.ndims,       # discovered at runtime
+        query_input_size=cfg.data.q_feat_size,      # (reference train.py:286-289)
+        max_ctx_l=cfg.data.max_ctx_l,
+        max_desc_l=cfg.data.max_desc_l,
+    )
+    return mcfg, train_data, val_videos, val_queries, paths
+
+
+def init_params(mcfg: ModelConfig, seed: int, device=None) -> DLDKD:
+    """The seeded model (reference init, model.py:80-93), drawn on the CPU
+    from a generator seeded with `seed` and moved to `device`, so every
+    device starts from the same weights."""
+    model = DLDKD(mcfg).init_weights(torch.Generator().manual_seed(seed))
+    return model.to(resolve_device(device or "cpu"))
+
+
+def epoch_scalars(cfg: Config, epoch: int, device=None) -> LossScalars:
+    """This epoch's decay scalars as float32 tensors (train.py:168-179)."""
+    t = cfg.train
+    kd = schedules.distill_weight(
+        t.distill_loss_decay, epoch, exponential_k=t.exponential_k,
+        linear_k=t.linear_k, linear_b=t.linear_b, sigmoid_k=t.sigmoid_k)
+    alpha = schedules.alpha_schedule(
+        t.alpha_decay, epoch, t.alpha, t.n_epoch, t.exponential_k,
+        t.selfDistil_sigmoid_k)
+    belta = schedules.belta_schedule(
+        t.belta_decay, epoch, t.belta, t.n_epoch, t.exponential_k,
+        t.selfDistil_sigmoid_k)
+    return LossScalars(*(torch.tensor(v, dtype=torch.float32, device=device)
+                         for v in (kd, alpha, belta)))
+
+
+def _state(model, optimizer, epoch, best_score, generator) -> dict:
+    """The full training state in the JAX package's checkpoint layout;
+    "rng" holds the generator's state."""
+    return {"params": params_from_state_dict(model.state_dict()),
+            "opt_state": opt_state_to_jax(optimizer.state_dict()),
+            "epoch": int(epoch), "best_score": float(best_score),
+            "rng": generator.get_state().numpy()}
+
+
+def _restore_rng(generator: torch.Generator, payload, seed: int,
+                 logger) -> None:
+    """Set the generator from a port checkpoint's state; a JAX checkpoint's
+    key (uint32 (2,)) has no torch counterpart, so re-seed from seed."""
+    payload = np.asarray(payload)
+    state = generator.get_state()
+    if payload.dtype == np.uint8 and payload.shape == tuple(state.shape):
+        generator.set_state(torch.from_numpy(payload.copy()))
+        return
+    generator.manual_seed(seed)
+    logger.info("the checkpoint's rng (%s %s) is not this device's "
+                "torch.Generator state: re-seeded the generator from %d",
+                payload.dtype, payload.shape, seed)
+
+
+def _start_profile(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, logger) -> None:
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("profiler trace written to %s", path)
+
+
+def start_training(cfg: Config, device=None, preempt_guard=None,
+                   initial_params=None, epoch_order=None) -> str:
+    """Train on `device` (default: the config's torch_device, "cuda"
+    unless set); returns the results dir.
+
+    initial_params: optional JAX parameter tree ({"params": ...}, numpy
+    leaves) to start from instead of the seeded init: finetuning, and
+    trajectory tests that start both packages from the same weights.
+    epoch_order: optional per-epoch video-ID sequences replayed verbatim by
+    the loader (see TrainLoader)."""
+    dev = resolve_device(device or cfg.torch_device)
+    check_trainable(cfg.model, cfg.train)
+    logger = setup_logging(cfg.results_dir)
+    with float32_matmul_precision(cfg.model.matmul_precision), \
+            torch.autograd.set_detect_anomaly(cfg.debug_nans):
+        return _train(cfg, dev, logger, preempt_guard, initial_params,
+                      epoch_order)
+
+
+def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
+           initial_params, epoch_order) -> str:
+    if cfg.train.rng_impl != "threefry2x32":
+        logger.info("--rng_impl %s has no PyTorch counterpart: every "
+                    "training stream comes from one torch.Generator",
+                    cfg.train.rng_impl)
+    make_code_zip(os.path.dirname(os.path.abspath(__file__)),
+                  os.path.join(cfg.results_dir, "code.zip"))
+
+    t0 = time.time()
+    mcfg, train_data, val_videos, val_queries, _ = build_model_and_data(cfg)
+    logger.info("packed %d train videos / %d captions, %d val videos / "
+                "%d val queries in %.1fs",
+                len(train_data.videos), len(train_data.queries),
+                len(val_videos), len(val_queries), time.time() - t0)
+
+    if initial_params is not None:
+        model = load_jax_params(DLDKD(mcfg), initial_params).to(dev)
+    else:
+        model = init_params(mcfg, cfg.train.seed, dev)
+    model.train()
+    named = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    logger.info("model parameters: %.2fM on %s", n_params / 1e6, dev)
+
+    loader = TrainLoader(train_data, cfg.train.bsz, seed=cfg.train.seed,
+                         query_pad_multiple=cfg.data.query_pad_multiple,
+                         epoch_order=epoch_order)
+    t_total = loader.steps_per_epoch() * cfg.train.n_epoch
+    lr_sched = schedules.make_lr_schedule(
+        "warmup_linear", cfg.train.lr_warmup_proportion, float(t_total))
+    optimizer = BertAdam(named, cfg.train.lr, lr_sched,
+                         weight_decay=cfg.train.wd,
+                         wd_mask=default_wd_mask(named))
+
+    writer = MetricsWriter(cfg.tensorboard_log_dir)
+    rng_seed = cfg.train.seed + 1
+    generator = torch.Generator(device=dev).manual_seed(rng_seed)
+    best_score, es_cnt = 0.0, 0
+    global_step = 0
+    own_guard = preempt_guard is None
+    preempt = PreemptionGuard().install() if own_guard else preempt_guard
+
+    start_epoch = -1 if cfg.eval_untrained else 0
+    if cfg.resume:
+        # exact mid-training resume: params + optimizer + epoch + generator
+        state = ckpt_lib.restore_checkpoint(cfg.resume)
+        load_jax_params(model, state["params"])
+        optimizer.load_state_dict(opt_state_from_jax(state["opt_state"]))
+        best_score = float(state["best_score"])
+        _restore_rng(generator, state["rng"], rng_seed, logger)
+        start_epoch = int(state["epoch"]) + 1
+        global_step = loader.steps_per_epoch() * start_epoch
+        logger.info("resumed from %s: epoch %d, best sumr %.1f",
+                    cfg.resume, start_epoch, best_score)
+
+    def save(ckpt_dir, epoch):
+        ckpt_lib.save_checkpoint(ckpt_dir, _state(
+            model, optimizer, epoch, best_score, generator), mcfg)
+
+    try:
+        for epoch in range(start_epoch, cfg.train.n_epoch):
+            if epoch >= 0:
+                run_cfg = mcfg
+                if (cfg.train.hard_negative_start_epoch != -1
+                        and epoch >= cfg.train.hard_negative_start_epoch):
+                    run_cfg = mcfg.replace(
+                        use_hard_negative=True,
+                        hard_pool_size=cfg.train.hard_pool_size)
+                scalars = epoch_scalars(cfg, epoch, dev)
+                logger.info("epoch %d: kd_weight=%.4f alpha=%.4f belta=%.4f "
+                            "hard_neg=%s", epoch, float(scalars.kd_weight),
+                            float(scalars.alpha), float(scalars.belta),
+                            run_cfg.use_hard_negative)
+                data_t, step_t = AverageMeter(), AverageMeter()
+                prof = None
+                pending = []
+                t_fetch = time.time()
+                for batch_idx, batch in enumerate(
+                        device_prefetch(loader.epoch(epoch), dev)):
+                    data_t.update(time.time() - t_fetch)
+                    if cfg.profile_dir and epoch == max(start_epoch, 0):
+                        # steps [1, 1 + profile_steps): step 0 warms up
+                        if batch_idx == 1:
+                            prof = _start_profile(dev)
+                        elif batch_idx == 1 + cfg.profile_steps and prof:
+                            _stop_profile(prof, cfg.profile_dir, logger)
+                            prof = None
+                    t_step = time.time()
+                    loss_dict = train_step(model, run_cfg, cfg.train,
+                                           optimizer, batch, generator,
+                                           scalars)
+                    # loss scalars stay on the device until the epoch ends:
+                    # fetching them here would sync the host every step
+                    pending.append((global_step, loss_dict))
+                    step_t.update(time.time() - t_step)
+                    global_step += 1
+                    t_fetch = time.time()
+                    if preempt.should_stop:
+                        break
+                    if cfg.debug and batch_idx == 3:
+                        break
+                if prof:  # epoch shorter than profile_steps
+                    _stop_profile(prof, cfg.profile_dir, logger)
+                meters = {k: AverageMeter() for k in LOSS_KEYS}
+                if pending:
+                    vals = torch.stack([torch.stack([ld[k] for k in LOSS_KEYS])
+                                        for _, ld in pending]).cpu().numpy()
+                    for (step_i, _), row in zip(pending, vals):
+                        for k, v in zip(LOSS_KEYS, row):
+                            meters[k].update(v)
+                        writer.scalars({f"Train/{k}": v
+                                        for k, v in zip(LOSS_KEYS, row)},
+                                       step_i)
+                loss_str = " ".join(f"{k} {m.avg:.4f}"
+                                    for k, m in meters.items())
+                line = (f"{time.strftime('%Y_%m_%d_%H_%M_%S')} [Epoch] "
+                        f"{epoch:03d} [Loss] {loss_str}\n")
+                with open(cfg.train_log_filepath, "a") as f:
+                    f.write(line)
+                logger.info("epoch %d: %s | data %.3fs/step step %.3fs/step",
+                            epoch, loss_str, data_t.avg, step_t.avg)
+                # preemption exit after the loss flush; the interrupted
+                # epoch is recorded as not yet done: --resume replays it
+                # from its start with the mid-epoch parameters
+                if agree_should_stop(preempt.should_stop):
+                    preempt.trigger()
+                    preempt_dir = cfg.ckpt_dir + "_preempt"
+                    save(preempt_dir, epoch - 1)
+                    logger.info(
+                        "preempted at epoch %d step %d: resume checkpoint "
+                        "written to %s (pass --resume %s)", epoch,
+                        global_step, preempt_dir, preempt_dir)
+                    break
+
+            # this epoch's weights, packed anew by the engine; eval mode
+            # and no autograd inside, training mode again after
+            metrics = run_retrieval_eval(model, val_videos, val_queries,
+                                         cfg.eval, device=dev)
+            for branch, m in metrics.items():
+                logger.info("val %s: r1/5/10/100 %.1f/%.1f/%.1f/%.1f sumr "
+                            "%.1f map %.4f", branch, m["r1"], m["r5"],
+                            m["r10"], m["r100"], m["sumr"], m["map"])
+            writer.scalars({f"Val/{b}_sumr": m["sumr"]
+                            for b, m in metrics.items()}, max(global_step, 0))
+            score = metrics["fused"]["sumr"]
+
+            if score > best_score:
+                best_score, es_cnt = score, 0
+                save(cfg.ckpt_dir, epoch)
+                logger.info("checkpoint updated (sumr %.1f)", best_score)
+            else:
+                es_cnt += 1
+                if cfg.train.max_es_cnt != -1 and es_cnt > cfg.train.max_es_cnt:
+                    with open(cfg.train_log_filepath, "a") as f:
+                        f.write(f"Early Stop at epoch {epoch}")
+                    logger.info("early stop at epoch %d", epoch)
+                    break
+            # a SIGTERM during the validation: this epoch is done (eval and
+            # best checkpoint above), so --resume continues at epoch + 1
+            if agree_should_stop(preempt.should_stop):
+                preempt.trigger()
+                preempt_dir = cfg.ckpt_dir + "_preempt"
+                save(preempt_dir, epoch)
+                logger.info(
+                    "preempted during epoch %d eval: resume checkpoint "
+                    "written to %s (pass --resume %s)", epoch,
+                    preempt_dir, preempt_dir)
+                break
+            if cfg.debug:
+                break
+    finally:
+        writer.close()
+        if own_guard:
+            # restore the previous SIGTERM disposition even when an
+            # exception escapes training
+            preempt.__exit__(None, None, None)
+    if preempt.should_stop:
+        logger.info("training preempted; best val sumr so far %.1f",
+                    best_score)
+    else:
+        logger.info("training done; best val sumr %.1f", best_score)
+    return cfg.results_dir
+
+
+def main(argv=None):
+    """The CLI: train on --torch_device, then (unless preempted or --debug)
+    test-split inference on the best checkpoint (reference
+    train.py:335-344); returns its metric dicts."""
+    cfg = parse_args(argv)
+    with PreemptionGuard() as guard:
+        results_dir = start_training(cfg, preempt_guard=guard)
+        preempted = guard.should_stop
+    # handlers restored here: a SIGTERM during post-train inference
+    # terminates the process normally (nothing would poll the guard)
+    if preempted:
+        print("preempted: skipping post-train inference; resume with "
+              f"--resume {cfg.ckpt_dir}_preempt", file=sys.stderr)
+        return None
+    if cfg.debug:
+        return None
+    test_cfg = dataclasses.replace(
+        cfg, eval=dataclasses.replace(cfg.eval, model_dir=results_dir,
+                                      eval_split_name="test"))
+    return start_inference(test_cfg)
+
+
+if __name__ == "__main__":
+    main()

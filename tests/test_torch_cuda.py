@@ -511,3 +511,126 @@ def test_retriever_on_card_matches_plain(dev, kw, monkeypatch):
         out.append(r.search(qf, qm, k=7))
     np.testing.assert_array_equal(out[0][1], out[1][1])
     np.testing.assert_allclose(out[0][0], out[1][0], atol=1e-4, rtol=0)
+
+
+# ------------------------------------------------------------ training
+
+_TRAIN_CFG = dict(visual_input_size=48, query_input_size=32,
+                  inheritance_hidden=64, exploration_hidden=64, max_ctx_l=16,
+                  max_desc_l=8, n_heads=4, double_branch=True,
+                  label_style="soft", input_drop=0.0, drop=0.0, margin=0.1,
+                  use_hard_negative=True, hard_pool_size=1)
+
+
+def _train_batch(rng, caps=(5, 4, 3, 3, 2, 1), q_pad=24):
+    """A loader-shaped batch: videos by caption count, captions
+    video-major, padded queries with label -1, ragged masks."""
+    nv, n_q = len(caps), sum(caps)
+    vmask = (np.arange(16)[None] < rng.randint(4, 17, nv)[:, None]
+             ).astype(np.float32)
+    tmask = (np.arange(8)[None] < rng.randint(2, 9, q_pad)[:, None]
+             ).astype(np.float32)
+    tmask[n_q:] = 0
+    labels = np.full(q_pad, -1, np.int32)
+    labels[:n_q] = np.repeat(np.arange(nv), caps)
+    unit = lambda x: x / np.linalg.norm(x, axis=-1, keepdims=True)  # noqa
+    return {
+        "student_videos": (unit(rng.randn(nv, 16, 48)) * vmask[..., None]
+                           ).astype(np.float32),
+        "student_videos_mask": vmask,
+        "teacher_videos": (rng.randn(nv, 16, 12) * vmask[..., None]
+                           ).astype(np.float32),
+        "student_text": (unit(rng.randn(q_pad, 8, 32)) * tmask[..., None]
+                         ).astype(np.float32),
+        "student_text_mask": tmask,
+        "teacher_text": rng.randn(q_pad, 12).astype(np.float32),
+        "text_labels": labels,
+    }
+
+
+def _step_on(device, sd, batch, cfg):
+    from dldkd_tpu_torch import train
+    from dldkd_tpu_torch.config import TrainConfig
+    from dldkd_tpu_torch.optim import BertAdam, default_wd_mask
+
+    torch.set_float32_matmul_precision("highest")
+    model = DLDKD(cfg).to(device)
+    model.load_state_dict(sd)
+    named = dict(model.named_parameters())
+    opt = BertAdam(named, 3e-4, None, wd_mask=default_wd_mask(named))
+    tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    scal = train.LossScalars(*(torch.tensor(v, device=device)
+                               for v in (0.95, 0.8, 0.8)))
+    losses = train.train_step(model, cfg, TrainConfig(grad_clip=1.0), opt,
+                              tb, torch.Generator(device=device), scal)
+    return ({k: float(v) for k, v in losses.items()},
+            {k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One train step (forward, backward, the global clip, BertAdam) on
+    the card against the same step on the CPU from the same state and
+    batch, dropout 0, hard negatives from a pool of 1: losses within 1e-4,
+    parameters within 1e-5 (f32 on both, sums in another order)."""
+    cfg = ModelConfig(**_TRAIN_CFG)
+    sd = DLDKD(cfg).init_weights(torch.Generator().manual_seed(3)
+                                 ).state_dict()
+    batch = _train_batch(np.random.RandomState(4))
+    cpu_losses, cpu_sd = _step_on(torch.device("cpu"), sd, batch, cfg)
+    gpu_losses, gpu_sd = _step_on(dev, sd, batch, cfg)
+    for k, v in cpu_losses.items():
+        assert abs(gpu_losses[k] - v) <= 1e-4, (k, gpu_losses[k], v)
+    moved = 0
+    for k, v in cpu_sd.items():
+        torch.testing.assert_close(gpu_sd[k], v, atol=1e-5, rtol=0)
+        moved += int(not torch.equal(v, sd[k]))
+    assert moved > 0
+
+
+def test_validation_on_card_matches_plain_on_trained_model(dev):
+    """A tiny model trained a few steps on the card, then validated: the
+    kernel path's score matrices within the f32 eval tolerance (1e-4) of
+    the plain path's on the card, and fused SumR equal."""
+    from dldkd_tpu_torch import evaluate, train
+    from dldkd_tpu_torch.config import TrainConfig
+    from dldkd_tpu_torch.data.ingest import PackedQueries
+    from dldkd_tpu_torch.metrics import build_gt_indices
+    from dldkd_tpu_torch.optim import BertAdam, default_wd_mask
+
+    cfg = ModelConfig(**_TRAIN_CFG)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(5)).to(dev)
+    named = dict(model.named_parameters())
+    opt = BertAdam(named, 1e-3, None, wd_mask=default_wd_mask(named))
+    rng = np.random.RandomState(6)
+    scal = train.LossScalars(*(torch.tensor(v, device=dev)
+                               for v in (0.95, 0.8, 0.8)))
+    for _ in range(20):
+        tb = {k: torch.from_numpy(v).to(dev)
+              for k, v in _train_batch(rng).items()}
+        train.train_step(model, cfg, TrainConfig(), opt, tb,
+                         torch.Generator(device=dev), scal)
+    model.eval()
+    nv, nq = 60, 150
+    vmask = (np.arange(16)[None] < rng.randint(3, 17, nv)[:, None]
+             ).astype(np.float32)
+    videos = PackedVideos(
+        feats=(rng.randn(nv, 16, 48) * vmask[..., None]).astype(np.float32),
+        mask=vmask, ids=[f"v{i}" for i in range(nv)])
+    q_vid = [f"v{i % nv}" for i in range(nq)]
+    queries = PackedQueries(
+        feats=rng.randn(nq, 8, 32).astype(np.float32),
+        mask=np.ones((nq, 8), np.float32),
+        cap_ids=[f"{v}#enc#{i}" for i, v in enumerate(q_vid)],
+        video_ids=q_vid)
+    gt = torch.from_numpy(build_gt_indices(q_vid, videos.ids)).to(dev)
+    fused = []
+    scores = []
+    for plain in (False, True):
+        s = evaluate.score_matrices(model, videos, queries, 16, 50, dev,
+                                    plain=plain)
+        scores.append(s)
+        fused.append(evaluate._metrics_from_score_matrices(
+            *s, gt, (0.7, 0.3))["fused"]["sumr"])
+    for a, b in zip(scores[0], scores[1]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
+    assert fused[0] == fused[1]

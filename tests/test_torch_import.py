@@ -46,10 +46,11 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("module", ["dldkd_tpu_torch.serving",
-                                    "dldkd_tpu_torch.infer"])
+                                    "dldkd_tpu_torch.infer",
+                                    "dldkd_tpu_torch.train"])
 def test_entry_points_import_no_jax(module):
-    """The serving CLI and the eval CLI, each imported alone, load no JAX,
-    Flax or JAX package module."""
+    """The serving CLI, the eval CLI and the training CLI, each imported
+    alone, load no JAX, Flax or JAX package module."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dldkd_tpu')))")

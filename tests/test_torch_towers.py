@@ -125,16 +125,21 @@ def test_model_encoders_match_flax(variant):
 
 
 def test_dropout_only_in_train_mode():
+    """Dropout acts in training mode only, with masks from the generator
+    the caller passes (models/components.py:Dropout)."""
+    from dldkd_tpu_torch.models.components import Dropout
+
     _, _, model = _models("double")
     vf, vm, _, _ = _data()
     with torch.no_grad():
         a = model.encode_context(_t(vf), _t(vm))[0]
         model.train()
-        b = model.encode_context(_t(vf), _t(vm))[0]
+        b = model.encode_context(_t(vf), _t(vm),
+                                 generator=torch.Generator().manual_seed(0))[0]
         model.eval()
     assert not torch.equal(a, b)
     assert len([m for m in model.modules()
-                if isinstance(m, torch.nn.Dropout)]) == 2 * 2 * 4
+                if isinstance(m, Dropout)]) == 2 * 2 * 4
 
 
 @pytest.mark.parametrize("variant", list(_VARIANTS))
