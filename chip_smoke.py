@@ -51,6 +51,21 @@ package. Phases, in order; any failure exits non-zero without the final
    torch.profiler (device time by kernel, device idle share); then the
    kernel path's score matrices and fused SumR against the plain path's
    (f32: SumR equal, and no SIMT product (`gemm_kernel`) in the profile);
+   then corpus streaming at the same scale (`phase_streaming`): each
+   kernel at the streaming shapes against its plain version (the four
+   scorers with all 10,895 queries against a 512-video block, timed also
+   at 2,048; the dual video tower on a 2,048-video block in both dtypes
+   and with its int8 epilogue; the dual query tower at 64 queries), the
+   streaming eval in f32, bf16 and int8 at blocks of 512 and 2,048 (wall
+   time, queries/s, peak memory, launches, a profile with the
+   host-to-device copies and their overlap with kernels; scores and ranks
+   against the resident engine's in the same call: f32 ranks and fused
+   SumR equal, each stage's difference shown), `run_retrieval_eval` under
+   a $DLDKD_EVAL_MEM_BUDGET below the resident estimate (it must stream in
+   2,048-video blocks and give the resident metrics), and the raw-store
+   `Retriever` on three routes at both blocks (bf16: one search of every
+   query, queries/s, peak memory, each route against its plain path; f32:
+   the exact route's ids against the encoded store's);
    then the bf16 int8 eval (score_quant) the same way, profiled too; then
    the serving `Retriever` at the same scale (query batch 256, k = 10) as
    exact, two-stage with dense and with gather stage 2, and int8-only:
@@ -83,7 +98,9 @@ eval (bf16 masked-cosine scoring, both towers), the f32 TVR eval (f32
 masked-cosine scoring), the int8 eval (int8 scoring, the int8 epilogue)
 and two-stage serving with dense stage 2 (exact rescoring); each kernel's
 time there is the phase-3 time at that path's shapes (the eval's 50
-queries, serving's 256). Each kernel of the train phase's path (f32
+queries, serving's 256). Each kernel also carries its check at the
+streaming shapes (`streaming_check`) and its launches on each streaming
+path (`streaming_launches`). Each kernel of the train phase's path (f32
 scoring, both f32 towers) also carries its launches in train.main
 (`train_launches`) and in one validation (`launches_per_validation`).
 """
@@ -131,6 +148,10 @@ TOL = {
     ("dense_vs_gather", "scores"): 1e-5,
 }
 SERVE = dict(query_bsz=256, k=10, plain_queries=512, shortlist=40)
+# corpus streaming: the streaming eval's and the raw store's corpus blocks,
+# the streaming eval's query batch (run_retrieval_eval's, at least 64) and
+# the block at which the scorers are held against their plain versions
+STREAM = dict(blocks=(512, 2048), query_bsz=64, check_block=512)
 
 
 def fail(msg: str) -> None:
@@ -745,9 +766,14 @@ TOWER_KERNELS = ("normalize_kernel", "gemm_mma_kernel", "attention_mma_kernel",
                  "layernorm_kernel", "pool_kernel", "quantize_q8_kernel")
 
 
-def profile_eval(model, videos, queries, dev, score_quant=False) -> dict:
-    """One eval_retrieval under torch.profiler: device time by kernel and
-    the share of the wall time in which no kernel or copy ran."""
+def profile_eval(model, videos, queries, dev, score_quant=False,
+                 stream: int = 0) -> dict:
+    """One eval_retrieval under torch.profiler (the resident engine, or
+    with stream > 0 the streaming one with that corpus block at 64 queries
+    per query-tower launch): device time by kernel, the towers' and the
+    scorers', the host-to-device copies' and how much of it ran while a
+    kernel ran, and the share of the wall time in which no kernel or copy
+    ran."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -760,25 +786,40 @@ def profile_eval(model, videos, queries, dev, score_quant=False) -> dict:
         t0 = time.perf_counter()
         eval_retrieval(model, videos, queries,
                        context_bsz=TVR["context_bsz"],
-                       query_bsz=TVR["query_bsz"], score_quant=score_quant,
-                       device=dev)
+                       query_bsz=STREAM["query_bsz"] if stream
+                       else TVR["query_bsz"], score_quant=score_quant,
+                       corpus_stream_bsz=stream, device=dev)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
+    spans, copies, kernels, by_name = [], [], [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
         key = _short_kernel_name(e.name)
+        if key == "Memcpy HtoD":
+            copies.append((start, end))
+        elif not key.startswith("Mem"):
+            kernels.append((start, end))
         t, c = by_name.get(key, (0.0, 0))
         by_name[key] = (t + (end - start), c + 1)
     busy = _busy_us(spans)
+    copy_busy, kernel_busy = _busy_us(copies), _busy_us(kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     towers = sum(by_name.get(k, (0.0, 0))[0] for k in TOWER_KERNELS)
-    return {"profiled_wall_ms": wall_us / 1e3,
+    scoring = sum(t for k, (t, _) in by_name.items()
+                  if k.startswith("sim_max"))
+    return {"engine": f"streaming, block {stream}" if stream
+            else "resident",
+            "profiled_wall_ms": wall_us / 1e3,
             "device_busy_ms": busy / 1e3,
             "towers_device_ms": towers / 1e3,
+            "scoring_device_ms": scoring / 1e3,
+            "copies_h2d_ms": copy_busy / 1e3,
+            # copy time during which some kernel also ran
+            "copies_h2d_overlapped_ms": (copy_busy + kernel_busy
+                                         - _busy_us(copies + kernels)) / 1e3,
             "simt_products": by_name.get("gemm_kernel", (0.0, 0))[1],
             "device_idle_share": (1.0 - busy / wall_us) if wall_us else None,
             "device_events": len(spans),
@@ -1263,6 +1304,473 @@ def phase_serving(dev, videos, queries):
     return counts_by_route
 
 
+# ------------------------------------------------- slice 8: streaming
+
+def _scorer_inputs(kind, nq, nv, lf, h, gen, dev):
+    """(C entry, wrapper on the first n videos, plain version on them,
+    per-frame tensors) of one scorer at every query x a corpus block."""
+    import torch
+
+    from dldkd_tpu_torch.ops.kernels import sim_max
+    from dldkd_tpu_torch.ops.masking import l2_normalize
+
+    mask = _ragged_mask(nv, lf, 8, gen, dev)
+    if kind == "int8":
+        c, _ = _q8_rows(nv, lf, h, gen, dev)
+        q = sim_max.quantize_unit_int8(l2_normalize(
+            torch.randn(nq, h, generator=gen).to(dev))).contiguous()
+        per = (sim_max.q8_index_bias(mask),)
+        return ("sim_max_int8", q, c, per,
+                lambda n: sim_max.fused_clip_scores_int8(
+                    q, c[:n], per[0][:n]),
+                lambda n: sim_max.sim_max_int8_plain(q, c[:n], per[0][:n]))
+    q = l2_normalize(torch.randn(nq, h, generator=gen).to(dev)).contiguous()
+    if kind == "exact":
+        c = torch.randn(nv, lf, h, generator=gen).to(dev, torch.bfloat16)
+        per = sim_max.exact_frame_scales(c, mask)
+        return ("sim_max_exact", q, c, per,
+                lambda n: sim_max.sim_max_exact_launch(
+                    q, c[:n], per[0][:n], per[1][:n]),
+                lambda n: sim_max.sim_max_exact_plain(
+                    q, c[:n], per[0][:n], per[1][:n]))
+    tdt = getattr(torch, kind)
+    q = q.to(tdt)
+    c = l2_normalize(torch.randn(nv, lf, h, generator=gen).to(dev, tdt)
+                     ).contiguous()
+    return ("sim_max_f32" if kind == "float32" else "sim_max_bf16", q, c,
+            (mask,), lambda n: sim_max.fused_clip_scores(q, c[:n], mask[:n]),
+            lambda n: sim_max.sim_max_plain(q, c[:n], mask[:n]))
+
+
+def _stream_kernel_checks(dev) -> dict:
+    """Each kernel of the streaming paths against its plain version at the
+    shapes streaming gives it: every TVR query (10,895) against one corpus
+    block in one scorer launch (checked at 512 videos, timed at 512 and
+    2,048); the dual video tower on a whole 2,048-video block in both
+    dtypes, and with its int8 epilogue (bitwise against the epilogue's
+    plain version on the same launch's frames); the dual query tower at 64
+    queries. Bounds count this call's shapes; product_ms is the bare
+    products' time, a yardstick."""
+    import torch
+
+    from dldkd_tpu_torch.ops.fast_eval import tower_weights
+    from dldkd_tpu_torch.ops.kernels import query_tower as qt
+    from dldkd_tpu_torch.ops.kernels import sim_max
+
+    gen = torch.Generator().manual_seed(21)
+    nq, lf, h = TVR["n_queries"], TVR["frames"], TVR["hidden"]
+    blocks, nc = STREAM["blocks"], STREAM["check_block"]
+    out = {}
+    for kind in ("bfloat16", "float32", "int8", "exact"):
+        entry, q, c, per, run, plain = _scorer_inputs(
+            kind, nq, max(blocks), lf, h, gen, dev)
+        got, want = run(nc), plain(nc)
+        torch.cuda.synchronize()
+        if kind == "int8":
+            valid = per[0][:nc].max(dim=1).values == 0
+            err = max_err(got[:, valid], want[:, valid])
+        else:
+            err = max_err(got, want)
+        tol = TOL[("sim_max_int8", "int8") if kind == "int8" else
+                  ("sim_max_exact", "float32") if kind == "exact" else
+                  ("sim_max", kind)]
+        item = c.element_size()
+        arith, passes = {"bfloat16": ("bfloat16", 1), "float32": ("tf32", 3),
+                         "int8": ("int8", 1), "exact": ("bfloat16", 3)}[kind]
+        rec = {"check": "stream_scorer", "kernel": entry, "dtype": kind,
+               "max_abs_err": err, "tol": tol}
+        for nv in blocks:
+            n_bytes = (q.numel() * q.element_size() + nv * lf * h * item
+                       + sum(t[:nv].numel() * 4 for t in per) + nq * nv * 4)
+            b_ms, b_by = bound(n_bytes, passes * 2.0 * nq * nv * lf * h,
+                               arith)
+            sub = [t[:nv] for t in per]
+            rec[f"block_{nv}"] = {
+                "shape": {"q": [nq, h], "ctx": [nv, lf, h]},
+                "kernel_ms": cuda_ms(scoring_launch(entry, q, c[:nv], *sub),
+                                     n=10, warmup=2),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "smem": _scoring_smem(kind, nq, h)}
+        c2 = c[:nc].reshape(nc * lf, h)
+        if kind == "int8":
+            product = (lambda: torch._int_mm(q, c2.t()))
+        elif kind == "exact":
+            parts = sim_max.split_bf16x3(q)
+            product = (lambda: [torch.matmul(p, c2.t()) for p in parts])
+        else:
+            product = (lambda: torch.matmul(q, c2.t()))
+        rec[f"block_{nc}"].update(
+            plain_ms=cuda_ms(lambda: plain(nc), n=3, warmup=1),
+            library_ms=None, product_ms=cuda_ms(product, n=3, warmup=1))
+        emit(rec)
+        out[entry] = rec
+        if not err <= tol:
+            fail(f"streaming {entry}: {nq} queries x {nc} videos: max abs "
+                 f"error {err} > {tol}")
+        del q, c, per, got, want, c2, product
+        torch.cuda.empty_cache()
+
+    nv, d = max(blocks), TVR["d_video"]
+    x = torch.randn(nv, lf, d, generator=gen)
+    x = (x / x.norm(dim=-1, keepdim=True)).to(dev)
+    xm = _ragged_mask(nv, lf, 8, gen, dev)
+    qx = torch.randn(STREAM["query_bsz"], TVR["tokens"], TVR["d_query"],
+                     generator=gen).to(dev)
+    qm = _ragged_mask(STREAM["query_bsz"], TVR["tokens"], 5, gen, dev)
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        item = torch.tensor([], dtype=tdt).element_size()
+        ws = tower_weights(_serving_model(dtype, seed=22), dev)
+        for kind, xs, ms, n, l, dk in (
+                ("context", x, xm, nv, lf, d),
+                ("query", qx, qm, STREAM["query_bsz"], 32, TVR["d_query"])):
+            w, packed = ws[kind], ws["packed"][kind][0]
+            if kind == "context":
+                run = (lambda: qt.context_towers(xs, ms, w, TVR["heads"], tdt,
+                                                 "check", packed=packed))
+                plain = (lambda: qt.context_towers(xs, ms, w, TVR["heads"],
+                                                   tdt, "check", plain=True))
+            else:
+                run = (lambda: qt.query_towers(xs, ms, w, TVR["heads"], tdt,
+                                               TVR["tokens"], "check",
+                                               packed=packed))
+                plain = (lambda: qt.query_towers(xs, ms, w, TVR["heads"], tdt,
+                                                 TVR["tokens"], "check",
+                                                 plain=True))
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = max(max_err(a, b) for a, b in zip(got, want))
+            tol = TOL[("tower", dtype)]
+            w_bytes = sum(t.numel() * t.element_size()
+                          for t in packed.values())
+            out_n = n * h if kind == "query" else n * l * h
+            n_bytes = (n * l * dk * 4 + n * l * 4 + w_bytes
+                       + 2 * out_n * (4 if kind == "query" else item))
+            b_ms, b_by = bound(n_bytes, (3 if dtype == "float32" else 1) * 2
+                               * _tower_flops(n, l, dk, h, kind),
+                               "tf32" if dtype == "float32" else dtype)
+            xp = torch.nn.functional.pad(xs, (0, 0, 0, l - xs.shape[1]))
+            mp = torch.nn.functional.pad(ms, (0, l - ms.shape[1]))
+            rec = {"check": "stream_tower", "kernel": f"{kind}_tower",
+                   "dtype": dtype, "branches": 2,
+                   "shape": {"x": [n, xs.shape[1], dk], "hidden": h},
+                   "max_abs_err": err, "tol": tol,
+                   "kernel_ms": cuda_ms(lambda: qt.tower_cuda(
+                       xp, mp, packed, TVR["heads"], tdt, kind,
+                       pos_rows=xs.shape[1]), n=5, warmup=1),
+                   "plain_ms": cuda_ms(plain, n=2, warmup=1),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "product_ms": cuda_ms(_tower_products(
+                       n, l, dk, h, 2, kind, tdt, gen, dev), n=3,
+                       warmup=1)}
+            if not err <= tol:
+                emit(rec)
+                fail(f"streaming {kind} tower {dtype} at {n}: max abs error "
+                     f"{err} > {tol}")
+            if kind == "context":
+                # one launch per block, and the int8 epilogue bitwise
+                before = qt.LAUNCHES["context_tower"]
+                q8 = qt.context_towers(x, xm, w, TVR["heads"], tdt, "check",
+                                       emit_q8=True, packed=packed)
+                rec["launches_per_call"] = (qt.LAUNCHES["context_tower"]
+                                            - before)
+                rec["q8_bitwise"] = all(
+                    torch.equal(a, qt.quantize_frames_q8_plain(f))
+                    for a, f in zip(q8, got))
+                if rec["launches_per_call"] != 1 or not rec["q8_bitwise"]:
+                    emit(rec)
+                    fail(f"streaming context tower {dtype}: "
+                         f"{rec['launches_per_call']} launches for a "
+                         f"{nv}-video block, q8 bitwise {rec['q8_bitwise']}")
+                out[f"context_tower_q8_{dtype}"] = {
+                    "shape": rec["shape"], "bitwise": rec["q8_bitwise"],
+                    "max_abs_err": max(
+                        max_err(a, qt.quantize_frames_q8_plain(f))
+                        for a, f in zip(q8, got))}
+                del q8
+            emit(rec)
+            out[f"{kind}_tower_{dtype}"] = rec
+            del got, want
+        del ws
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rank_rows(s_i, s_e, gt):
+    """(Nq,) ranks of the ground truth under the fused scores."""
+    from dldkd_tpu_torch.metrics import rank_of_gt
+
+    return rank_of_gt(0.7 * s_i + 0.3 * s_e, gt)
+
+
+def _stream_stages(model, videos, queries, dev) -> dict:
+    """Where a streaming f32 score could part from the resident one, each
+    stage's max abs difference between the two schedules: the query tower
+    at 64 against 50 rows per launch, the video tower at a 512-video block
+    against 200-video launches, the scorer at every query in one launch
+    (two warpgroups per block) against 50 (one)."""
+    import torch
+
+    from dldkd_tpu_torch.evaluate import embed_corpus, encode_all_queries
+    from dldkd_tpu_torch.ops.fast_eval import encode_context_best
+    from dldkd_tpu_torch.ops.similarity import clip_scores_maxpool
+
+    q64 = encode_all_queries(model, queries, STREAM["query_bsz"], dev)[0]
+    q50 = encode_all_queries(model, queries, TVR["query_bsz"], dev)[0]
+    nb = STREAM["check_block"]
+    ci = embed_corpus(model, videos, TVR["context_bsz"], dev)[0][:nb]
+    feats = torch.from_numpy(videos.feats[:nb]).to(dev)
+    mask = torch.from_numpy(videos.mask[:nb]).to(dev)
+    bi = encode_context_best(model, feats, mask)[0]
+    whole = clip_scores_maxpool(q64, bi, mask)
+    parts = torch.cat([clip_scores_maxpool(q64[s:s + TVR["query_bsz"]], bi,
+                                           mask)
+                       for s in range(0, len(queries), TVR["query_bsz"])])
+    return {f"query_tower_{STREAM['query_bsz']}_vs_{TVR['query_bsz']}":
+            max_err(q64, q50),
+            f"video_tower_{nb}_vs_{TVR['context_bsz']}": max_err(bi, ci),
+            f"scorer_all_vs_{TVR['query_bsz']}_queries": max_err(whole,
+                                                                  parts)}
+
+
+def _stream_evals(dev, videos, queries, launches) -> None:
+    """The streaming TVR eval in f32, bf16 and int8 at each block: wall
+    time, queries/s, peak memory, launches and a profile; then its scores
+    against the resident engine's in this call (f32: the same ranks, fused
+    SumR equal; bf16 and int8: scores within the eval's bf16 tolerance,
+    rank flips counted)."""
+    import torch
+
+    from dldkd_tpu_torch.evaluate import (_metrics_from_score_matrices,
+                                          eval_retrieval, score_matrices,
+                                          stream_score_matrices)
+    from dldkd_tpu_torch.metrics import build_gt_indices
+
+    nv, nq = len(videos), len(queries)
+    gt = torch.from_numpy(build_gt_indices(queries.video_ids,
+                                           videos.ids)).to(dev)
+    for tag, dtype, quant in (("float32", "float32", False),
+                              ("bfloat16", "bfloat16", False),
+                              ("int8", "bfloat16", True)):
+        model = _serving_model(dtype, seed=6)
+        runs = {}
+        for block in STREAM["blocks"]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            metrics = eval_retrieval(model, videos, queries,
+                                     query_bsz=STREAM["query_bsz"],
+                                     score_quant=quant,
+                                     corpus_stream_bsz=block, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = _counts()
+            peak = torch.cuda.max_memory_allocated()
+            what = f"streaming eval {tag} block {block}"
+            _check_metrics(metrics, what)
+            _check_launched(counts, INT8_EVAL_KERNELS if quant
+                            else _eval_kernels(dtype), what)
+            n_blocks = -(-nv // block)
+            if counts["context_tower"] != n_blocks:
+                fail(f"{what}: {counts['context_tower']} video-tower "
+                     f"launches for {n_blocks} blocks")
+            launches[f"stream_eval_{tag}_{block}"] = counts
+            runs[block] = {"seconds": secs, "queries_per_s": nq / secs,
+                           "peak_mem_bytes": peak, "launches": counts,
+                           "metrics": metrics,
+                           "profile": profile_eval(model, videos, queries,
+                                                   dev, score_quant=quant,
+                                                   stream=block)}
+        r_i, r_e = score_matrices(model, videos, queries, TVR["context_bsz"],
+                                  TVR["query_bsz"], dev, score_quant=quant)
+        r_i, r_e = r_i[:, :nv], r_e[:, :nv]
+        ref_ranks = _rank_rows(r_i, r_e, gt)
+        ref_fused = _metrics_from_score_matrices(r_i, r_e, gt,
+                                                 (0.7, 0.3))["fused"]
+        for block, rec in runs.items():
+            s_i, s_e = stream_score_matrices(model, videos, queries, block,
+                                             STREAM["query_bsz"], dev,
+                                             score_quant=quant)
+            err = max(max_err(s_i, r_i), max_err(s_e, r_e))
+            flips = int((_rank_rows(s_i, s_e, gt) != ref_ranks).sum())
+            rec.update(phase="streaming_eval", dtype=tag, block=block,
+                       videos=nv, queries=nq,
+                       scores_vs_resident_max_abs_err=err,
+                       rank_flips_vs_resident=flips,
+                       resident_fused_sumr=ref_fused["sumr"])
+            if tag == "float32":
+                rec["stages_vs_resident"] = _stream_stages(model, videos,
+                                                           queries, dev)
+            emit(rec)
+            if tag == "float32" and (flips or rec["metrics"]["fused"]["sumr"]
+                                     != ref_fused["sumr"]):
+                fail(f"streaming eval f32 block {block}: {flips} ranks and "
+                     f"fused SumR {rec['metrics']['fused']['sumr']} against "
+                     f"the resident engine's {ref_fused['sumr']}")
+            if not err <= TOL[("scores", "bfloat16")]:
+                fail(f"streaming eval {tag} block {block}: scores differ "
+                     f"from the resident engine's by {err}")
+            del s_i, s_e
+        del model, r_i, r_e
+        torch.cuda.empty_cache()
+
+
+def _stream_under_budget(dev, videos, queries, launches) -> None:
+    """run_retrieval_eval's auto route with $DLDKD_EVAL_MEM_BUDGET below the
+    resident estimate at TVR scale: it must stream (two video-tower
+    launches of a 2,048-video block, not 11 of 200) and give the resident
+    engine's metrics (f32)."""
+    import torch
+
+    from dldkd_tpu_torch.config import EvalConfig
+    from dldkd_tpu_torch.evaluate import (DEFAULT_STREAM_BLOCK,
+                                          eval_retrieval,
+                                          resident_eval_bytes,
+                                          run_retrieval_eval)
+
+    model = _serving_model("float32", seed=6)
+    need = resident_eval_bytes(len(videos), len(queries), model.config)
+    saved = os.environ.get("DLDKD_EVAL_MEM_BUDGET")
+    os.environ["DLDKD_EVAL_MEM_BUDGET"] = str(need // 2)
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        got = run_retrieval_eval(model, videos, queries, EvalConfig(),
+                                 device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()
+    finally:
+        if saved is None:
+            os.environ.pop("DLDKD_EVAL_MEM_BUDGET")
+        else:
+            os.environ["DLDKD_EVAL_MEM_BUDGET"] = saved
+    launches["run_retrieval_eval_budget"] = counts
+    want = eval_retrieval(model, videos, queries, corpus_stream_bsz=0,
+                          device=dev)
+    blocks = -(-len(videos) // DEFAULT_STREAM_BLOCK)
+    queries_launches = -(-len(queries) // STREAM["query_bsz"])
+    emit({"phase": "run_retrieval_eval_budget", "dtype": "float32",
+          "budget_bytes": need // 2, "resident_estimate_bytes": need,
+          "seconds": secs, "launches": counts, "metrics": got,
+          "equal_to_resident": got == want})
+    if counts["context_tower_f32"] != blocks \
+            or counts["query_tower_f32"] != queries_launches:
+        fail(f"run_retrieval_eval under a budget did not stream: launches "
+             f"{counts}")
+    if got != want:
+        fail("run_retrieval_eval under a budget: metrics differ from the "
+             "resident engine's")
+
+
+RAW_ROUTES = (
+    ("exact", {}, ("sim_max_bf16", "query_tower", "context_tower")),
+    ("two_stage", {"score_quant": True},
+     ("sim_max_int8", "sim_max_exact", "query_tower", "context_tower")),
+    ("int8_only", {"score_quant": True, "rescore": False},
+     ("sim_max_int8", "query_tower", "context_tower")),
+)
+
+
+def _raw_search(dev, videos, queries, launches) -> None:
+    """The raw-store Retriever at TVR scale at each block, bf16, on three
+    routes (two-stage with the cost model's stage 2): one search of every
+    query, queries/s, peak memory, launches; each route against its plain
+    path on the first queries; then in f32 the exact route's ids against
+    the encoded store's, every query."""
+    import numpy as np
+    import torch
+
+    from dldkd_tpu_torch.serving import Retriever
+
+    qf, qm = queries.feats, queries.mask
+    nq, bsz, k = len(queries), SERVE["query_bsz"], SERVE["k"]
+    npl = SERVE["plain_queries"]
+    tol = TOL[("scores", "bfloat16")]
+    model = _serving_model("bfloat16", seed=6)
+    for block in STREAM["blocks"]:
+        for name, kw, kernels in RAW_ROUTES:
+            what = f"raw search {name} block {block}"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            r = Retriever(model, query_bsz=bsz, device=dev, index_store="raw",
+                          stream_block=block, **kw)
+            r.index(videos)
+            torch.cuda.synchronize()
+            index_s = time.perf_counter() - t0
+            r.search(qf[:bsz], qm[:bsz], k)                # warm-up
+            _reset_counts()
+            t0 = time.perf_counter()
+            scores, idx = r.search(qf, qm, k)
+            search_s = time.perf_counter() - t0
+            counts = _counts()
+            peak = torch.cuda.max_memory_allocated()
+            _check_launched(counts, kernels, what)
+            launches[f"raw_search_{name}_{block}"] = counts
+            store_bytes = (r.raw_feats.numel() * r.raw_feats.element_size()
+                           + r.raw_mask.numel() * 4)
+            del r
+            rp = Retriever(model, query_bsz=bsz, device=dev, plain=True,
+                           index_store="raw", stream_block=block, **kw)
+            rp.index(videos)
+            ps, pi = rp.search(qf[:npl], qm[:npl], k)
+            del rp
+            torch.cuda.empty_cache()
+            err = float(np.abs(scores[:npl] - ps).max())
+            emit({"phase": "raw_search", "route": name, "dtype": "bfloat16",
+                  "block": block, "videos": len(videos), "queries": nq,
+                  "query_bsz": bsz, "k": k, "index_s": index_s,
+                  "search_s": search_s, "queries_per_s": nq / search_s,
+                  "peak_mem_bytes": peak, "raw_store_bytes": store_bytes,
+                  "launches": counts, "plain_queries": npl,
+                  "plain_scores_max_abs_err": err, "tol": tol,
+                  "plain_rows_same_ids": float(np.mean(np.all(
+                      idx[:npl] == pi, axis=1))),
+                  "finite": bool(np.isfinite(scores).all())})
+            if not np.isfinite(scores).all() or not err <= tol:
+                fail(f"{what}: kernel path vs plain path: max abs score "
+                     f"error {err} > {tol}, or non-finite scores")
+    del model
+    model = _serving_model("float32", seed=6)
+    enc = Retriever(model, query_bsz=bsz, device=dev, index_store="encoded")
+    enc.index(videos)
+    want = enc.search(qf, qm, k)
+    del enc
+    torch.cuda.empty_cache()
+    for block in STREAM["blocks"]:
+        r = Retriever(model, query_bsz=bsz, device=dev, index_store="raw",
+                      stream_block=block)
+        r.index(videos)
+        got = r.search(qf, qm, k)
+        del r
+        same = bool(np.array_equal(got[1], want[1]))
+        emit({"check": "raw_vs_encoded_exact", "dtype": "float32",
+              "block": block, "queries": nq, "same_ids": same,
+              "scores_max_abs_diff": float(np.abs(got[0] - want[0]).max())})
+        if not same:
+            fail(f"raw exact search f32 block {block}: ids differ from the "
+                 f"encoded store's")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_streaming(dev, videos, queries):
+    """Corpus streaming at TVR scale: the kernels at the streaming shapes,
+    the streaming eval in three dtypes at two blocks, run_retrieval_eval
+    under a memory budget, the raw-store search. Returns the kernel checks
+    and each path's launch counts."""
+    t0 = time.perf_counter()
+    checks = _stream_kernel_checks(dev)
+    launches = {}
+    _stream_evals(dev, videos, queries, launches)
+    _stream_under_budget(dev, videos, queries, launches)
+    _raw_search(dev, videos, queries, launches)
+    emit({"phase": "streaming", "seconds": time.perf_counter() - t0})
+    return checks, launches
+
+
 # ------------------------------------------------- slice 7: training
 
 # the train phase's dataset: do_tvr.sh's widths (video 1024, query 768,
@@ -1743,13 +2251,26 @@ def phase_train(workdir: str, dev):
     return main_counts, per_val
 
 
+# each kernels-line entry's check at the streaming shapes
+STREAM_CHECKS = {"sim_max": "sim_max_bf16", "sim_max_f32": "sim_max_f32",
+                 "sim_max_int8": "sim_max_int8",
+                 "sim_max_exact": "sim_max_exact",
+                 "query_tower": "query_tower_bfloat16",
+                 "context_tower": "context_tower_bfloat16",
+                 "query_tower_f32": "query_tower_float32",
+                 "context_tower_f32": "context_tower_float32",
+                 "context_tower_q8": "context_tower_q8_bfloat16"}
+
+
 def kernels_line(checks, launches, int8_launches, serve_launches,
-                 train_launches):
+                 train_launches, stream):
     """Every ported kernel: its source, the TPU kernel it replaces, its
     launches on its main path and its phase-3 numbers; beside them, its
     launches in the train phase (train.main: three validations and the
     test split's inference, all f32) and in one validation, read from the
-    same counter (the scorer and the chains are counted by dtype)."""
+    same counter (the scorer and the chains are counted by dtype); its
+    check at the streaming shapes and its launches on each streaming path
+    (`phase_streaming`)."""
     # (launch counter, source, TPU kernel replaced, check record, path whose
     # launches count)
     mma = "dldkd_tpu_torch/csrc/sim_max_mma.cu"
@@ -1797,6 +2318,7 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
                              "tvr_int8_eval", int8_launches),
     }
     main_counts, per_val = train_launches
+    stream_checks, stream_launches = stream
     kernels = []
     for name, (counter, src, replaces, key, path, counts) in sources.items():
         rec = checks[key]
@@ -1812,7 +2334,12 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
                         "product_ms": rec.get("product_ms")})
         if "device_ms" in rec:
             kernels[-1]["device_ms"] = rec["device_ms"]
-        if name.startswith(("query_tower", "context_tower")):
+        kernels[-1]["streaming_check"] = stream_checks[STREAM_CHECKS[name]]
+        kernels[-1]["streaming_launches"] = {
+            p: c[counter] for p, c in stream_launches.items()
+            if c.get(counter)}
+        if name.startswith(("query_tower", "context_tower")) \
+                and name != "context_tower_q8":
             # the chain (both dtypes): tower_mma.cu's normalization,
             # products and attention, tower.cu's LayerNorm and pooling
             kernels[-1]["chain_sources"] = [
@@ -1844,6 +2371,7 @@ def main() -> None:
         root = phase_infer(workdir)
         phase_serving_cli(workdir, root)
     launches, videos, queries = phase_tvr_eval(dev)
+    stream = phase_streaming(dev, videos, queries)
     int8_launches = phase_int8_eval(dev, videos, queries)
     serve_launches = phase_serving(dev, videos, queries)
     del videos, queries
@@ -1851,7 +2379,7 @@ def main() -> None:
         train_launches = phase_train(workdir, dev)
 
     kernels = kernels_line(checks, launches, int8_launches,
-                           serve_launches, train_launches)
+                           serve_launches, train_launches, stream)
     check_no_jax()
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -5,14 +5,25 @@ queries in batches, score every query against every video (masked cosine,
 max over frames), rank the ground truth, and report R@K/SumR/mAP per branch
 and for the 0.7/0.3 fusion.
 
-This is the corpus-resident engine. The encoded corpus, the (Nq, Nv) score
-matrices and the ranks stay on the device; chunks are written in place into
-one preallocated buffer; only the (Nq,) ranks go to the host. Padded videos
-carry zero masks, so they score -1e10 and never win. With score_quant the
-towers emit an int8 index directly (`embed_corpus_q8`) and the queries are
-scored against it by the int8 kernel (`score_all_queries_q8`). The
-streaming engine and the corpus-sharded (mesh) engine are not ported yet
-(ROADMAP A12, A14): asking for them raises NotImplementedError.
+Two engines, one metric tail (`_metrics_from_score_matrices`):
+
+- resident (`eval_retrieval(corpus_stream_bsz=0)`): the encoded corpus, the
+  (Nq, Nv) score matrices and the ranks stay on the device; chunks are
+  written in place into one preallocated buffer; only the (Nq,) ranks go
+  to the host. Padded videos carry zero masks, so they score -1e10 and
+  never win. With score_quant the towers emit an int8 index directly
+  (`embed_corpus_q8`) and the queries are scored against it by the int8
+  kernel (`score_all_queries_q8`);
+- streaming (`eval_retrieval_streaming`): the packed corpus stays in host
+  memory; the queries are encoded once, then each corpus block goes through
+  the video towers and is scored against every query in one launch per
+  branch, so device memory holds one block, not the corpus. On the card the
+  blocks' copies are double-buffered (`_blocks_on_device`).
+
+`eval_retrieval(corpus_stream_bsz=None)` picks the engine by the device's
+free memory (`auto_stream_block`), as the JAX package does. The
+corpus-sharded (mesh) engine is not ported yet (ROADMAP A14): asking for
+it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -236,19 +247,185 @@ def resident_eval_bytes(n_videos: int, n_queries: int, mcfg,
     return 2 * ctx + 3 * n_queries * n_videos * 4 + 256 * 1024 * 1024
 
 
-def _check_resident_fits(n_videos: int, n_queries: int, mcfg,
-                         dev: torch.device, score_quant: bool) -> None:
-    """The JAX engine streams the corpus when the resident footprint
-    exceeds free device memory; the port has no streaming engine yet, so
-    it refuses instead of running out of memory."""
-    free = device_memory_budget(dev)
-    if free is None:
+DEFAULT_STREAM_BLOCK = 2048
+
+
+def auto_stream_block(n_videos: int, n_queries: int, mcfg,
+                      n_devices: int = 1, budget: Optional[int] = None,
+                      block: int = DEFAULT_STREAM_BLOCK,
+                      score_quant: bool = False, device=None) -> int:
+    """Engine policy: 0 when the resident engine fits the budget (or the
+    device reports none), else the streaming corpus block. budget: free
+    bytes, by default `device_memory_budget(device)` (device default
+    "cuda"). With n_devices each holds 1/n_devices of the corpus."""
+    if budget is None:
+        budget = device_memory_budget("cuda" if device is None else device)
+    if budget is None:
+        return 0
+    need = resident_eval_bytes(-(-n_videos // n_devices), n_queries, mcfg,
+                               score_quant)
+    return 0 if need <= budget else min(block, n_videos)
+
+
+def _blocks_on_device(arrays, block: int, device):
+    """Yield (start, [rows of each array on `device`]) for the consecutive
+    row blocks [start, start + block) of the numpy `arrays` (one row
+    count), the last block trimmed to its rows.
+
+    On a CUDA device the copies are double-buffered: two pinned host
+    staging buffers and two device buffers, one block each (of the largest
+    block that slot holds); block b + 1 is staged by the host and copied
+    `non_blocking` on a side stream while the compute stream works on
+    block b. The compute stream waits on a block's copy event before it
+    reads it; the host waits on the compute stream's event for the block
+    two back before it refills that slot's staging buffer, whose device
+    buffer that block was reading. A yielded block's tensors are valid
+    until the next one is asked for. Only two blocks are ever pinned,
+    never the whole array."""
+    n = arrays[0].shape[0]
+    starts = list(range(0, n, block))
+    if device.type != "cuda":
+        for start in starts:
+            yield start, [torch.from_numpy(np.ascontiguousarray(
+                a[start:start + block])) for a in arrays]
         return
-    need = resident_eval_bytes(n_videos, n_queries, mcfg, score_quant)
-    if need > free:
-        raise NotImplementedError(
-            f"the resident eval needs ~{need} bytes, {free} are free on "
-            f"{dev}; the corpus-streaming engine is ROADMAP A12, not ported")
+    rows = [min(block, n - start) for start in starts]
+    slots = range(min(2, len(starts)))
+    pinned = [[torch.empty((max(rows[s::2]),) + a.shape[1:],
+                           dtype=torch.from_numpy(a[:0]).dtype,
+                           pin_memory=True) for a in arrays] for s in slots]
+    dev_bufs = [[torch.empty(p.shape, dtype=p.dtype, device=device)
+                 for p in slot] for slot in pinned]
+    compute = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    copied = [torch.cuda.Event() for _ in slots]
+    consumed = [torch.cuda.Event() for _ in slots]
+
+    def stage(b: int) -> None:
+        s, r, start = b % 2, rows[b], starts[b]
+        if b >= 2:
+            consumed[s].synchronize()
+        for a, p in zip(arrays, pinned[s]):
+            p[:r].numpy()[...] = a[start:start + r]
+        with torch.cuda.stream(side):
+            for p, d in zip(pinned[s], dev_bufs[s]):
+                d[:r].copy_(p[:r], non_blocking=True)
+            copied[s].record(side)
+
+    stage(0)
+    for b, start in enumerate(starts):
+        s = b % 2
+        compute.wait_event(copied[s])
+        yield start, [d[:rows[b]] for d in dev_bufs[s]]
+        # the caller has queued this block's work on the compute stream
+        consumed[s].record(compute)
+        if b + 1 < len(starts):
+            stage(b + 1)
+
+
+@torch.no_grad()
+def encode_all_queries(model, queries: PackedQueries, query_bsz: int = 512,
+                       device=None, weights: Optional[dict] = None,
+                       plain: bool = False) -> Pair:
+    """Pooled query vectors of every caption, (Nq, H) per branch, on
+    `device`: a few MB even at full-dataset scale."""
+    dev = resolve_device(device)
+    weights = weights or tower_weights(model, dev)
+    inher = explore = None
+    for start, (feats, mask) in _blocks_on_device(
+            (queries.feats, queries.mask), query_bsz, dev):
+        q_i, q_e = encode_query_best(model, feats, mask, weights, plain)
+        if inher is None:
+            inher = q_i.new_empty((len(queries),) + tuple(q_i.shape[1:]))
+            if q_e is not None:
+                explore = q_e.new_empty(inher.shape)
+        inher[start:start + q_i.shape[0]] = q_i
+        if q_e is not None:
+            explore[start:start + q_e.shape[0]] = q_e
+    return inher, explore
+
+
+def score_encoded_block(inher_q: torch.Tensor,
+                        explore_q: Optional[torch.Tensor],
+                        ctx_i: torch.Tensor, ctx_e: Optional[torch.Tensor],
+                        block_mask: torch.Tensor, plain: bool = False
+                        ) -> Pair:
+    """(Nq, block) scores of every query against one encoded corpus block,
+    one scorer launch per branch."""
+    s_i = clip_scores_maxpool(inher_q, ctx_i, block_mask, plain=plain)
+    if ctx_e is None:
+        return s_i, None
+    return s_i, clip_scores_maxpool(explore_q, ctx_e, block_mask,
+                                    plain=plain)
+
+
+def score_q8_block(inher_q: torch.Tensor, explore_q: Optional[torch.Tensor],
+                   q8_i: torch.Tensor, q8_e: Optional[torch.Tensor],
+                   block_mask: torch.Tensor, plain: bool = False) -> Pair:
+    """(Nq, block) int8 scores of every query against one block of the
+    towers' int8 rows: the block's index (`build_q8_index`) scored by the
+    prebuilt-index kernel. The port's index carries no padding, so its
+    columns are the block's."""
+    idx_i, bias = build_q8_index(q8_i, block_mask)
+    s_i = clip_scores_maxpool_pre8(inher_q, idx_i, bias, plain)
+    if q8_e is None:
+        return s_i, None
+    return s_i, clip_scores_maxpool_pre8(explore_q,
+                                         build_q8_index(q8_e, block_mask)[0],
+                                         bias, plain)
+
+
+@torch.no_grad()
+def stream_score_matrices(model, videos: PackedVideos,
+                          queries: PackedQueries, corpus_block: int = 2048,
+                          query_bsz: int = 512, device=None,
+                          score_quant: bool = False, plain: bool = False
+                          ) -> Pair:
+    """Both branches' (Nq, Nv) score matrices by the streaming engine: the
+    queries encoded once, then each corpus block (copied from host memory,
+    `_blocks_on_device`) through the video towers and scored against all
+    queries, its columns written in place into one preallocated f32 buffer
+    per branch. With score_quant the towers emit the block's int8 rows
+    (`encode_context_q8`) and `score_q8_block` scores them. plain=True runs
+    every kernel's plain version instead, as in score_matrices."""
+    dev = resolve_device(device)
+    weights = tower_weights(model, dev)
+    inher_q, explore_q = encode_all_queries(model, queries, query_bsz, dev,
+                                            weights, plain)
+    n_q, n_v = len(queries), len(videos)
+    inher_s = torch.empty((n_q, n_v), dtype=torch.float32, device=dev)
+    explore_s = (torch.empty((n_q, n_v), dtype=torch.float32, device=dev)
+                 if explore_q is not None else None)
+    encode, score = ((encode_context_q8, score_q8_block) if score_quant
+                     else (encode_context_best, score_encoded_block))
+    for start, (feats, mask) in _blocks_on_device(
+            (videos.feats, videos.mask), corpus_block, dev):
+        ctx_i, ctx_e = encode(model, feats, mask, weights, plain)
+        s_i, s_e = score(inher_q, explore_q, ctx_i, ctx_e, mask, plain)
+        cols = slice(start, start + s_i.shape[1])
+        inher_s[:, cols] = s_i
+        if s_e is not None:
+            explore_s[:, cols] = s_e
+        del ctx_i, ctx_e, s_i, s_e   # one encoded block alive at a time
+    return inher_s, explore_s
+
+
+def eval_retrieval_streaming(model, videos: PackedVideos,
+                             queries: PackedQueries,
+                             corpus_block: int = 2048, query_bsz: int = 512,
+                             fusion: Tuple[float, float] = (0.7, 0.3),
+                             score_quant: bool = False, device=None
+                             ) -> Dict[str, Dict[str, float]]:
+    """Corpus-beyond-memory eval: the resident engine's metrics, with
+    device memory bounded by one corpus block instead of the encoded
+    corpus (dldkd_tpu/evaluate.py:450-512). The score columns persist:
+    Nq x Nv x 4 bytes per branch."""
+    dev = resolve_device(device)
+    inher_s, explore_s = stream_score_matrices(
+        model, videos, queries, corpus_block, query_bsz, dev, score_quant)
+    gt = torch.from_numpy(build_gt_indices(queries.video_ids,
+                                           videos.ids)).to(dev)
+    return _metrics_from_score_matrices(inher_s, explore_s, gt, fusion)
 
 
 @torch.no_grad()
@@ -261,17 +438,22 @@ def eval_retrieval(model, videos: PackedVideos, queries: PackedQueries,
     """Full eval epoch (reference eval_epoch, eval.py:237-263):
     {'inher', 'explore', 'fused'} metric dicts, 'fused' from
     0.7 * inheritance + 0.3 * exploration. score_quant: the int8 engine
-    (the towers emit the int8 index, int8 scoring). corpus_stream_bsz: None
-    checks that the resident engine fits the device, 0 takes it
-    unchecked, > 0 (streaming) is not ported."""
+    (the towers emit the int8 index, int8 scoring). corpus_stream_bsz:
+    None picks the engine by the device's free memory (the resident one
+    when `resident_eval_bytes` fits, else streaming with
+    `auto_stream_block`'s block), 0 forces the resident engine, > 0
+    streams with that corpus block."""
     dev = resolve_device(device)
-    if corpus_stream_bsz:
-        raise NotImplementedError(
-            "streaming eval (corpus_stream_bsz > 0) is ROADMAP A12, "
-            "not ported")
     if corpus_stream_bsz is None:
-        _check_resident_fits(len(videos), len(queries), model.config, dev,
-                             score_quant)
+        corpus_stream_bsz = auto_stream_block(len(videos), len(queries),
+                                              model.config,
+                                              score_quant=score_quant,
+                                              device=dev)
+    if corpus_stream_bsz:
+        return eval_retrieval_streaming(
+            model, videos, queries, corpus_block=corpus_stream_bsz,
+            query_bsz=query_bsz, fusion=fusion, score_quant=score_quant,
+            device=dev)
     inher_s, explore_s = score_matrices(model, videos, queries, context_bsz,
                                         query_bsz, dev,
                                         score_quant=score_quant)
@@ -284,24 +466,34 @@ def run_retrieval_eval(model, videos: PackedVideos, queries: PackedQueries,
                        eval_cfg, mesh=None, device=None
                        ) -> Dict[str, Dict[str, float]]:
     """The drivers' entry point: routes by the config's corpus_stream_bsz
-    (0 = auto, -1 = resident, > 0 = stream) and the mesh, as
-    dldkd_tpu.evaluate.run_retrieval_eval does. Only the resident engine on
-    one device is ported. A module in training mode (the per-epoch
-    validation) is evaluated in eval mode and handed back in training
-    mode."""
+    (0 = auto by the memory budget, -1 = resident, > 0 = stream with that
+    block, at query batches of at least 64) and the mesh, as
+    dldkd_tpu.evaluate.run_retrieval_eval does; a mesh (ROADMAP A14) is not
+    ported. A module in training mode (the per-epoch validation) is
+    evaluated in eval mode and handed back in training mode."""
     if mesh is not None:
         raise NotImplementedError(
             "corpus-sharded (multi-GPU) eval is ROADMAP A14, not ported")
+    dev = resolve_device(device)
     stream = eval_cfg.corpus_stream_bsz
+    if stream == 0:
+        stream = auto_stream_block(len(videos), len(queries), model.config,
+                                   score_quant=eval_cfg.score_quant,
+                                   device=dev)
+    elif stream < 0:
+        stream = 0
     was_training = model.training
     model.eval()
     try:
+        if stream:
+            return eval_retrieval_streaming(
+                model, videos, queries, corpus_block=stream,
+                query_bsz=max(eval_cfg.eval_query_bsz, 64),
+                score_quant=eval_cfg.score_quant, device=dev)
         return eval_retrieval(model, videos, queries,
                               context_bsz=eval_cfg.eval_context_bsz,
                               query_bsz=eval_cfg.eval_query_bsz,
                               score_quant=eval_cfg.score_quant,
-                              corpus_stream_bsz=(None if stream == 0 else
-                                                 0 if stream < 0 else stream),
-                              device=device)
+                              corpus_stream_bsz=0, device=dev)
     finally:
         model.train(was_training)

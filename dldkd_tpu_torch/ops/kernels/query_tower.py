@@ -599,18 +599,46 @@ def _with_pos(w: Weights, l: int, l_p: int) -> Weights:
     return (*w[:2], pos, *w[3:])
 
 
+_INT32_MAX = 2 ** 31 - 1
+_GRID_YZ_MAX = 65535   # a CUDA grid's y and z dimensions
+
+
+def sequences_per_launch(l: int, d: int, packed: Dict[str, torch.Tensor]
+                         ) -> int:
+    """The most sequences of l rows of width d that one launch of the CUDA
+    chain takes. The chain's C entries take sizes and strides as int32, so
+    every buffer of the launch (the (N l, d) input, its normalization, the
+    qkv product (G, N l, 3 Hq), ...) keeps its element count within int32;
+    the products' grid holds N l / 64 row tiles and the attention's grid N
+    sequences, each at most 65,535. At the serving width (d 1,024, two
+    branches of 384 in 4 heads) and l = 128 that is 7,281 videos."""
+    hdim, n_heads, _ = (int(v) for v in packed["dims"])
+    g_n, hp = packed["g1"].shape
+    widest = max(_r8(d), g_n * hp, g_n * 3 * n_heads * _r8(hdim // n_heads))
+    return max(1, min(_GRID_YZ_MAX, _INT32_MAX // (widest * l),
+                      _GRID_YZ_MAX * 64 // l))
+
+
 def _run(x, mask, weights, n_heads, dtype, kind, l, plain, emit_q8=False,
          packed=None):
     """One launch over sequences of l rows (x padded past them): the plain
     version on the weight tuples on the CPU or with plain=True, else the
-    CUDA chain on the packed operands (packed here when not given)."""
+    CUDA chain on the packed operands (packed here when not given), in as
+    many launches of at most `sequences_per_launch` sequences as it
+    takes (one at every block size the eval and serving default to)."""
     if plain or x.device.type == "cpu":
         weights = [_with_pos(w, l, x.shape[1]) for w in weights]
         return tower_plain(x, mask, weights, n_heads, dtype, kind, emit_q8)
     if packed is None:
         packed = pack_weights(weights, dtype, n_heads, x.device)
-    return tower_cuda(x.contiguous(), mask.contiguous(), packed, n_heads,
-                      dtype, kind, emit_q8, pos_rows=l)
+    cap = sequences_per_launch(x.shape[1], x.shape[2], packed)
+    parts = [tower_cuda(x[s:s + cap].contiguous(),
+                        mask[s:s + cap].contiguous(), packed, n_heads, dtype,
+                        kind, emit_q8, pos_rows=l)
+             for s in range(0, max(x.shape[0], 1), cap)]
+    if len(parts) == 1:
+        return parts[0]
+    return [torch.cat(outs) for outs in zip(*parts)]
 
 
 def query_towers(x: torch.Tensor, mask: torch.Tensor,

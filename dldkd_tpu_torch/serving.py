@@ -1,9 +1,16 @@
 """Online retrieval serving on one GPU: device-resident top-k search (port
 of dldkd_tpu/serving.py, single device).
 
-The corpus is encoded once into a device-resident index; each query batch
-is encoded, scored against the whole corpus and reduced to its top k on the
-device, so only k ids and scores per query reach the host. Three routes:
+Two index stores. 'encoded' (the default when it fits the device): the
+corpus is encoded once into a device-resident index; each query batch is
+encoded, scored against the whole corpus and reduced to its top k on the
+device, so only k ids and scores per query reach the host. 'raw': only the
+raw frame features stay on the device (in the model's compute dtype), and
+each search encodes all its queries, then re-encodes the corpus block by
+block (`stream_block` videos), scores each block against every query and
+merges the blocks' top k (`_search_streaming`); the encoded frames never
+exist beyond one block. The auto policy takes 'raw' when the encoded index
+does not fit the device's free memory. Three routes, on either store:
 
 - exact (default): both branches' frames, L2-normalized once at index
   time, scored with the masked-cosine kernel;
@@ -24,9 +31,8 @@ CLI: python -m dldkd_tpu_torch.serving --model_dir <run> --root_path <root>
         --collection tvr --visual_feature i3d_resnet --queries q.npz --k 10
 writes one JSON line per query: {"cap_id", "topk": [[video_id, score], ...]}.
 
-Not ported (each raises naming its ROADMAP item): the raw index store and
-the auto policy choosing it (A12/A13); save_index/load_index, prewarm, the
-executable cache and warm start (A13); a device mesh (A14).
+Not ported (each raises naming its ROADMAP item): save_index/load_index,
+prewarm, the executable cache and warm start (A13); a device mesh (A14).
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ from dldkd_tpu_torch.data.ingest import PackedVideos
 from dldkd_tpu_torch.evaluate import (device_memory_budget, embed_corpus,
                                       embed_corpus_q8)
 from dldkd_tpu_torch.models import DLDKD
-from dldkd_tpu_torch.ops.fast_eval import (encode_query_best, tower_dtype,
+from dldkd_tpu_torch.ops.fast_eval import (encode_context_best,
+                                           encode_query_best, tower_dtype,
                                            tower_weights)
 from dldkd_tpu_torch.ops.kernels.query_tower import quantize_frames_q8
 from dldkd_tpu_torch.ops.kernels.sim_max import build_q8_index
@@ -125,6 +132,38 @@ def _two_stage_topk(inher_q, explore_q, ctx_inher, ctx_explore, vmask,
                            vmask, fusion, k, k_out, shortlist_factor, plain)
 
 
+def _block_topk_core(inher_q, explore_q, ctx_i, ctx_e, block_mask, fusion,
+                     k, k_out, quantized, rescore, shortlist_factor,
+                     plain=False):
+    """Fused-score top k_out of one encoded corpus block, indices local to
+    the block (dldkd_tpu/serving.py:310-324): two-stage (quantized and
+    rescore: the int8 pass quantizes the block's frames per call, then
+    `_rescore_stage2`), int8-only (quantized) or exact."""
+    if quantized and rescore:
+        return _two_stage_topk(inher_q,
+                               explore_q if ctx_e is not None else None,
+                               ctx_i, ctx_e, block_mask, fusion, k, k_out,
+                               shortlist_factor, plain)
+    scores = _fuse(fusion,
+                   clip_scores_maxpool(inher_q, ctx_i, block_mask,
+                                       plain=plain, quantized=quantized),
+                   None if ctx_e is None else clip_scores_maxpool(
+                       explore_q, ctx_e, block_mask, plain=plain,
+                       quantized=quantized))
+    return topk_lowest_index(scores, k_out)
+
+
+def _merge_block_topk(pairs, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global top k from the blocks' (scores, global indices) pairs:
+    the global top k is a subset of the union of the blocks' top k. Blocks
+    in corpus order, so equal scores keep the lower video index first, as
+    topk_lowest_index breaks them."""
+    vals = torch.cat([v for v, _ in pairs], dim=1)
+    idx = torch.cat([i for _, i in pairs], dim=1)
+    top, pos = topk_lowest_index(vals, k)
+    return top, torch.gather(idx, 1, pos)
+
+
 def _search_q8(model, weights, q_feats, q_mask, q8_i, q8_e, q8_bias, k,
                frames_i, frames_e, vmask, fusion, rescore=True,
                shortlist_factor=SHORTLIST_FACTOR, plain=False):
@@ -169,6 +208,7 @@ class Retriever:
                  mesh=None, score_quant: bool = False,
                  rescore: bool = True, index_store: Optional[str] = None,
                  shortlist_factor: int = SHORTLIST_FACTOR,
+                 stream_block: int = 2048,
                  warm_start: bool = False,
                  aot_cache_dir: Optional[str] = None,
                  device=None, plain: bool = False):
@@ -179,9 +219,12 @@ class Retriever:
         exact top k lands in the shortlist; on a bf16 index the rescored
         ranks are finer than the bf16 exact path's), rescore=False returns
         the int8 ranks (~2.7e-3 score error, int8-grid ties broken by
-        video id). index_store: 'encoded' (the only store ported) or None
-        / 'auto' (encoded when it fits the device). device: where the
-        index lives and search runs ("cuda" unless told otherwise).
+        video id). index_store: 'encoded' (the encoded frames resident),
+        'raw' (the raw frame features resident in the model's compute
+        dtype, re-encoded in blocks of stream_block videos at each search)
+        or None / 'auto' (encoded when it fits the device, else raw).
+        device: where the index lives and search runs ("cuda" unless told
+        otherwise).
         plain=True runs every kernel's plain PyTorch version instead, on
         any device: the reference side of a kernel check."""
         if mesh is not None:
@@ -189,8 +232,6 @@ class Retriever:
                               "A14")
         if index_store not in (None, "auto", "encoded", "raw"):
             raise ValueError(f"index_store: {index_store!r}")
-        if index_store == "raw":
-            raise _not_ported("the raw index store", "A12/A13")
         if warm_start:
             raise _not_ported("warm_start", "A13")
         if aot_cache_dir:
@@ -203,6 +244,9 @@ class Retriever:
         self.score_quant = bool(score_quant)
         self.rescore = bool(rescore)
         self.shortlist_factor = int(shortlist_factor)
+        self.stream_block = int(stream_block)
+        if self.stream_block < 1:
+            raise ValueError(f"stream_block: {stream_block}")
         self.index_store = None if index_store == "auto" else index_store
         # f32 fusion weights, as the JAX package's f32 fusion array
         self.fusion = tuple(float(np.float32(w)) for w in fusion)
@@ -222,6 +266,7 @@ class Retriever:
         """Drop every array of a previously built index."""
         self.ctx_inher = self.ctx_explore = self.vmask = None
         self.q8_inher = self.q8_explore = self.q8_bias = None
+        self.raw_feats = self.raw_mask = None
         self.video_ids: List[str] = []
 
     def auto_index_store(self, n_videos: int) -> str:
@@ -245,17 +290,34 @@ class Retriever:
 
     @torch.no_grad()
     def index(self, videos: PackedVideos, context_bsz: int = 200) -> None:
-        """Build the device-resident index of `videos`: the int8 index
-        alone (score_quant without rescore: the towers emit it), the
+        """Build the device-resident index of `videos`. Raw store: the raw
+        frame features in the model's compute dtype and their mask, padded
+        with zero rows to a whole number of stream blocks
+        (dldkd_tpu/serving.py:589-612, one device). Encoded store: the int8
+        index alone (score_quant without rescore: the towers emit it), the
         stored frames plus an int8 index built from them (two-stage), or
         the L2-normalized frames (exact)."""
         self._reset_index()
         store = self.index_store or self.auto_index_store(len(videos))
-        if store == "raw":
-            raise _not_ported(
-                f"the raw index store (the encoded index of {len(videos)} "
-                f"videos does not fit the device)", "A12/A13")
         self.index_store = store
+        if store == "raw":
+            n, sb = len(videos), self.stream_block
+            n_pad = -(-n // sb) * sb
+            self.raw_feats = torch.zeros(
+                (n_pad,) + videos.feats.shape[1:],
+                dtype=tower_dtype(self.model.config), device=self.device)
+            self.raw_mask = torch.zeros((n_pad,) + videos.mask.shape[1:],
+                                        dtype=torch.float32,
+                                        device=self.device)
+            # a block at a time: no corpus-sized f32 copy on the device
+            for s in range(0, n, sb):
+                block = torch.from_numpy(np.ascontiguousarray(
+                    videos.feats[s:s + sb]))
+                self.raw_feats[s:s + block.shape[0]].copy_(block)
+            self.raw_mask[:n] = torch.from_numpy(
+                np.asarray(videos.mask, np.float32))
+            self.video_ids = list(videos.ids)
+            return
         args = (self.model, videos, context_bsz, self.device, self.weights,
                 self.plain)
         if self.score_quant and not self.rescore:
@@ -303,6 +365,63 @@ class Retriever:
                        self.ctx_explore, k, self.vmask, self.fusion,
                        self.plain)
 
+    def _query_batches(self, q_feats: np.ndarray, q_mask: np.ndarray):
+        """The queries in serving batches on the device, each padded to
+        query_bsz rows."""
+        bsz = self.query_bsz
+        for start in range(0, q_feats.shape[0], bsz):
+            f = np.asarray(q_feats[start:start + bsz], np.float32)
+            m = np.asarray(q_mask[start:start + bsz], np.float32)
+            pad = bsz - f.shape[0]
+            if pad:
+                f = np.concatenate([f, np.zeros((pad,) + f.shape[1:],
+                                                f.dtype)])
+                m = np.concatenate([m, np.zeros((pad,) + m.shape[1:],
+                                                m.dtype)])
+            yield (torch.from_numpy(f).to(self.device),
+                   torch.from_numpy(m).to(self.device))
+
+    def _search_streaming(self, q_feats: np.ndarray, q_mask: np.ndarray,
+                          k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Raw-store search (dldkd_tpu/serving.py:1065-1131, one device):
+        encode all queries first, in serving batches with the same
+        backpressure as the encoded store's search; then stream each raw
+        corpus block once through the video towers (a bf16 block widened
+        to f32, as the Pallas tower widens its input) and
+        `_block_topk_core` against every query; merge the blocks' top k.
+        One corpus pass per call, whatever the query count."""
+        rows_i, rows_e, done = [], [], []
+        for f, m in self._query_batches(q_feats, q_mask):
+            # at most _SEARCH_INFLIGHT_BATCHES encodes pending: wait for
+            # the oldest before this batch uploads
+            if len(done) >= _SEARCH_INFLIGHT_BATCHES:
+                done[len(done) - _SEARCH_INFLIGHT_BATCHES].synchronize()
+            q_i, q_e = encode_query_best(self.model, f, m, self.weights,
+                                         self.plain)
+            rows_i.append(q_i)
+            if q_e is not None:
+                rows_e.append(q_e)
+            if self.device.type == "cuda":
+                done.append(torch.cuda.Event())
+                done[-1].record(torch.cuda.current_stream(self.device))
+        inher_q = torch.cat(rows_i)
+        explore_q = torch.cat(rows_e) if rows_e else None
+        sb = self.stream_block
+        k_blk = min(k, sb)
+        pairs = []
+        for b in range(0, self.raw_feats.shape[0], sb):
+            bm = self.raw_mask[b:b + sb]
+            ctx_i, ctx_e = encode_context_best(
+                self.model, self.raw_feats[b:b + sb].float(), bm,
+                self.weights, self.plain)
+            vals, idx = _block_topk_core(
+                inher_q, explore_q, ctx_i, ctx_e, bm, self.fusion, k_blk,
+                k_blk, self.score_quant, self.rescore, self.shortlist_factor,
+                self.plain)
+            pairs.append((vals, idx + b))
+            del ctx_i, ctx_e   # one encoded block alive at a time
+        return _merge_block_topk(pairs, k)
+
     @torch.no_grad()
     def search(self, q_feats: np.ndarray, q_mask: np.ndarray, k: int = 10
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -312,26 +431,18 @@ class Retriever:
             raise RuntimeError("call index()/index_corpus() first")
         k = min(k, len(self.video_ids))
         n = q_feats.shape[0]
-        bsz = self.query_bsz
+        if self.index_store == "raw":
+            scores, idx = self._search_streaming(q_feats, q_mask, k)
+            return scores.cpu().numpy()[:n], idx.cpu().numpy()[:n]
         out: list = []
-        for start in range(0, n, bsz):
-            f = np.asarray(q_feats[start:start + bsz], np.float32)
-            m = np.asarray(q_mask[start:start + bsz], np.float32)
-            pad = bsz - f.shape[0]
-            if pad:
-                f = np.concatenate([f, np.zeros((pad,) + f.shape[1:],
-                                                f.dtype)])
-                m = np.concatenate([m, np.zeros((pad,) + m.shape[1:],
-                                                m.dtype)])
+        for f, m in self._query_batches(q_feats, q_mask):
             # backpressure before this batch uploads: forcing the oldest
             # un-fetched result drains its batch, so at most
             # _SEARCH_INFLIGHT_BATCHES batches are pending on the device
             if len(out) >= _SEARCH_INFLIGHT_BATCHES:
                 w = len(out) - _SEARCH_INFLIGHT_BATCHES
                 out[w] = tuple(t.cpu() for t in out[w])
-            out.append(self._search_batch(
-                torch.from_numpy(f).to(self.device),
-                torch.from_numpy(m).to(self.device), k))
+            out.append(self._search_batch(f, m, k))
         scores = torch.cat([s.cpu() for s, _ in out]).numpy()[:n]
         idx = torch.cat([i.cpu() for _, i in out]).numpy()[:n]
         return scores, idx
@@ -383,11 +494,14 @@ def main(argv=None):
                    help="stage-1 candidates per result (k' = factor * k)")
     p.add_argument("--index_store", choices=["auto", "encoded", "raw"],
                    default="auto",
-                   help="'encoded' (the only store ported) or 'auto'; 'raw' "
-                        "is ROADMAP A12/A13")
-    p.add_argument("--stream_block", type=int, default=None,
-                   help="videos per block of the raw store (ROADMAP "
-                        "A12/A13, not ported)")
+                   help="'encoded' keeps the encoded frames on the device; "
+                        "'raw' keeps only the raw frame features there and "
+                        "re-encodes them in blocks at each search (less "
+                        "memory only where the raw width is below the "
+                        "encoded one); 'auto' (default) takes 'encoded' "
+                        "when it fits the device's free memory, else 'raw'")
+    p.add_argument("--stream_block", type=int, default=2048,
+                   help="videos per re-encoded block for --index_store raw")
     p.add_argument("--torch_device", choices=("cuda", "cpu"), default="cuda")
     for flag, meta in (("--save_index", "DIR"), ("--load_index", "DIR"),
                        ("--prewarm", "LQ:K[,LQ:K...]"),
@@ -397,9 +511,6 @@ def main(argv=None):
     p.add_argument("--warm_start", action="store_true",
                    help="ROADMAP A13, not ported")
     args = p.parse_args(argv)
-    if args.index_store == "raw" or args.stream_block is not None:
-        p.error("the raw index store (--index_store raw, --stream_block) is "
-                "ROADMAP A12/A13, not ported")
     for flag in ("save_index", "load_index", "prewarm", "aot_cache_dir",
                  "warm_start"):
         if getattr(args, flag):
@@ -416,6 +527,7 @@ def main(argv=None):
                                   rescore=not args.no_rescore,
                                   shortlist_factor=args.shortlist_factor,
                                   index_store=args.index_store,
+                                  stream_block=args.stream_block,
                                   device=args.torch_device)
     r.index_corpus(args.root_path, args.collection, args.visual_feature,
                    args.split)

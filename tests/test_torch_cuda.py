@@ -485,12 +485,18 @@ def test_context_tower_q8_matches_plain(dev, dtype, branches):
         assert int((g.int() - p.int()).abs().max()) <= 1
 
 
-@pytest.mark.parametrize("kw", [dict(), dict(score_quant=True),
-                                dict(score_quant=True, rescore=False)],
-                         ids=["exact", "two_stage", "int8"])
+@pytest.mark.parametrize("kw", [
+    dict(), dict(score_quant=True), dict(score_quant=True, rescore=False),
+    dict(index_store="raw", stream_block=16),
+    dict(index_store="raw", stream_block=16, score_quant=True),
+    dict(index_store="raw", stream_block=16, score_quant=True,
+         rescore=False)],
+    ids=["exact", "two_stage", "int8", "raw_exact", "raw_two_stage",
+         "raw_int8"])
 def test_retriever_on_card_matches_plain(dev, kw, monkeypatch):
-    """Each serving route on the card against the same Retriever running
-    every kernel's plain version on the card (f32: equal ids)."""
+    """Each serving route on either store on the card against the same
+    Retriever running every kernel's plain version on the card (f32:
+    equal ids); the raw store in blocks that do not divide the corpus."""
     monkeypatch.setenv("DLDKD_DENSE_RESCORE", "always")
     cfg = ModelConfig(visual_input_size=48, query_input_size=32,
                       inheritance_hidden=64, exploration_hidden=64,
@@ -634,3 +640,77 @@ def test_validation_on_card_matches_plain_on_trained_model(dev):
     for a, b in zip(scores[0], scores[1]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
     assert fused[0] == fused[1]
+
+
+# ------------------------------------------------------------ streaming
+
+def _stream_fixture(rng, nv=70, nq=90):
+    from dldkd_tpu_torch.data.ingest import PackedQueries
+
+    cfg = ModelConfig(visual_input_size=48, query_input_size=32,
+                      inheritance_hidden=64, exploration_hidden=64,
+                      max_ctx_l=16, max_desc_l=8, n_heads=4,
+                      double_branch=True)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(9)).eval()
+    vmask = (np.arange(16)[None] < rng.randint(3, 17, nv)[:, None]
+             ).astype(np.float32)
+    videos = PackedVideos(
+        feats=(rng.randn(nv, 16, 48) * vmask[..., None]).astype(np.float32),
+        mask=vmask, ids=[f"v{i}" for i in range(nv)])
+    q_vid = [f"v{i % nv}" for i in range(nq)]
+    queries = PackedQueries(
+        feats=rng.randn(nq, 8, 32).astype(np.float32),
+        mask=np.ones((nq, 8), np.float32),
+        cap_ids=[f"{v}#enc#{i}" for i, v in enumerate(q_vid)],
+        video_ids=q_vid)
+    return model, videos, queries
+
+
+@pytest.mark.parametrize("score_quant", [False, True], ids=["f32", "int8"])
+def test_streaming_eval_on_card_matches_resident(dev, score_quant):
+    """The streaming engine on the card (double-buffered copies on a side
+    stream, all queries per scorer launch) against the resident engine on
+    the card: in f32 the same scores bitwise (each row of a tower and each
+    (query, video) score is computed alike at any batch), for blocks that
+    divide the corpus, that do not, and one larger than it."""
+    from dldkd_tpu_torch import evaluate
+
+    model, videos, queries = _stream_fixture(np.random.RandomState(10))
+    nv = len(videos)
+    r_i, r_e = evaluate.score_matrices(model, videos, queries, 16, 50, dev,
+                                       score_quant=score_quant)
+    for block in (7, 35, 128):
+        s_i, s_e = evaluate.stream_score_matrices(
+            model, videos, queries, block, 64, dev, score_quant=score_quant)
+        assert torch.equal(s_i, r_i[:, :nv]) and torch.equal(s_e,
+                                                             r_e[:, :nv])
+    got = evaluate.eval_retrieval(model, videos, queries, query_bsz=64,
+                                  score_quant=score_quant,
+                                  corpus_stream_bsz=35, device=dev)
+    assert got == evaluate.eval_retrieval(model, videos, queries,
+                                          context_bsz=16, query_bsz=50,
+                                          score_quant=score_quant,
+                                          corpus_stream_bsz=0, device=dev)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tower_sub_launches_match_one_launch(dev, dtype, monkeypatch):
+    """Past `sequences_per_launch` a tower call runs in several launches
+    of the chain, each counted: the same outputs bitwise as one launch."""
+    gen = torch.Generator().manual_seed(11)
+    cfg = ModelConfig(visual_input_size=48, query_input_size=32,
+                      inheritance_hidden=64, exploration_hidden=64,
+                      max_ctx_l=16, max_desc_l=8, n_heads=4,
+                      double_branch=True, dtype=dtype)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(12))
+    tdt = getattr(torch, dtype)
+    ws = tower_weights(model, dev)["context"]
+    x = torch.randn(10, 16, 48, generator=gen).to(dev)
+    mask = _mask(10, 16, gen, dev)
+    whole = qt.context_towers(x, mask, ws, 4, tdt, "test")
+    monkeypatch.setattr(qt, "sequences_per_launch", lambda *a: 3)
+    before = qt.LAUNCHES["context_tower"]
+    parts = qt.context_towers(x, mask, ws, 4, tdt, "test")
+    assert qt.LAUNCHES["context_tower"] - before == 4
+    for a, b in zip(whole, parts):
+        assert torch.equal(a, b)

@@ -228,17 +228,18 @@ def test_int8_eval_matches_jax(dataset, double):
 
 
 def test_unported_routes_raise(dataset):
-    """score_quant is ported now (test_int8_eval_matches_jax); streaming
-    and the mesh still raise, naming their ROADMAP items."""
+    """score_quant and streaming are ported now (test_int8_eval_matches_jax,
+    tests/test_torch_streaming.py); the mesh still raises, naming its
+    ROADMAP item, on every engine route."""
     _, _, videos, queries = dataset
     _, _, model = _models(True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        evaluate.eval_retrieval(model, videos, queries, corpus_stream_bsz=8,
-                                device="cpu")
     eval_cfg = JaxConfig().eval
-    with pytest.raises(NotImplementedError, match="A14"):
-        evaluate.run_retrieval_eval(model, videos, queries, eval_cfg,
-                                    mesh=object(), device="cpu")
+    for stream in (0, -1, 8):
+        with pytest.raises(NotImplementedError, match="A14"):
+            evaluate.run_retrieval_eval(
+                model, videos, queries,
+                dataclasses.replace(eval_cfg, corpus_stream_bsz=stream),
+                mesh=object(), device="cpu")
 
 
 def test_entry_points_default_to_cuda(dataset):

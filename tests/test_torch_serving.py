@@ -202,28 +202,25 @@ def test_rescore_stage2_and_two_stage_topk_match_jax(clustered, monkeypatch):
     assert torch.equal(ids[0], ids[1])
 
 
-def test_unported_serving_routes_raise(clustered, monkeypatch):
-    _, _, _, model, videos, _, _ = clustered
+def test_unported_serving_routes_raise(clustered):
+    """The raw store is ported now (tests/test_torch_streaming.py); a mesh
+    (A14), warm start, the executable cache and index artifacts (A13)
+    still raise, also with the raw store."""
+    _, _, _, model, _, _, _ = clustered
     for kw, item in ((dict(mesh=object()), "A14"),
-                     (dict(index_store="raw"), "A12/A13"),
                      (dict(warm_start=True), "A13"),
-                     (dict(aot_cache_dir="/nonexistent"), "A13")):
+                     (dict(aot_cache_dir="/nonexistent"), "A13"),
+                     (dict(index_store="raw", mesh=object()), "A14"),
+                     (dict(index_store="raw", warm_start=True), "A13")):
         with pytest.raises(NotImplementedError, match=item):
             serving.Retriever(model, device="cpu", **kw)
     with pytest.raises(ValueError, match="index_store"):
         serving.Retriever(model, device="cpu", index_store="bogus")
-    # the auto policy choosing the raw store (a budget too small for the
-    # encoded index) raises at index time
-    monkeypatch.setenv("DLDKD_EVAL_MEM_BUDGET", "1")
-    r = serving.Retriever(model, device="cpu")
-    assert r.auto_index_store(N_VID) == "raw"
-    with pytest.raises(NotImplementedError, match="A12/A13"):
-        r.index(videos)
     base = ["--model_dir", "/nonexistent", "--root_path", "/nonexistent",
             "--collection", "c", "--visual_feature", "v", "--queries",
             "q.npz"]
-    for extra in (["--index_store", "raw"], ["--stream_block", "8"],
-                  ["--save_index", "/tmp/i"], ["--load_index", "/tmp/i"],
+    for extra in (["--save_index", "/tmp/i"], ["--load_index", "/tmp/i"],
+                  ["--index_store", "raw", "--save_index", "/tmp/i"],
                   ["--prewarm", "4:3"], ["--aot_cache_dir", "/tmp/a"],
                   ["--warm_start"]):
         with pytest.raises(SystemExit):
@@ -247,12 +244,16 @@ def test_pack_query_rows_pad_to_multiple_matches_jax():
             np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("route", [[], ["--score_quant", "--no_rescore"]],
-                         ids=["exact", "int8"])
+@pytest.mark.parametrize("route", [
+    [], ["--score_quant", "--no_rescore"],
+    ["--index_store", "raw", "--stream_block", "3"],
+    ["--index_store", "raw", "--stream_block", "3", "--score_quant",
+     "--no_rescore"]], ids=["exact", "int8", "raw", "raw_int8"])
 def test_serving_cli_matches_jax(tmp_path, monkeypatch, route):
-    """serving.main on a synthetic dataset writes the JAX CLI's JSON lines:
-    the same captions in the same order with the same video ids, scores
-    within 1e-5. The JAX CLI reads the HDF5 query store, the port its .npz
+    """serving.main on a synthetic dataset writes the JAX CLI's JSON lines,
+    on the encoded and on the raw store (a stream block that does not
+    divide the 7 videos): the same captions in the same order with the
+    same video ids, scores within 1e-5. The JAX CLI reads the HDF5 query store, the port its .npz
     twin."""
     import h5py
 
@@ -273,7 +274,8 @@ def test_serving_cli_matches_jax(tmp_path, monkeypatch, route):
               "--collection", "synthetic", "--visual_feature", "i3d",
               "--k", "4"] + route
     monkeypatch.setattr(jax, "device_count", lambda: 1)  # no mesh
-    for fn in (jax_serving._search_jit, jax_serving._search_q8_jit):
+    for fn in (jax_serving._search_jit, jax_serving._search_q8_jit,
+               jax_serving._encoded_block_topk_jit):
         fn.clear_cache()
     jax_serving.main(common + ["--queries", h5,
                                "--out", str(tmp_path / "jax.jsonl")])
