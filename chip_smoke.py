@@ -39,12 +39,20 @@ package. Phases, in order; any failure exits non-zero without the final
    (torch.profiler), without the host's time between launches; then the
    towers at the shapes the kernels once refused (sequences of 136 and 300
    rows, an input width of 44 with hidden 36 in 4 heads, one 256-dim head),
-   both kinds, both dtypes, against their plain versions;
+   both kinds, both dtypes, against their plain versions; then the int8
+   epilogue's transposed write (`q8_transposed`, the rows padded into the
+   TPU scoring layout (L_p, Nv_p, H)) at 2,048 videos in both dtypes,
+   bitwise against its plain version, through the towers and alone, with
+   its pad bias, timed beside the in-place epilogue on the same rows;
 4. `dldkd_tpu_torch.infer.main` on a synthetic dataset at full feature
    widths, with a checkpoint written by the port's own writer: the bf16
    serving config and the f32 parity config, then `--score_quant`; and
    `dldkd_tpu_torch.serving.main` on the same dataset (.npz queries) on its
-   three routes (exact, two-stage, int8-only);
+   three routes (exact, two-stage, int8-only); the native corpus packer on
+   that dataset against the numpy path (its call count, the largest
+   difference); then the serving CLI in fresh processes, `--save_index`
+   without queries and `--load_index` with the .npz queries and no dataset
+   flags, whose lines must be the in-process two-stage run's;
 5. `evaluate.eval_retrieval` at TVR test-split scale (2,179 videos x 128
    frames, 10,895 queries, both branches), in bf16 and in f32: metrics,
    wall time, peak memory and launch counts; one more pass of each under
@@ -71,7 +79,14 @@ package. Phases, in order; any failure exits non-zero without the final
    exact, two-stage with dense and with gather stage 2, and int8-only:
    queries/s, per-batch p50/p99 latency, peak memory, launches, dense
    against gather, and each route against its plain path on the first 512
-   queries;
+   queries; then index artifacts (`phase_artifacts`) of four stores
+   (exact, two-stage, int8-only, raw at 2,048): index() against save_index
+   and load_index seconds, bytes on disk, the loaded index's ids and scores
+   over every query bitwise the builder's, the memory that keeping the
+   exact store's unnormalized frames would add, a two-signature prewarm
+   (the first search after load_index with and without the manifest, in
+   turns), and the towers' transposed int8 emission of the whole corpus
+   against the int8-only artifact's rows;
 6. training (`dldkd_tpu_torch.train.main`) at do_tvr.sh's widths and
    hyperparameters on a synthetic dataset (.npz stores; 1,024 train
    videos, 8 steps of 128 per epoch, 500 val and 500 test videos):
@@ -102,7 +117,11 @@ queries, serving's 256). Each kernel also carries its check at the
 streaming shapes (`streaming_check`) and its launches on each streaming
 path (`streaming_launches`). Each kernel of the train phase's path (f32
 scoring, both f32 towers) also carries its launches in train.main
-(`train_launches`) and in one validation (`launches_per_validation`).
+(`train_launches`) and in one validation (`launches_per_validation`). The
+epilogue's transposed write (`context_tower_q8_t`) is on no path of the
+JAX package either; its launches are those of the artifact phase's
+transposed emission of the corpus, its times the phase-3 check's at 2,048
+videos.
 """
 
 from __future__ import annotations
@@ -1143,6 +1162,97 @@ def phase_serving_cli(workdir: str, root: str):
               "queries": n_caps, "seconds": secs, "launches": counts})
         _check_jsonl(out, n_caps, 5, ids, f"serving.main {name}")
         _check_launched(counts, kernels, f"serving.main {name}")
+    _native_pack_check(root)
+    _serving_cli_artifact(workdir, root, run_dir, paths["text_feat"],
+                          os.path.join(workdir, "serve_two_stage.jsonl"))
+
+
+def _native_pack_check(root: str) -> None:
+    """The native corpus packer on this machine's disk corpus (the
+    synthetic dataset of phase 4) against the numpy path (fault C2)."""
+    import numpy as np
+
+    from dldkd_tpu_torch.data import BigFile, native, pack_video_corpus
+    from dldkd_tpu_torch.data.ingest import (dataset_paths, read_dict,
+                                             read_video_ids)
+
+    paths = dataset_paths(root, "synthetic", "i3d")
+
+    def pack():
+        return pack_video_corpus(read_video_ids(paths["cap_file"]["test"]),
+                                 BigFile(paths["visual_feat_dir"]),
+                                 read_dict(paths["video2frames"]),
+                                 max_ctx_l=TVR["frames"])
+
+    native.LAUNCHES["pack_corpus"] = 0
+    t0 = time.perf_counter()
+    fast = pack()
+    native_s = time.perf_counter() - t0
+    calls = native.LAUNCHES["pack_corpus"]
+    os.environ["DLDKD_NO_NATIVE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        slow = pack()
+        numpy_s = time.perf_counter() - t0
+    finally:
+        del os.environ["DLDKD_NO_NATIVE"]
+    diff = np.abs(fast.feats - slow.feats)
+    ulp = np.spacing(np.maximum(np.abs(fast.feats), np.abs(slow.feats)))
+    ulps = float((diff / ulp).max())
+    rec = {"check": "native_pack", "videos": len(fast), "shape":
+           list(fast.feats.shape), "native_calls": calls,
+           "library": str(native.library_path()), "native_s": native_s,
+           "numpy_s": numpy_s, "max_abs_diff": float(diff.max()),
+           "max_ulps": ulps,
+           "masks_equal": bool(np.array_equal(fast.mask, slow.mask))}
+    # the JAX package's tolerance between the two paths
+    # (tests/test_native.py:83): each normalizes by its own norm, f64 sums
+    # and a reciprocal in C++, numpy's f32 norm and a divide in numpy
+    rec["tol"] = {"rtol": 1e-5, "atol": 1e-6}
+    rec["within_tol"] = bool(np.allclose(fast.feats, slow.feats, rtol=1e-5,
+                                         atol=1e-6))
+    emit(rec)
+    if calls != 1 or not rec["masks_equal"] or not rec["within_tol"]:
+        fail(f"native packer: {rec}")
+
+
+def _serving_cli_artifact(workdir, root, run_dir, queries, built_jsonl):
+    """The serving CLI in fresh processes: --save_index with no --queries
+    (two-stage, a prewarm manifest), then --load_index with the .npz query
+    store and no dataset flags; its lines must be the in-process
+    two-stage run's (ids and scores)."""
+    idx = os.path.join(workdir, "cli_index")
+    out = os.path.join(workdir, "serve_loaded.jsonl")
+    runs = {}
+    for what, extra in (
+            ("save", ["--root_path", root, "--collection", "synthetic",
+                      "--visual_feature", "i3d", "--save_index", idx,
+                      "--prewarm", "32:5"]),
+            ("load", ["--load_index", idx, "--queries", queries, "--k", "5",
+                      "--out", out])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dldkd_tpu_torch.serving", "--model_dir",
+             run_dir, "--score_quant", *extra], capture_output=True,
+            text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        runs[what] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"serving CLI --{what}_index in a fresh process: exit "
+                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+    with open(built_jsonl) as f:
+        want = [json.loads(x) for x in f]
+    with open(out) as f:
+        got = [json.loads(x) for x in f]
+    rec = {"check": "serving_cli_artifact", "route": "two_stage",
+           "save_process_s": runs["save"], "load_process_s": runs["load"],
+           "artifact_bytes": sum(
+               os.path.getsize(os.path.join(idx, f)) for f in os.listdir(idx)),
+           "lines": len(got), "same_lines": got == want}
+    emit(rec)
+    if not rec["same_lines"] or not got:
+        fail("serving CLI: --load_index in a fresh process gave other "
+             "results than the in-process build")
 
 
 def phase_int8_eval(dev, videos, queries):
@@ -1771,6 +1881,284 @@ def phase_streaming(dev, videos, queries):
     return checks, launches
 
 
+# ------------------------------------------------- slice 9: artifacts
+
+# each store of the artifact phase: (name, Retriever keywords,
+# DLDKD_DENSE_RESCORE, kernels of the search after the index is loaded)
+ARTIFACT_STORES = (
+    ("exact", {}, None, ("sim_max", "query_tower")),
+    ("two_stage", {"score_quant": True}, "always",
+     ("sim_max_int8", "sim_max_exact", "query_tower")),
+    ("int8_only", {"score_quant": True, "rescore": False}, None,
+     ("sim_max_int8", "query_tower")),
+    ("raw", {"index_store": "raw", "stream_block": 2048}, None,
+     ("sim_max", "query_tower", "context_tower")),
+)
+PREWARM = [(32, 10), (32, 100)]
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _q8t_kernel_check(dev) -> dict:
+    """The int8 epilogue's transposed write (q8_transposed) at 2,048
+    videos x 128 frames, both branches, in bf16 and f32: bitwise against
+    its plain version (the plain epilogue of the same chain's frames,
+    permuted to (L_p, Nv_p, H)) through the towers and alone, the pad bias
+    against q8_index_bias's; the write alone timed beside the in-place
+    epilogue on the same rows (bytes bound: read T, write int8)."""
+    import torch
+
+    from dldkd_tpu_torch.ops.fast_eval import tower_weights
+    from dldkd_tpu_torch.ops.kernels import query_tower as qt
+    from dldkd_tpu_torch.ops.kernels import sim_max
+
+    gen = torch.Generator().manual_seed(31)
+    nv, lf, h, d = max(STREAM["blocks"]), TVR["frames"], TVR["hidden"], \
+        TVR["d_video"]
+    x = torch.randn(nv - 5, lf, d, generator=gen)    # pads to 2,048 videos
+    x = (x / x.norm(dim=-1, keepdim=True)).to(dev)
+    xm = _ragged_mask(nv - 5, lf, 8, gen, dev)
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        item = torch.tensor([], dtype=tdt).element_size()
+        ws = tower_weights(_serving_model(dtype, seed=32), dev)["context"]
+        before = qt.LAUNCHES["context_tower_q8_t"]
+        got = qt.fused_context_tower_dual(x, xm, *ws, TVR["heads"], tdt,
+                                          emit_q8=True, q8_transposed=True)
+        launches = qt.LAUNCHES["context_tower_q8_t"] - before
+        l_p, nv_p = got[0].shape[:2]
+        xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, nv_p - x.shape[0]))
+        mp = torch.nn.functional.pad(xm, (0, 0, 0, nv_p - x.shape[0]))
+        frames = qt.context_towers(xp, mp, ws, TVR["heads"], tdt, "check")
+        torch.cuda.synchronize()
+        want = [qt.q8_transposed_plain(qt.quantize_frames_q8_plain(f))
+                for f in frames]
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+        y = torch.stack(frames).view(2, nv_p * lf, h)
+        t_out = torch.empty((2, l_p, nv_p, h), dtype=torch.int8, device=dev)
+        y8 = torch.empty(y.shape, dtype=torch.int8, device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        qt._launch_quantize_t(y, h, lf, t_out, 0, stream)
+        torch.cuda.synchronize()
+        alone = all(torch.equal(t_out[b], want[b]) for b in range(2))
+        bias = sim_max.q8_index_bias(xm, l_p, nv_p)
+        bias_ok = bool((bias[:, x.shape[0]:] == sim_max.INT8_MASK_BIAS)
+                       .all()) and torch.equal(
+            bias[:, :x.shape[0]], sim_max.q8_index_bias(xm).T)
+        n_el = y.numel()
+        b_ms, b_by = bound(n_el * item + n_el, 6 * n_el, "float32")
+        rec = {"check": "context_tower_q8_t", "dtype": dtype,
+               "shape": {"frames": [2, nv_p, lf, h], "out": [2, l_p, nv_p,
+                                                             h]},
+               "launches_per_call": launches, "bitwise": bitwise,
+               "bitwise_alone": alone, "pad_bias_ok": bias_ok,
+               "max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
+               "tol": 0.0,
+               "kernel_ms": cuda_ms(lambda: qt._launch_quantize_t(
+                   y, h, lf, t_out, 0, stream)),
+               "in_place_epilogue_ms": cuda_ms(lambda: qt._launch_quantize(
+                   y, y8, stream)),
+               "plain_ms": cuda_ms(lambda: [
+                   qt.q8_transposed_plain(qt.quantize_frames_q8_plain(f))
+                   for f in frames], n=3, warmup=1),
+               "tower_with_transposed_write_ms": cuda_ms(
+                   lambda: qt.fused_context_tower_dual(
+                       x, xm, *ws, TVR["heads"], tdt, emit_q8=True,
+                       q8_transposed=True), n=3, warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        emit(rec)
+        out[dtype] = rec
+        if not (bitwise and alone and bias_ok and launches == 1):
+            fail(f"context_tower_q8_t {dtype}: transposed write vs plain: "
+                 f"bitwise {bitwise}, alone {alone}, bias {bias_ok}, "
+                 f"{launches} launches")
+        del ws, got, want, frames, y, t_out, y8
+        torch.cuda.empty_cache()
+    return out
+
+
+def _first_search_ms(model, path, qf, qm, dev, kw) -> tuple:
+    """load_index of the artifact at path in a new Retriever, then the
+    first search of one serving batch: (load s, first search ms)."""
+    import torch
+
+    from dldkd_tpu_torch.serving import Retriever
+
+    bsz, k = SERVE["query_bsz"], SERVE["k"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = Retriever(model, query_bsz=bsz, device=dev, **kw)
+    r.load_index(path, context_bsz=TVR["context_bsz"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r.search(qf[:bsz], qm[:bsz], k)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    del r
+    torch.cuda.empty_cache()
+    return load_s, first_ms
+
+
+def phase_artifacts(dev, videos, queries):
+    """Index artifacts at TVR scale and serving width (bf16, query batch
+    256, k = 10) for four stores: index(), save_index, load_index in a new
+    Retriever, whose ids and scores over every query must be bitwise the
+    builder's; index against load seconds and the artifact's bytes on
+    disk; for the exact store the memory that keeping the towers'
+    unnormalized frames as well would cost (writing the JAX package's
+    exact artifact byte for byte). Then a two-signature prewarm on the
+    two-stage artifact (the first search after load_index with and without
+    the manifest, in turns), and the towers' transposed int8 emission
+    (q8_transposed) of the whole corpus against the int8-only artifact's
+    rows. Returns each path's launch counts."""
+    import numpy as np
+    import torch
+
+    from dldkd_tpu_torch.evaluate import embed_corpus
+    from dldkd_tpu_torch.ops.kernels import query_tower as qt
+    from dldkd_tpu_torch.ops.kernels import sim_max
+    from dldkd_tpu_torch.serving import Retriever
+
+    t_phase = time.perf_counter()
+    model = _serving_model("bfloat16", seed=6)
+    qf, qm = queries.feats, queries.mask
+    nq, bsz, k = len(queries), SERVE["query_bsz"], SERVE["k"]
+    launches = {}
+    saved_mode = os.environ.get("DLDKD_DENSE_RESCORE")
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
+    try:
+        for name, kw, mode, kernels in ARTIFACT_STORES:
+            if mode is None:
+                os.environ.pop("DLDKD_DENSE_RESCORE", None)
+            else:
+                os.environ["DLDKD_DENSE_RESCORE"] = mode
+            path = os.path.join(workdir, name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = Retriever(model, query_bsz=bsz, device=dev, **kw)
+            r.index(videos, context_bsz=TVR["context_bsz"])
+            torch.cuda.synchronize()
+            index_s = time.perf_counter() - t0
+            want = r.search(qf, qm, k)
+            rec = {"phase": "artifacts", "store": name, "dtype": "bfloat16",
+                   "videos": len(videos), "queries": nq, "query_bsz": bsz,
+                   "k": k, "index_s": index_s}
+            if name == "exact":
+                # option (a): the towers' frames kept beside the normalized
+                # ones, to write them as the JAX package does
+                torch.cuda.synchronize()
+                m0 = torch.cuda.memory_allocated()
+                keep = embed_corpus(model, videos, TVR["context_bsz"], dev,
+                                    r.weights)
+                torch.cuda.synchronize()
+                rec["unnormalized_frames_extra_bytes"] = \
+                    torch.cuda.memory_allocated() - m0
+                del keep
+            t0 = time.perf_counter()
+            r.save_index(path)
+            rec["save_s"] = time.perf_counter() - t0
+            rec["artifact_bytes"] = _dir_bytes(path)
+            del r
+            torch.cuda.empty_cache()
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = Retriever(model, query_bsz=bsz, device=dev, **kw)
+            r.load_index(path, context_bsz=TVR["context_bsz"])
+            torch.cuda.synchronize()
+            rec["load_s"] = time.perf_counter() - t0
+            got = r.search(qf, qm, k)
+            counts = _counts()
+            launches[f"artifacts_{name}"] = counts
+            rec.update(launches=counts,
+                       same_ids=bool(np.array_equal(got[1], want[1])),
+                       same_scores=bool(np.array_equal(got[0], want[0])),
+                       finite=bool(np.isfinite(got[0]).all()))
+            if name == "int8_only":
+                # the towers' transposed int8 emission of the corpus: its
+                # real rows are the artifact's, in the TPU scoring layout
+                _reset_counts()
+                ws = r.weights["context"]
+                x = torch.from_numpy(videos.feats).to(dev)
+                xm = torch.from_numpy(videos.mask).to(dev)
+                t_rows = qt.fused_context_tower_dual(
+                    x, xm, *ws, TVR["heads"], torch.bfloat16, emit_q8=True,
+                    q8_transposed=True)
+                torch.cuda.synchronize()
+                counts = _counts()
+                launches["artifacts_q8_transposed"] = counts
+                n = len(videos)
+                diffs = [(t[:, :n].int() - a[:n].permute(1, 0, 2).int())
+                         .abs() for t, a in zip(t_rows, (r.q8_inher,
+                                                         r.q8_explore))]
+                l_p, nv_p = t_rows[0].shape[:2]
+                rec["q8_transposed"] = {
+                    "shape": list(t_rows[0].shape), "launches": counts,
+                    "share_equal": float(sum((t == 0).sum() for t in diffs))
+                    / sum(t.numel() for t in diffs),
+                    "max_levels": int(max(t.max() for t in diffs)),
+                    "bias_matches": bool(torch.equal(
+                        sim_max.q8_index_bias(xm, l_p, nv_p)[:, :n],
+                        r.q8_bias[:n].T))}
+                _check_launched(counts, ("context_tower_q8_t",),
+                                "artifacts q8_transposed")
+                del x, xm, t_rows, diffs
+            emit(rec)
+            _check_launched(launches[f"artifacts_{name}"], kernels,
+                            f"artifacts {name} after load_index")
+            if not (rec["same_ids"] and rec["same_scores"] and rec["finite"]):
+                fail(f"artifacts {name}: the loaded index's results differ "
+                     f"from the builder's (ids {rec['same_ids']}, scores "
+                     f"{rec['same_scores']})")
+            if name == "int8_only" and (
+                    rec["q8_transposed"]["max_levels"] > 1
+                    or not rec["q8_transposed"]["bias_matches"]):
+                fail(f"artifacts: the transposed int8 emission is off the "
+                     f"artifact's rows: {rec['q8_transposed']}")
+            if name == "two_stage":
+                kw2 = kw
+            del r
+            torch.cuda.empty_cache()
+
+        # prewarm: the two-stage artifact with a two-signature manifest
+        os.environ["DLDKD_DENSE_RESCORE"] = "always"
+        r = Retriever(model, query_bsz=bsz, device=dev, **kw2)
+        r.load_index(os.path.join(workdir, "two_stage"),
+                     context_bsz=TVR["context_bsz"])
+        t0 = time.perf_counter()
+        pw_path = os.path.join(workdir, "two_stage_prewarm")
+        r.save_index(pw_path, prewarm=PREWARM)
+        prewarm_save_s = time.perf_counter() - t0
+        del r
+        torch.cuda.empty_cache()
+        turns = []
+        for with_manifest in (False, True, False, True):
+            load_s, first_ms = _first_search_ms(
+                model, pw_path if with_manifest else
+                os.path.join(workdir, "two_stage"), qf, qm, dev, kw2)
+            turns.append({"manifest": with_manifest, "load_s": load_s,
+                          "first_search_ms": first_ms})
+        emit({"phase": "artifacts_prewarm", "store": "two_stage",
+              "signatures": [[bsz, lq, kk] for lq, kk in PREWARM],
+              "save_with_prewarm_s": prewarm_save_s, "turns": turns})
+    finally:
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+        if saved_mode is None:
+            os.environ.pop("DLDKD_DENSE_RESCORE", None)
+        else:
+            os.environ["DLDKD_DENSE_RESCORE"] = saved_mode
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "artifacts", "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
 # ------------------------------------------------- slice 7: training
 
 # the train phase's dataset: do_tvr.sh's widths (video 1024, query 768,
@@ -2263,7 +2651,7 @@ STREAM_CHECKS = {"sim_max": "sim_max_bf16", "sim_max_f32": "sim_max_f32",
 
 
 def kernels_line(checks, launches, int8_launches, serve_launches,
-                 train_launches, stream):
+                 train_launches, stream, q8t_checks, artifact_launches):
     """Every ported kernel: its source, the TPU kernel it replaces, its
     launches on its main path and its phase-3 numbers; beside them, its
     launches in the train phase (train.main: three validations and the
@@ -2344,6 +2732,27 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
             # products and attention, tower.cu's LayerNorm and pooling
             kernels[-1]["chain_sources"] = [
                 src, "dldkd_tpu_torch/csrc/tower.cu"]
+        if name == "context_tower_q8":
+            # the in-place epilogue at the streaming block (2,048 videos)
+            kernels[-1]["streaming_check"]["kernel_ms_2048"] = \
+                q8t_checks["bfloat16"]["in_place_epilogue_ms"]
+    # the epilogue's transposed write (q8_transposed): on the path of the
+    # artifact phase's transposed emission of the corpus; its numbers from
+    # the check at 2,048 videos (bf16, the serving dtype)
+    rec = q8t_checks["bfloat16"]
+    kernels.append({
+        "name": "context_tower_q8_t", "route": "cuda",
+        "source": "dldkd_tpu_torch/csrc/tower.cu",
+        "replaces": "dldkd_tpu/ops/pallas/query_tower.py:168",
+        "launches": artifact_launches["artifacts_q8_transposed"][
+            "context_tower_q8_t"],
+        "launches_path": "artifacts q8_transposed",
+        "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": None,
+        "in_place_epilogue_ms": rec["in_place_epilogue_ms"],
+        "float32": {k: q8t_checks["float32"][k] for k in (
+            "kernel_ms", "plain_ms", "bound_ms", "in_place_epilogue_ms")}})
     return kernels
 
 
@@ -2367,19 +2776,26 @@ def main() -> None:
     checks = phase_kernels(dev)
     phase_tower_shapes(dev)
     checks.update(phase_kernels_slice2(dev))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        root = phase_infer(workdir)
-        phase_serving_cli(workdir, root)
-    launches, videos, queries = phase_tvr_eval(dev)
-    stream = phase_streaming(dev, videos, queries)
-    int8_launches = phase_int8_eval(dev, videos, queries)
-    serve_launches = phase_serving(dev, videos, queries)
-    del videos, queries
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as workdir:
-        train_launches = phase_train(workdir, dev)
+    q8t_checks = _q8t_kernel_check(dev)
+    # the drivers' packed-dataset cache lives and dies with this run
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_packs_") as packs:
+        os.environ["DLDKD_PACK_CACHE_DIR"] = packs
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            root = phase_infer(workdir)
+            phase_serving_cli(workdir, root)
+        launches, videos, queries = phase_tvr_eval(dev)
+        stream = phase_streaming(dev, videos, queries)
+        int8_launches = phase_int8_eval(dev, videos, queries)
+        serve_launches = phase_serving(dev, videos, queries)
+        artifact_launches = phase_artifacts(dev, videos, queries)
+        del videos, queries
+        with tempfile.TemporaryDirectory(
+                prefix="chip_smoke_train_") as workdir:
+            train_launches = phase_train(workdir, dev)
 
     kernels = kernels_line(checks, launches, int8_launches,
-                           serve_launches, train_launches, stream)
+                           serve_launches, train_launches, stream,
+                           q8t_checks, artifact_launches)
     check_no_jax()
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

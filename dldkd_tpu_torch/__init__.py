@@ -16,17 +16,20 @@ What is ported so far:
   scoring -> rank -> R@K/SumR/mAP per branch and for the 0.7/0.3 fusion,
   and its int8 form (`--score_quant`: the video towers emit an int8 index,
   int8 scoring);
+- the corpus-streaming eval (`evaluate.eval_retrieval_streaming`);
 - serving on one GPU (`serving.Retriever`, `python -m
   dldkd_tpu_torch.serving`): exact search, two-stage search (int8
   shortlist, then exact rescoring by candidate gather or by a dense exact
-  kernel) and int8-only search.
+  kernel) and int8-only search, on the encoded or the raw store, and index
+  artifacts in the JAX package's format (`save_index`, `load_index`);
+- packing through the JAX package's C++ packer and pack cache
+  (`data/native.py`, `data/cache.py`).
 Every TPU kernel of the JAX package has a hand-written CUDA counterpart for
 Hopper (`csrc/`: masked-cosine, int8 and exact-rescore scoring; the query
-and video towers with the int8 epilogue), each with a plain PyTorch
-version and a launch counter beside it (`ops/kernels/`). Not ported yet:
-streaming eval, the raw serving store and index artifacts, multi-GPU, the
-native packer, and the training speed knobs and ablations (ROADMAP queue
-A).
+and video towers with the int8 epilogue and its transposed write), each
+with a plain PyTorch version and a launch counter beside it
+(`ops/kernels/`). Not ported yet: multi-GPU, and the training speed knobs
+and ablations (ROADMAP queue A).
 
 Entry points take an explicit `device` and run on "cuda" unless the caller
 asks for "cpu"; on the CPU every kernel wrapper uses its plain version.

@@ -10,7 +10,9 @@
 //   _dual_context_tower_kernel (two branches, video tower)
 //   _query_tower_kernel, _context_tower_kernel (their one-branch forms)
 //   _quantize_q8 / _map_context(emit_q8=True), the video towers' int8
-//   epilogue (kernel 9 below)
+//   epilogue (kernel 9 below), with its transposed write
+//   (_map_context(transposed=True), fused_context_tower_dual's
+//   q8_transposed)
 //
 // Per branch the tower is: affine-free input LayerNorm (f32 statistics,
 // E[x^2] - mu^2, eps 1e-5; shared by the branches) -> folded input
@@ -194,20 +196,42 @@ pool_kernel(const T* __restrict__ x, const float* __restrict__ mask,
 // a product into an FMA, so the kernel and its plain version agree bitwise
 // in f32 and in bf16.
 //
+// Where a row goes. Input row r of the (M, ldx) rows (H values each) is
+// written either in place, at r * H of an (M, H) output, or, in the
+// transposed mode (nv_p > 0), into the TPU scoring layout: the rows are G
+// branches of rows_per_branch rows, each branch's rows are sequences of
+// seq_l frames, and frame l of the sub-launch's video v (the video v_off + v
+// of the whole launch) goes to ((g * l_p + l) * nv_p + v_off + v) * H of a
+// (G, l_p, nv_p, H) output. Only the address changes: the rounding is the
+// same in both modes. Addresses are size_t: nv_p * l_p * H passes 2^31 from
+// about 43k videos at H = 384.
+//
 // Replaces dldkd_tpu/ops/pallas/query_tower.py:_quantize_q8 and
-// _map_context(emit_q8=True). Bound: bytes (read T, write int8); the TPU
-// fuses it into the tower kernel, here it is one more pass over the rows
-// the out_mapping product just left in L2.
+// _map_context(emit_q8=True), with q8_transposed the transposed write of
+// _map_context(transposed=True) and fused_context_tower_dual
+// (query_tower.py:168-193, 447-511). Bound: bytes (read T, write int8);
+// the TPU fuses it into the tower kernel, here it is one more pass over the
+// rows the out_mapping product just left in L2. The transposed mode writes
+// each frame's H-byte row (384 bytes at the serving width) to its own place,
+// nv_p * H bytes from the next frame's: those scattered row writes are this
+// design's cost against the in-place write.
 // ---------------------------------------------------------------------------
 template <typename T>
 __global__ void quantize_q8_kernel(const T* __restrict__ x,
-                                   signed char* __restrict__ y, int M,
-                                   int H) {
+                                   signed char* __restrict__ y, int M, int H,
+                                   int ldx, int rows_per_branch, int seq_l,
+                                   int nv_p, int l_p, int v_off) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
-  const T* xr = x + (size_t)row * H;
-  signed char* yr = y + (size_t)row * H;
+  const T* xr = x + (size_t)row * ldx;
+  size_t out = (size_t)row * H;
+  if (nv_p > 0) {
+    const int g = row / rows_per_branch, r = row % rows_per_branch;
+    const int v = r / seq_l, l = r % seq_l;
+    out = (((size_t)g * l_p + l) * nv_p + (size_t)(v_off + v)) * H;
+  }
+  signed char* yr = y + out;
   float s = 0.f;
   for (int k = lane; k < H; k += 32) {
     const float v = widen(xr[k]);
@@ -253,12 +277,15 @@ int pool(const void* x, const void* mask, const void* wm, void* pooled,
 }
 
 template <typename T>
-int quantize_q8(const void* x, void* y, int M, int H, void* s) {
+int quantize_q8(const void* x, void* y, int M, int H, int ldx,
+                int rows_per_branch, int seq_l, int nv_p, int l_p, int v_off,
+                void* s) {
   if (M > 0 && H > 0) {
     const int rows_per_block = 256 / 32;
     quantize_q8_kernel<T><<<(M + rows_per_block - 1) / rows_per_block, 256,
-                            0, (cudaStream_t)s>>>((const T*)x,
-                                                  (signed char*)y, M, H);
+                            0, (cudaStream_t)s>>>(
+        (const T*)x, (signed char*)y, M, H, ldx, rows_per_branch, seq_l, nv_p,
+        l_p, v_off);
   }
   return launch_rc();
 }
@@ -289,9 +316,22 @@ extern "C" int tower_pool(const void* x, const void* mask, const void* wm,
               : pool<float>(x, mask, wm, pooled, G, Nseq, L, H, gs, ld, s);
 }
 
-// x (M, H) in T -> y (M, H) int8
+// x (M, ldx) in T, H values a row -> y int8: (M, H) in place with
+// nv_p = 0; with nv_p > 0 the transposed write into (G, l_p, nv_p, H), G =
+// M / rows_per_branch branches of rows_per_branch / seq_l videos of seq_l
+// frames, the sub-launch's first video at v_off (kernel 9's note)
 extern "C" int tower_quantize_q8(const void* x, void* y, int M, int H,
-                                 int bf16, void* s) {
-  return bf16 ? quantize_q8<__nv_bfloat16>(x, y, M, H, s)
-              : quantize_q8<float>(x, y, M, H, s);
+                                 int ldx, int rows_per_branch, int seq_l,
+                                 int nv_p, int l_p, int v_off, int bf16,
+                                 void* s) {
+  if (ldx < H) return (int)cudaErrorInvalidValue;
+  if (nv_p > 0 && (seq_l <= 0 || seq_l > l_p || rows_per_branch <= 0 ||
+                   rows_per_branch % seq_l != 0 ||
+                   M % rows_per_branch != 0 || v_off < 0 ||
+                   v_off + rows_per_branch / seq_l > nv_p))
+    return (int)cudaErrorInvalidValue;
+  return bf16 ? quantize_q8<__nv_bfloat16>(x, y, M, H, ldx, rows_per_branch,
+                                           seq_l, nv_p, l_p, v_off, s)
+              : quantize_q8<float>(x, y, M, H, ldx, rows_per_branch, seq_l,
+                                   nv_p, l_p, v_off, s);
 }

@@ -1,4 +1,4 @@
-from dldkd_tpu_torch.data.bigfile import BigFile, BigFileWriter
+from dldkd_tpu_torch.data.bigfile import BigFile, BigFile16, BigFileWriter
 from dldkd_tpu_torch.data.ingest import (
     PackedQueries,
     PackedVideos,
@@ -18,6 +18,7 @@ from dldkd_tpu_torch.data.pipeline import TrainLoader, device_prefetch
 
 __all__ = [
     "BigFile",
+    "BigFile16",
     "BigFileWriter",
     "PackedQueries",
     "PackedVideos",

@@ -3,7 +3,7 @@
 Format (reference utils/basic_utils.py:9-68): a directory with
   shape.txt    "N ndims"
   id.txt       whitespace-separated row names (ISO-8859-1)
-  feature.bin  N x ndims float32, row-major
+  feature.bin  N x ndims float32 (or float16: BigFile16), row-major
 
 The reference reads rows with per-row file seeks inside DataLoader workers
 (basic_utils.py:38-58) — the hot path of its input pipeline. Here the file
@@ -22,7 +22,7 @@ import numpy as np
 class BigFile:
     """Read-only memmap view over a BigFile directory."""
 
-    def __init__(self, datadir: str):
+    def __init__(self, datadir: str, dtype=np.float32):
         with open(os.path.join(datadir, "shape.txt")) as f:
             self.nr_of_images, self.ndims = map(int, f.readline().split())
         with open(os.path.join(datadir, "id.txt"), "rb") as f:
@@ -33,14 +33,24 @@ class BigFile:
                 f"id.txt has {len(self.names)} names, shape.txt says "
                 f"{self.nr_of_images}")
         self.name2index = {n: i for i, n in enumerate(self.names)}
-        self._mm = np.memmap(os.path.join(datadir, "feature.bin"),
-                             dtype=np.float32, mode="r",
+        # the native packer (data/native.py) preads float32 rows from here
+        self.bin_path = os.path.join(datadir, "feature.bin")
+        self.dtype = np.dtype(dtype)
+        self._mm = np.memmap(self.bin_path, dtype=self.dtype, mode="r",
                              shape=(self.nr_of_images, self.ndims))
 
     def read(self, names: Iterable[str]) -> np.ndarray:
         """Gather rows by name, in the order given. KeyError on unknown."""
         idx = np.fromiter((self.name2index[n] for n in names), dtype=np.int64)
         return np.asarray(self._mm[idx], dtype=np.float32)
+
+
+class BigFile16(BigFile):
+    """float16 variant (reference utils/basic_utils.py:70-129); packed by
+    the numpy path."""
+
+    def __init__(self, datadir: str):
+        super().__init__(datadir, dtype=np.float16)
 
 
 class BigFileWriter:

@@ -2,8 +2,10 @@
 
 The PyTorch port's own copy of `dldkd_tpu/data/ingest.py` (same packing
 conventions, so both packages train on and score identical inputs). The
-packers here are the numpy path; the native C++ packer is not part of the
-port yet (ROADMAP A4b).
+corpus and training packers gather, resample and normalize the student
+frames with the native C++ packer (`data/native.py`) where it is available,
+as the JAX package does, else with numpy (one f32 ulp apart:
+$DLDKD_NO_NATIVE=1, no g++, or a float16 BigFile).
 
 On-disk layout consumed (SURVEY.md S2.3):
   $root/$collection/FeatureData/$visual_feature/          BigFile + video2frames.txt
@@ -135,6 +137,31 @@ class TrainData:
 # Packing
 # --------------------------------------------------------------------- #
 
+def _frame_row_indices(visual_feat: BigFile, video2frames: dict,
+                       video_ids: List[str]) -> List[np.ndarray]:
+    n2i = visual_feat.name2index
+    return [np.asarray([n2i[f] for f in video2frames[v]], np.int64)
+            for v in video_ids]
+
+
+def _pack_student_native(visual_feat: BigFile, video2frames: dict,
+                         video_ids: List[str],
+                         align_len: Optional[np.ndarray],
+                         max_ctx_l: int) -> Optional[Tuple[np.ndarray,
+                                                           np.ndarray]]:
+    """Gather, resample and normalize every video's student frames through
+    the C++ thread pool (dldkd_tpu/data/ingest.py:149-162); None -> the
+    caller takes the numpy path."""
+    if visual_feat.dtype != np.float32:
+        return None  # a float16 BigFile: the numpy path
+    from dldkd_tpu_torch.data.native import pack_corpus_native
+
+    return pack_corpus_native(
+        visual_feat.bin_path, visual_feat.ndims,
+        _frame_row_indices(visual_feat, video2frames, video_ids),
+        align_len, max_ctx_l)
+
+
 def _teacher_text_key(store, cap_id: str) -> str:
     """CLIP text stores sometimes key caps as 'vid#j' instead of
     'vid#enc#j' (reference fallback, data_provider.py:250-257)."""
@@ -166,22 +193,36 @@ def pack_train_dataset(
     _, _, video_ids, vid_caps = load_captions(cap_file)
     n_vid = len(video_ids)
     with open_features(teacher_vid_feat_path) as tv:
+        # teacher lengths first: the student grid aligns to them
+        t_lens = np.asarray([tv[vid].shape[0] for vid in video_ids],
+                            np.int64)
         t_dim = np.asarray(tv[video_ids[0]]).shape[1]
-        feats = np.zeros((n_vid, max_ctx_l, visual_feat.ndims), np.float32)
-        mask = np.zeros((n_vid, max_ctx_l), np.float32)
         t_feats = np.zeros((n_vid, max_ctx_l, t_dim), np.float32)
-        for i, vid in enumerate(video_ids):
-            teacher = np.asarray(tv[vid][:], np.float32)
-            student = visual_feat.read(video2frames[vid])
-            # align the student frame grid to the teacher's, then cap
-            student = uniform_feature_sampling(student, teacher.shape[0])
-            student = uniform_feature_sampling(student, max_ctx_l)
-            teacher = uniform_feature_sampling(teacher, max_ctx_l)
-            # after alignment both have at most the teacher's length
-            n = min(student.shape[0], teacher.shape[0])
-            feats[i, :n] = l2_normalize_rows(student[:n])
-            t_feats[i, :teacher.shape[0]] = teacher
-            mask[i, :n] = 1.0
+        packed = _pack_student_native(visual_feat, video2frames, video_ids,
+                                      t_lens, max_ctx_l)
+        if packed is not None:
+            feats, mask = packed
+            for i, vid in enumerate(video_ids):
+                teacher = uniform_feature_sampling(
+                    np.asarray(tv[vid][:], np.float32), max_ctx_l)
+                t_feats[i, :teacher.shape[0]] = teacher
+        else:
+            feats = np.zeros((n_vid, max_ctx_l, visual_feat.ndims),
+                             np.float32)
+            mask = np.zeros((n_vid, max_ctx_l), np.float32)
+            for i, vid in enumerate(video_ids):
+                teacher = np.asarray(tv[vid][:], np.float32)
+                student = visual_feat.read(video2frames[vid])
+                # align the student frame grid to the teacher's, then cap
+                student = uniform_feature_sampling(student,
+                                                   teacher.shape[0])
+                student = uniform_feature_sampling(student, max_ctx_l)
+                teacher = uniform_feature_sampling(teacher, max_ctx_l)
+                # after alignment both have at most the teacher's length
+                n = min(student.shape[0], teacher.shape[0])
+                feats[i, :n] = l2_normalize_rows(student[:n])
+                t_feats[i, :teacher.shape[0]] = teacher
+                mask[i, :n] = 1.0
 
     videos = PackedVideos(feats=feats, mask=mask, ids=video_ids,
                           teacher_feats=t_feats)
@@ -203,6 +244,11 @@ def pack_video_corpus(
     """Eval corpus videos (reference VisDataSet4DLDKD, data_provider.py:268-312):
     no teacher alignment (teacher_feat is always None at eval), resample to
     max_ctx_l, L2-normalize."""
+    packed = _pack_student_native(visual_feat, video2frames, list(video_ids),
+                                  None, max_ctx_l)
+    if packed is not None:
+        return PackedVideos(feats=packed[0], mask=packed[1],
+                            ids=list(video_ids))
     n = len(video_ids)
     feats = np.zeros((n, max_ctx_l, visual_feat.ndims), np.float32)
     mask = np.zeros((n, max_ctx_l), np.float32)

@@ -50,14 +50,7 @@ def _inference(cfg: Config, split: str, dev: torch.device):
     model.eval()
     logger.info("restored checkpoint from epoch %d", epoch)
 
-    paths = dataset_paths(cfg.data.root_path, cfg.data.collection,
-                          cfg.data.visual_feature)
-    videos = pack_video_corpus(
-        read_video_ids(paths["cap_file"][split]),
-        BigFile(paths["visual_feat_dir"]), read_dict(paths["video2frames"]),
-        max_ctx_l=mcfg.max_ctx_l)
-    queries = pack_query_set(paths["cap_file"][split], paths["text_feat"],
-                             max_desc_l=mcfg.max_desc_l)
+    videos, queries = pack_split(cfg, split, mcfg)
 
     with torch.no_grad():
         metrics = run_retrieval_eval(model, videos, queries, cfg.eval,
@@ -75,6 +68,27 @@ def _inference(cfg: Config, split: str, dev: torch.device):
         f.write(time.strftime("%Y_%m_%d_%H_%M_%S") + "\n"
                 + "\n".join(lines) + "\n")
     return metrics
+
+
+def pack_split(cfg: Config, split: str, mcfg):
+    """The split's corpus and queries, packed (BigFile and feature stores
+    -> padded arrays), through the content-keyed pack cache
+    (`data/cache.py`) unless cfg.data.pack_cache is off (--no_pack_cache),
+    as dldkd_tpu/infer.py:40-44 packs them."""
+    paths = dataset_paths(cfg.data.root_path, cfg.data.collection,
+                          cfg.data.visual_feature)
+    if cfg.data.pack_cache:
+        from dldkd_tpu_torch.data import cache as pack_cache
+
+        return (pack_cache.cached_corpus_pack(paths, split, mcfg.max_ctx_l),
+                pack_cache.cached_query_pack(paths, split, mcfg.max_desc_l))
+    videos = pack_video_corpus(
+        read_video_ids(paths["cap_file"][split]),
+        BigFile(paths["visual_feat_dir"]), read_dict(paths["video2frames"]),
+        max_ctx_l=mcfg.max_ctx_l)
+    queries = pack_query_set(paths["cap_file"][split], paths["text_feat"],
+                             max_desc_l=mcfg.max_desc_l)
+    return videos, queries
 
 
 def main(argv=None):

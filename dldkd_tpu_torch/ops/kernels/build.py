@@ -4,7 +4,10 @@ Each `csrc/<name>.cu` compiles with nvcc for Hopper (`sm_90a`) into its own
 shared library with a plain C interface, under `_build/` beside the
 sources (listed in .gitignore). A library's file name carries a hash of its
 source, of the shared headers (`csrc/*.cuh`) and of the flags, so an edited
-source or header rebuilds and an unchanged one loads as it is. `build()`
+source or header rebuilds and an unchanged one loads as it is, and one
+directory can serve several checkouts and processes: `set_build_dir` points
+the builds and loads at another directory (serving's `aot_cache_dir`, which
+a fleet of replicas shares so that the offline index build fills it once). `build()`
 starts one nvcc per missing library, all at once, and waits for them
 together. A failed build raises with nvcc's output.
 
@@ -31,6 +34,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BOUND: Dict[tuple, ctypes._CFuncPtr] = {}
+
+
+def set_build_dir(path) -> None:
+    """Build the libraries into, and load them from, `path` from now on
+    (made if missing). Libraries already loaded from elsewhere are dropped
+    from this process's table, so the next call of each kernel loads, or
+    builds, its library under `path`."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path).resolve()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _LIBS.clear()
+    _BOUND.clear()
 
 
 def nvcc_path() -> str:

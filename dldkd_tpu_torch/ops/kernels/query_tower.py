@@ -6,7 +6,10 @@ and `_dual_context_tower_kernel`, and through the one-branch launch
 `_query_tower_kernel` and `_context_tower_kernel`; with `emit_q8=True` the
 video towers end in `quantize_frames_q8` (the epilogue `_quantize_q8` /
 `_map_context(emit_q8=True)`), which also builds the two-stage serving
-index from stored frames. Both dtypes run one chain of CUDA kernels:
+index from stored frames; with `q8_transposed=True` as well
+(`fused_context_tower_dual`, `context_towers`) the epilogue writes the int8
+rows padded and in the TPU scoring layout (L_p, Nv_p, H), as
+`_map_context(transposed=True)` does. Both dtypes run one chain of CUDA kernels:
 `csrc/tower_mma.cu` (the input normalization, every product on wgmma and
 the attention on mma.sync, on the tensor cores: bf16 products in bf16,
 f32 products in 3xTF32, the f32-grade split products of the f32 scorer)
@@ -49,10 +52,12 @@ import torch
 import torch.nn.functional as F
 
 # launches of the CUDA chains and of the int8 epilogue since the counts
-# were last set to 0; the chains also by their dtype (query_tower_f32, ...)
+# were last set to 0; the chains also by their dtype (query_tower_f32, ...),
+# the epilogue's transposed write (q8_transposed) as context_tower_q8_t
 LAUNCHES = {"query_tower": 0, "query_tower_bf16": 0, "query_tower_f32": 0,
             "context_tower": 0, "context_tower_bf16": 0,
-            "context_tower_f32": 0, "context_tower_q8": 0}
+            "context_tower_f32": 0, "context_tower_q8": 0,
+            "context_tower_q8_t": 0}
 # calls of pack_weights since the counts were last set to 0, by tower kind
 PACKS = {"query": 0, "context": 0}
 
@@ -238,16 +243,46 @@ def quantize_frames_q8(x: torch.Tensor, plain: bool = False
     return y
 
 
+def _quantize_entry():
+    from dldkd_tpu_torch.ops.kernels.build import bind
+
+    return bind("tower", "tower_quantize_q8", 2, 9)
+
+
 def _launch_quantize(x: torch.Tensor, y: torch.Tensor, stream) -> None:
     """The epilogue kernel on contiguous x (..., H) in the tower dtype into
-    int8 y of the same shape; counts one launch."""
-    from dldkd_tpu_torch.ops.kernels.build import bind, check
+    int8 y of the same shape, row for row; counts one launch."""
+    from dldkd_tpu_torch.ops.kernels.build import check
 
     h = x.shape[-1]
-    check(bind("tower", "tower_quantize_q8", 2, 3)(
-        x.data_ptr(), y.data_ptr(), x.numel() // max(h, 1), h,
-        int(x.dtype == torch.bfloat16), stream), "tower_quantize_q8")
+    m = x.numel() // max(h, 1)
+    check(_quantize_entry()(x.data_ptr(), y.data_ptr(), m, h, h, m, 1, 0, 0,
+                            0, int(x.dtype == torch.bfloat16), stream),
+          "tower_quantize_q8")
     LAUNCHES["context_tower_q8"] += 1
+
+
+def _launch_quantize_t(y: torch.Tensor, hdim: int, seq_l: int,
+                       out: torch.Tensor, v_off: int, stream) -> None:
+    """The epilogue's transposed write: y (G, N seq_l, hp) rows of one
+    sub-launch in the tower dtype (H = hdim valid columns) into out (G, l_p,
+    nv_p, H) int8, the sub-launch's first video at v_off; counts one
+    launch as context_tower_q8_t."""
+    from dldkd_tpu_torch.ops.kernels.build import check
+
+    g_n, m, hp = y.shape
+    _, l_p, nv_p, _ = out.shape
+    check(_quantize_entry()(y.data_ptr(), out.data_ptr(), g_n * m, hdim, hp,
+                            m, seq_l, nv_p, l_p, v_off,
+                            int(y.dtype == torch.bfloat16), stream),
+          "tower_quantize_q8 (transposed)")
+    LAUNCHES["context_tower_q8_t"] += 1
+
+
+def q8_transposed_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of the transposed write: int8 rows (Nv_p, L_p, H) of
+    padded videos and frames, in the TPU scoring layout (L_p, Nv_p, H)."""
+    return rows.permute(1, 0, 2).contiguous()
 
 
 def tower_plain(x: torch.Tensor, mask: torch.Tensor,
@@ -431,7 +466,7 @@ def tower_packed_plain(x: torch.Tensor, mask: torch.Tensor,
 def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
                packed: Dict[str, torch.Tensor], n_heads: int,
                dtype: torch.dtype, kind: str, emit_q8: bool = False,
-               pos_rows=None) -> List[torch.Tensor]:
+               pos_rows=None, q8_out=None) -> List[torch.Tensor]:
     """The CUDA chain for one launch over the branches in `packed`
     (pack_weights, in `dtype` and for n_heads heads); same contract as
     tower_plain. x and mask are contiguous f32 CUDA tensors; each
@@ -447,9 +482,12 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
     plain f32. The buffers carry the packer's padded widths (zeros past the
     true ones); the outputs come back at the true widths. With emit_q8
     (video towers) the out_mapping product goes to a scratch buffer and the
-    int8 epilogue writes the outputs. Bound: operations, 3 TF32 products
-    over 495 TFLOP/s in f32 and the bf16 products over 989 TFLOP/s in bf16;
-    at the query tower's sizes the chain's eight launches set the floor."""
+    int8 epilogue writes the outputs; q8_out = (out, v_off) makes it the
+    transposed write into out (G, L_p, Nv_p, H) int8 at video v_off
+    (`_launch_quantize_t`), and returns out's branches. Bound: operations,
+    3 TF32 products over 495 TFLOP/s in f32 and the bf16 products over 989
+    TFLOP/s in bf16; at the query tower's sizes the chain's eight launches
+    set the floor."""
     from dldkd_tpu_torch.ops.kernels.build import bind, check
 
     hdim, heads_packed, d_packed = (int(v) for v in packed["dims"])
@@ -541,12 +579,17 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
              None, (m, hp, hp, ghp, hp, hp, 0, 0), (hp, hp * hp, hp, m * hp,
                                                    0))
         del out
-        if emit_q8:  # zero columns past H leave each row's sum unchanged
+        if emit_q8 and q8_out is not None:
+            _launch_quantize_t(y, hdim, l, q8_out[0], q8_out[1], s)
+            y = None
+        elif emit_q8:  # zero columns past H leave each row's sum unchanged
             y8 = torch.empty((g_n, m, hp), dtype=torch.int8, device=dev)
             _launch_quantize(y, y8, s)
             y = y8
     LAUNCHES["context_tower"] += 1
     LAUNCHES["context_tower_" + ("bf16" if bf else "f32")] += 1
+    if y is None:
+        return list(q8_out[0].unbind(0))
     outs = [t.view(n, l, hp) for t in y.unbind(0)]
     if hp != hdim:
         outs = [t[..., :hdim].contiguous() for t in outs]
@@ -620,22 +663,36 @@ def sequences_per_launch(l: int, d: int, packed: Dict[str, torch.Tensor]
 
 
 def _run(x, mask, weights, n_heads, dtype, kind, l, plain, emit_q8=False,
-         packed=None):
+         packed=None, q8_transposed=False):
     """One launch over sequences of l rows (x padded past them): the plain
     version on the weight tuples on the CPU or with plain=True, else the
     CUDA chain on the packed operands (packed here when not given), in as
     many launches of at most `sequences_per_launch` sequences as it
-    takes (one at every block size the eval and serving default to)."""
+    takes (one at every block size the eval and serving default to). With
+    q8_transposed (and emit_q8) the int8 rows come back as (L_p, Nv_p, H)
+    per branch, x's padded frames and videos included: every sub-launch
+    writes its videos at their offset in one output buffer."""
     if plain or x.device.type == "cpu":
         weights = [_with_pos(w, l, x.shape[1]) for w in weights]
-        return tower_plain(x, mask, weights, n_heads, dtype, kind, emit_q8)
+        outs = tower_plain(x, mask, weights, n_heads, dtype, kind, emit_q8)
+        if q8_transposed:
+            outs = [q8_transposed_plain(t) for t in outs]
+        return outs
     if packed is None:
         packed = pack_weights(weights, dtype, n_heads, x.device)
     cap = sequences_per_launch(x.shape[1], x.shape[2], packed)
+    q8_out = None
+    if q8_transposed:
+        nv_p, l_p = x.shape[:2]
+        q8_out = torch.empty((len(weights), l_p, nv_p, int(packed["dims"][0])),
+                             dtype=torch.int8, device=x.device)
     parts = [tower_cuda(x[s:s + cap].contiguous(),
                         mask[s:s + cap].contiguous(), packed, n_heads, dtype,
-                        kind, emit_q8, pos_rows=l)
+                        kind, emit_q8, pos_rows=l,
+                        q8_out=None if q8_out is None else (q8_out, s))
              for s in range(0, max(x.shape[0], 1), cap)]
+    if q8_out is not None:
+        return parts[-1]
     if len(parts) == 1:
         return parts[0]
     return [torch.cat(outs) for outs in zip(*parts)]
@@ -665,17 +722,35 @@ def context_towers(x: torch.Tensor, mask: torch.Tensor,
                    weights: Sequence[Weights], n_heads: int,
                    dtype: torch.dtype, what: str,
                    plain: bool = False, emit_q8: bool = False,
-                   packed=None) -> List[torch.Tensor]:
+                   packed=None, q8_transposed: bool = False
+                   ) -> List[torch.Tensor]:
     """Frame features (Nv, L, H) in the tower dtype for each weight tuple,
     in one launch; with emit_q8 the int8 index rows (Nv, L, H) instead
     (`quantize_frames_q8` of those frame features). packed: as for
-    query_towers."""
+    query_towers.
+
+    q8_transposed (with emit_q8; ignored without it, as in
+    dldkd_tpu/ops/pallas/query_tower.py:455): the int8 rows PADDED and in
+    the TPU scoring layout, (L_p, Nv_p, H) per branch, as the Pallas
+    wrapper pads them (:458-465): videos to a multiple of
+    `sim_max.V_LANES`, frames to max(8, `sim_max.pick_q8_l_tile(H)`). The
+    towers run on the padded rows, so padded positions hold computed values
+    (masked out by `sim_max.q8_index_bias(mask, L_p, Nv_p)`)."""
     _check_inputs(x, mask, weights, dtype, what)
     lv = x.shape[1]
     for w in weights:
         _check_pos_table(w[2], lv, what)
+    q8_t = bool(emit_q8 and q8_transposed)
+    if q8_t:
+        from dldkd_tpu_torch.ops.kernels.sim_max import V_LANES, pick_q8_l_tile
+
+        l_grid = max(8, pick_q8_l_tile(weights[0][0].shape[1]))
+        lv_p = -(-lv // l_grid) * l_grid
+        nv_p = -(-x.shape[0] // V_LANES) * V_LANES
+        x = F.pad(x, (0, 0, 0, lv_p - lv, 0, nv_p - x.shape[0]))
+        mask = F.pad(mask, (0, lv_p - lv, 0, nv_p - mask.shape[0]))
     return _run(x, mask, weights, n_heads, dtype, "context", lv, plain,
-                emit_q8, packed)
+                emit_q8, packed, q8_t)
 
 
 def fused_query_tower(x, mask, weights: Weights, n_heads: int,
@@ -716,10 +791,14 @@ def fused_context_tower(x, mask, weights: Weights, n_heads: int,
 def fused_context_tower_dual(x, mask, weights_a: Weights, weights_b: Weights,
                              n_heads: int,
                              dtype: torch.dtype = torch.bfloat16,
-                             plain: bool = False, emit_q8: bool = False
+                             plain: bool = False, emit_q8: bool = False,
+                             q8_transposed: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both branches' frame features (or int8 index rows, emit_q8) from
-    one read of the raw frames."""
+    one read of the raw frames; with emit_q8 and q8_transposed the int8
+    rows padded in the TPU scoring layout (L_p, Nv_p, H) (`context_towers`),
+    to pair with `sim_max.q8_index_bias(mask, L_p, Nv_p)`."""
     a, b = context_towers(x, mask, [weights_a, weights_b], n_heads, dtype,
-                          "fused_context_tower_dual", plain, emit_q8)
+                          "fused_context_tower_dual", plain, emit_q8,
+                          q8_transposed=q8_transposed)
     return a, b

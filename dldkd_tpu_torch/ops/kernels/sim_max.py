@@ -27,7 +27,10 @@ itself; the helpers here are the same arithmetic for the tests.
 
 The int8 index keeps the port's own layout: (Nv, L, D) int8 rows and an
 (Nv, L) int32 bias, 0 on valid frames and INT8_MASK_BIAS on masked or padded
-ones (no transpose, no padding to a lane grid).
+ones (no transpose, no padding to a lane grid). The TPU's grid (videos
+padded to `V_LANES`, frames to `pick_q8_l_tile`, frames first) is kept here
+for the towers' transposed int8 emission (`query_tower.context_towers(...,
+q8_transposed=True)`) and its bias (`q8_index_bias(mask, l_p, nv_p)`).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain PyTorch version (full f32 products), which the CPU tests
@@ -36,7 +39,7 @@ hold against the Pallas kernels in interpret mode.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +55,10 @@ LAUNCHES = {"sim_max": 0, "sim_max_bf16": 0, "sim_max_f32": 0,
             "sim_max_int8": 0, "sim_max_exact": 0}
 
 INT8_MASK_BIAS = -(1 << 30)   # int32 "-inf": dominates any |s| <= D * 127^2
+V_LANES = 128   # the TPU index's video grid (dldkd_tpu/ops/pallas/sim_max.py)
+# the TPU scoring kernels' VMEM budget, half of it for the corpus block
+# (dldkd_tpu/ops/similarity.py:_pick_tiles)
+_TPU_TILE_BUDGET = 8 * 1024 * 1024
 NEG_BIG_INT8 = INT8_MASK_BIAS / (INT8_SCALE * INT8_SCALE)   # dequantized
 # float32(1 / 127^2), the constant the TPU kernel multiplies by
 # (sim_max.py:216-217), held as the Python float of that f32 value
@@ -202,9 +209,28 @@ def fused_clip_scores(qn: torch.Tensor, cn: torch.Tensor,
 
 # ------------------------------------------------------- kernel 4: int8
 
-def q8_index_bias(mask: torch.Tensor) -> torch.Tensor:
-    """(Nv, L) int32 mask bias of the int8 index: 0 on valid frames,
-    INT8_MASK_BIAS on masked or padded ones."""
+def pick_q8_l_tile(d: int) -> int:
+    """The TPU int8 index's frame tile for depth d: the itemsize-1 frame
+    row of the JAX tile policy (dldkd_tpu/ops/similarity.py:_pick_tiles,
+    through dldkd_tpu/ops/pallas/sim_max.py:pick_q8_l_tile): 16 frames,
+    halved while a 16-frame x V_LANES-video x d int8 block passes half the
+    VMEM budget."""
+    l_tile = 16
+    while l_tile * V_LANES * d > _TPU_TILE_BUDGET // 2 and l_tile > 1:
+        l_tile //= 2
+    return l_tile
+
+
+def q8_index_bias(mask: torch.Tensor, l_p: Optional[int] = None,
+                  nv_p: Optional[int] = None) -> torch.Tensor:
+    """int32 mask bias of the int8 index: 0 on valid frames,
+    INT8_MASK_BIAS on masked or padded ones. Without a grid: (Nv, L), the
+    port's layout. With l_p and nv_p: (l_p, nv_p), the TPU layout of the
+    towers' transposed emission, the mask padded with zeros to (nv_p, l_p)
+    first (dldkd_tpu/ops/pallas/sim_max.py:q8_index_bias)."""
+    if l_p is not None or nv_p is not None:
+        nv, l_frames = mask.shape
+        mask = F.pad(mask, (0, l_p - l_frames, 0, nv_p - nv)).T
     return torch.where(mask > 0, 0, INT8_MASK_BIAS).to(torch.int32)
 
 

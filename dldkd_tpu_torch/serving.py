@@ -27,18 +27,35 @@ does not fit the device's free memory. Three routes, on either store:
   retriever.index(packed_videos)     # or index_corpus(root, collection, ...)
   ids, scores = retriever.search(q_feats, q_mask, k=10)
 
+Index artifacts (`save_index` / `load_index`, the JAX package's format,
+`utils/index_io.py`): build the index once offline and start every serving
+replica from it; an artifact of either package loads in the other. The
+port's cold cost is the one-time nvcc build of the kernel libraries, not a
+per-signature compile: `aot_cache_dir` names the directory those libraries
+are built into and loaded from (`ops/kernels/build.set_build_dir`), which a
+fleet shares, and a prewarm manifest (`save_index(prewarm=[(lq, k)])`)
+records search signatures that each replica runs once at load.
+
+  retriever.save_index("idx")            # offline, after index()
+  replica.load_index("idx")              # instead of index()
+
 CLI: python -m dldkd_tpu_torch.serving --model_dir <run> --root_path <root>
         --collection tvr --visual_feature i3d_resnet --queries q.npz --k 10
-writes one JSON line per query: {"cap_id", "topk": [[video_id, score], ...]}.
+writes one JSON line per query: {"cap_id", "topk": [[video_id, score], ...]};
+--save_index DIR (without --queries: build, write and exit), --load_index DIR
+(with .npz or .hdf5 queries no dataset flags), --prewarm LQ:K[,...],
+--aot_cache_dir DIR, --warm_start.
 
-Not ported (each raises naming its ROADMAP item): save_index/load_index,
-prewarm, the executable cache and warm start (A13); a device mesh (A14).
+Not ported: a device mesh (raises naming ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import logging
+import os
+import shutil
 import sys
 from typing import List, Optional, Tuple
 
@@ -56,13 +73,14 @@ from dldkd_tpu_torch.ops.fast_eval import (encode_context_best,
                                            encode_query_best, tower_dtype,
                                            tower_weights)
 from dldkd_tpu_torch.ops.kernels.query_tower import quantize_frames_q8
-from dldkd_tpu_torch.ops.kernels.sim_max import build_q8_index
+from dldkd_tpu_torch.ops.kernels.sim_max import build_q8_index, q8_index_bias
 from dldkd_tpu_torch.ops.masking import l2_normalize
 from dldkd_tpu_torch.ops.similarity import (clip_scores_maxpool,
                                             clip_scores_maxpool_pre8,
                                             dense_rescore_wins,
                                             exact_clip_scores,
                                             rescore_shortlist)
+from dldkd_tpu_torch.utils import index_io
 
 SHORTLIST_FACTOR = 4  # default stage-1 candidates per result (k' = 4k)
 # search keeps at most this many batches' results un-fetched: the oldest is
@@ -200,6 +218,21 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is ROADMAP {item}, not ported")
 
 
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(x))
+
+
+def parse_prewarm(spec: str) -> List[Tuple[int, int]]:
+    """'LQ:K[,LQ:K...]' -> [(lq, k), ...]; ValueError on a malformed
+    spec."""
+    out = []
+    for part in spec.split(","):
+        lq, k = part.split(":")
+        out.append((int(lq), int(k)))
+    return out
+
+
 class Retriever:
     """Device-resident corpus index and batched top-k search on one GPU."""
 
@@ -226,16 +259,27 @@ class Retriever:
         device: where the index lives and search runs ("cuda" unless told
         otherwise).
         plain=True runs every kernel's plain PyTorch version instead, on
-        any device: the reference side of a kernel check."""
+        any device: the reference side of a kernel check.
+
+        warm_start: accepted, and the results are those of a cold
+        score_quant retriever. In the JAX package the exact path serves
+        while the int8 search program compiles in a thread, then swaps to
+        it (results after the swap are these). The port has no such
+        detour: every route runs the same kernel libraries, built once per
+        source hash, so no route compiles per search signature.
+        aot_cache_dir: the directory the CUDA kernel libraries are built
+        into and loaded from (`ops/kernels/build.set_build_dir`; default
+        dldkd_tpu_torch/csrc/_build): a replica fleet points every replica
+        at one directory, and the offline index build fills it."""
         if mesh is not None:
             raise _not_ported("a device mesh (corpus-sharded serving)",
                               "A14")
         if index_store not in (None, "auto", "encoded", "raw"):
             raise ValueError(f"index_store: {index_store!r}")
-        if warm_start:
-            raise _not_ported("warm_start", "A13")
         if aot_cache_dir:
-            raise _not_ported("the executable cache (aot_cache_dir)", "A13")
+            from dldkd_tpu_torch.ops.kernels import build
+
+            build.set_build_dir(aot_cache_dir)
         self.device = resolve_device(device)
         self.model = model.eval()
         self.plain = bool(plain)
@@ -267,6 +311,8 @@ class Retriever:
         self.ctx_inher = self.ctx_explore = self.vmask = None
         self.q8_inher = self.q8_explore = self.q8_bias = None
         self.raw_feats = self.raw_mask = None
+        # the stored frames are L2-normalized (the exact route's store)
+        self.frames_normalized = False
         self.video_ids: List[str] = []
 
     def auto_index_store(self, n_videos: int) -> str:
@@ -301,21 +347,7 @@ class Retriever:
         store = self.index_store or self.auto_index_store(len(videos))
         self.index_store = store
         if store == "raw":
-            n, sb = len(videos), self.stream_block
-            n_pad = -(-n // sb) * sb
-            self.raw_feats = torch.zeros(
-                (n_pad,) + videos.feats.shape[1:],
-                dtype=tower_dtype(self.model.config), device=self.device)
-            self.raw_mask = torch.zeros((n_pad,) + videos.mask.shape[1:],
-                                        dtype=torch.float32,
-                                        device=self.device)
-            # a block at a time: no corpus-sized f32 copy on the device
-            for s in range(0, n, sb):
-                block = torch.from_numpy(np.ascontiguousarray(
-                    videos.feats[s:s + sb]))
-                self.raw_feats[s:s + block.shape[0]].copy_(block)
-            self.raw_mask[:n] = torch.from_numpy(
-                np.asarray(videos.mask, np.float32))
+            self._place_raw(videos.feats, videos.mask)
             self.video_ids = list(videos.ids)
             return
         args = (self.model, videos, context_bsz, self.device, self.weights,
@@ -325,21 +357,46 @@ class Retriever:
                 embed_corpus_q8(*args)
         else:
             ctx_i, ctx_e, self.vmask = embed_corpus(*args)
-            if self.score_quant:
-                # stage 2 reads the stored frames; stage 1 reads an int8
-                # index built from them once, here
-                self.ctx_inher, self.ctx_explore = ctx_i, ctx_e
-                self.q8_inher, self.q8_bias = build_q8_index(
-                    quantize_frames_q8(ctx_i, self.plain), self.vmask)
-                if ctx_e is not None:
-                    self.q8_explore = build_q8_index(
-                        quantize_frames_q8(ctx_e, self.plain), self.vmask)[0]
-            else:
-                # the exact route normalizes its frames once, not per search
-                self.ctx_inher = l2_normalize(ctx_i)
-                self.ctx_explore = (l2_normalize(ctx_e) if ctx_e is not None
-                                    else None)
+            self._set_frames(ctx_i, ctx_e, normalized=False)
         self.video_ids = list(videos.ids)
+
+    def _place_raw(self, feats, mask) -> None:
+        """The raw store from (N, L, D) frame features (numpy, or a tensor
+        in any float dtype) and their (N, L) mask: features in the model's
+        compute dtype, padded with zero rows to a whole number of stream
+        blocks (dldkd_tpu/serving.py:589-612, one device), copied a block
+        at a time (no corpus-sized f32 copy on the device)."""
+        n, sb = feats.shape[0], self.stream_block
+        n_pad = -(-n // sb) * sb
+        self.raw_feats = torch.zeros(
+            (n_pad,) + tuple(feats.shape[1:]),
+            dtype=tower_dtype(self.model.config), device=self.device)
+        self.raw_mask = torch.zeros((n_pad,) + tuple(mask.shape[1:]),
+                                    dtype=torch.float32, device=self.device)
+        for s in range(0, n, sb):
+            block = _as_tensor(feats[s:s + sb])
+            self.raw_feats[s:s + block.shape[0]].copy_(block)
+        self.raw_mask[:n] = _as_tensor(mask).float()
+
+    def _set_frames(self, ctx_i, ctx_e, normalized: bool) -> None:
+        """The encoded store from stored frames (Np, L, H) on the device
+        and self.vmask. Two-stage: the frames as they are (stage 2 reads
+        them) and an int8 index built from them once, here. Exact: the
+        frames L2-normalized once (unless they already are), not per
+        search."""
+        if self.score_quant:
+            self.ctx_inher, self.ctx_explore = ctx_i, ctx_e
+            self.frames_normalized = normalized
+            self.q8_inher, self.q8_bias = build_q8_index(
+                quantize_frames_q8(ctx_i, self.plain), self.vmask)
+            if ctx_e is not None:
+                self.q8_explore = build_q8_index(
+                    quantize_frames_q8(ctx_e, self.plain), self.vmask)[0]
+        else:
+            norm = (lambda t: t) if normalized else l2_normalize
+            self.ctx_inher = norm(ctx_i)
+            self.ctx_explore = norm(ctx_e) if ctx_e is not None else None
+            self.frames_normalized = True
 
     def index_corpus(self, root_path: str, collection: str,
                      visual_feature: str, split: str = "test") -> None:
@@ -353,6 +410,191 @@ class Retriever:
             read_dict(paths["video2frames"]),
             max_ctx_l=self.model.config.max_ctx_l)
         self.index(videos)
+
+    # ---------------------------------------------------- index artifacts
+
+    def save_index(self, path: str,
+                   prewarm: Optional[List[Tuple[int, int]]] = None) -> None:
+        """Write the built index as an artifact (build once offline, load
+        in every serving replica): meta.json and one .npy per array, the
+        JAX package's format (dldkd_tpu/serving.py:768-905), written to a
+        staging directory and swapped into place whole
+        (`index_io.publish_dir`), so a re-save never mixes new arrays with
+        the old meta.json.
+
+        What is written, real rows only, by the store that was built:
+        - 'encoded': ctx_inher, ctx_explore (frames in the tower dtype) and
+          vmask. The two-stage store's frames are the towers' own, as the
+          JAX package stores them; the exact store's are L2-normalized (the
+          port keeps no other copy), marked by "frames_normalized": true in
+          meta.json so that the port does not normalize them again on load
+          (the JAX package ignores the key and normalizes them per search).
+          The stage-1 int8 companions are not written: load_index rebuilds
+          them through the epilogue kernel.
+        - int8-only: q8_rows_inher, q8_rows_explore (Nv, L, H) int8 and
+          q8_mask (Nv, L) uint8, canonical rows: the port's index is already
+          in that layout.
+        - 'raw': raw_feats in the compute dtype and raw_mask.
+
+        prewarm: (lq, k) search signatures at this retriever's query_bsz,
+        each run once now through this retriever's route (which builds the
+        kernel libraries and warms the allocator at that shape) and
+        recorded as meta.json's `prewarm_signatures` [[query_bsz, lq, k],
+        ...]; every replica that loads the artifact runs them once too.
+        Needs the prebuilt int8 index (score_quant), as in the JAX
+        package."""
+        if not self.video_ids:
+            raise RuntimeError("call index()/index_corpus() first")
+        if prewarm and self.q8_inher is None:
+            # before writing: the corpus arrays are the artifact's bulk
+            raise ValueError("prewarm needs the prebuilt int8 index "
+                             "(score_quant=True)")
+        stage = f"{path}.staging.{os.getpid()}"
+        shutil.rmtree(stage, ignore_errors=True)
+        os.makedirs(stage)
+        try:
+            self._write_index_stage(stage, prewarm)
+        except BaseException:
+            shutil.rmtree(stage, ignore_errors=True)
+            raise
+        index_io.publish_dir(stage, path)
+
+    def _write_index_stage(self, stage: str,
+                           prewarm: Optional[List[Tuple[int, int]]]) -> None:
+        n = len(self.video_ids)
+        manifest: dict = {}
+        meta: dict = {}
+
+        def save(name, t):
+            index_io.save_array(stage, name, t[:n], manifest)
+
+        if self.index_store == "raw":
+            save("raw_feats", self.raw_feats)
+            save("raw_mask", self.raw_mask)
+            mode = "raw"
+        elif self.ctx_inher is None:   # int8-only
+            save("q8_rows_inher", self.q8_inher)
+            if self.q8_explore is not None:
+                save("q8_rows_explore", self.q8_explore)
+            save("q8_mask", (self.q8_bias == 0).to(torch.uint8))
+            mode = "q8"
+        else:
+            save("ctx_inher", self.ctx_inher)
+            if self.ctx_explore is not None:
+                save("ctx_explore", self.ctx_explore)
+            save("vmask", self.vmask)
+            mode = "encoded"
+            if self.frames_normalized:
+                meta["frames_normalized"] = True
+        meta.update(mode=mode, arrays=manifest, n_videos=n,
+                    video_ids=list(self.video_ids),
+                    model_config=repr(self.model.config),
+                    params_fingerprint=index_io.params_fingerprint(
+                        self.model))
+        if prewarm:
+            meta["prewarm_signatures"] = self._prewarm(prewarm)
+        index_io.write_meta(stage, meta)
+
+    def _warm(self, lq: int, k: int) -> None:
+        """One search of query_bsz zero queries of lq tokens at k."""
+        f = np.zeros((self.query_bsz, lq, self.model.config.query_input_size),
+                     np.float32)
+        self.search(f, np.ones((self.query_bsz, lq), np.float32), k)
+
+    def _prewarm(self, signatures: List[Tuple[int, int]]) -> list:
+        """Run each (lq, k) signature once; the manifest rows."""
+        if self.q8_inher is None:
+            raise ValueError("prewarm needs the prebuilt int8 index "
+                             "(score_quant=True)")
+        rows = []
+        for lq, k in signatures:
+            self._warm(int(lq), int(k))
+            rows.append([self.query_bsz, int(lq), int(k)])
+        return rows
+
+    def _adopt_prewarm(self, meta: dict) -> None:
+        """Run every manifest signature of this retriever's batch size once
+        (the JAX package loads their compiled executables here)."""
+        for bsz, lq, k in meta.get("prewarm_signatures") or []:
+            if int(bsz) == self.query_bsz:
+                self._warm(int(lq), int(k))
+
+    def _rows_on_device(self, t: torch.Tensor, n_rows: int) -> torch.Tensor:
+        """t's rows on the device, zero rows appended up to n_rows."""
+        out = torch.zeros((n_rows,) + tuple(t.shape[1:]), dtype=t.dtype,
+                          device=self.device)
+        out[:t.shape[0]].copy_(t)
+        return out
+
+    @torch.no_grad()
+    def load_index(self, path: str, strict: bool = True,
+                   context_bsz: int = 200) -> None:
+        """Restore a save_index artifact of either package instead of
+        encoding the corpus (dldkd_tpu/serving.py:958-1063, one device).
+        strict=True refuses an artifact whose params fingerprint or model
+        config differs from this retriever's (it would serve wrong
+        results); strict=False loads it with a warning. Loading replaces
+        any index built before.
+
+        The arrays are placed as index() places them: the encoded and
+        int8 stores' rows padded with zero rows to index()'s context_bsz
+        grid (give the context_bsz the index was built with), the raw
+        store to whole stream blocks. An encoded artifact serves every
+        route: the exact route normalizes its frames once, here (unless
+        meta.json says they are), exactly as index() does after the
+        towers; score_quant rebuilds the stage-1 int8 companions through
+        the epilogue kernel, as index() builds them. An int8-only artifact
+        serves only score_quant=True, rescore=False: it has no frames;
+        its rows are trimmed to the model's max_ctx_l frames where the
+        JAX package padded them to its frame tile with masked frames."""
+        meta = index_io.read_meta(path)
+        if (meta["params_fingerprint"]
+                != index_io.params_fingerprint(self.model)
+                or meta["model_config"] != repr(self.model.config)):
+            msg = (f"index at {path} was built with different "
+                   f"weights/config than this retriever's")
+            if strict:
+                raise ValueError(msg + " (strict=False to force)")
+            logging.getLogger(__name__).warning("%s; loading anyway", msg)
+        mode = meta["mode"]
+        if mode == "q8" and not (self.score_quant and not self.rescore):
+            raise ValueError(
+                "an int8-only index has no frame features: it serves only "
+                "score_quant=True, rescore=False retrievers")
+        arrays = {name: index_io.load_array(path, name, dt)
+                  for name, dt in meta["arrays"].items()}
+        n = int(meta["n_videos"])
+        n_ctx = -(-n // context_bsz) * context_bsz
+        self._reset_index()
+        if mode == "raw":
+            self.index_store = "raw"
+            self._place_raw(arrays["raw_feats"], arrays["raw_mask"])
+        elif mode == "q8":
+            self.index_store = "encoded"
+            rows_i, mask = arrays["q8_rows_inher"], arrays["q8_mask"]
+            rows_e = arrays.get("q8_rows_explore")
+            l_model = self.model.config.max_ctx_l
+            if mask.shape[1] > l_model and not mask[:, l_model:].any():
+                # the JAX index's frame-tile padding: masked frames only
+                rows_i, mask = rows_i[:, :l_model], mask[:, :l_model]
+                rows_e = None if rows_e is None else rows_e[:, :l_model]
+            self.q8_inher = self._rows_on_device(rows_i.contiguous(), n_ctx)
+            if rows_e is not None:
+                self.q8_explore = self._rows_on_device(rows_e.contiguous(),
+                                                       n_ctx)
+            self.q8_bias = q8_index_bias(
+                self._rows_on_device(mask.float(), n_ctx)).contiguous()
+        else:
+            self.index_store = "encoded"
+            self.vmask = self._rows_on_device(arrays["vmask"].float(), n_ctx)
+            ctx_e = arrays.get("ctx_explore")
+            self._set_frames(
+                self._rows_on_device(arrays["ctx_inher"], n_ctx),
+                None if ctx_e is None else self._rows_on_device(ctx_e,
+                                                                n_ctx),
+                normalized=bool(meta.get("frames_normalized", False)))
+        self.video_ids = list(meta["video_ids"])
+        self._adopt_prewarm(meta)
 
     def _search_batch(self, f: torch.Tensor, m: torch.Tensor, k: int):
         if self.q8_inher is not None:
@@ -470,16 +712,23 @@ def _read_query_store(path: str, max_desc_l: int):
 
 
 def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__)
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.
+                                RawDescriptionHelpFormatter)
     p.add_argument("--model_dir", required=True)
-    p.add_argument("--root_path", default="")
+    p.add_argument("--root_path", default="",
+                   help="dataset root (not needed with --load_index and "
+                        ".npz/.hdf5 --queries: the artifact replaces the "
+                        "dataset)")
     p.add_argument("--collection", default="")
     p.add_argument("--visual_feature", default="")
     p.add_argument("--split", default="test")
     p.add_argument("--queries", default="",
                    help="feature store of cap_id -> (Lq, Dq) RoBERTa token "
                         "features (.hdf5, or its .npz twin), or a caption "
-                        "file to look ids up in the standard TextData store")
+                        "file to look ids up in the standard TextData store "
+                        "(optional with --save_index: build and write the "
+                        "index artifact, then exit)")
     p.add_argument("--k", type=int, default=10)
     p.add_argument("--out", default="-")
     p.add_argument("--score_quant", action="store_true",
@@ -503,24 +752,55 @@ def main(argv=None):
     p.add_argument("--stream_block", type=int, default=2048,
                    help="videos per re-encoded block for --index_store raw")
     p.add_argument("--torch_device", choices=("cuda", "cpu"), default="cuda")
-    for flag, meta in (("--save_index", "DIR"), ("--load_index", "DIR"),
-                       ("--prewarm", "LQ:K[,LQ:K...]"),
-                       ("--aot_cache_dir", "DIR")):
-        p.add_argument(flag, default="", metavar=meta,
-                       help="ROADMAP A13, not ported")
     p.add_argument("--warm_start", action="store_true",
-                   help="ROADMAP A13, not ported")
+                   help="accepted for the JAX CLI's flag; results are those "
+                        "of a cold --score_quant retriever (the JAX package "
+                        "serves the exact path while its int8 program "
+                        "compiles, then swaps; the port compiles no program "
+                        "per search, so there is nothing to bridge)")
+    p.add_argument("--aot_cache_dir", default="", metavar="DIR",
+                   help="build the CUDA kernel libraries into DIR and load "
+                        "them from there (default "
+                        "dldkd_tpu_torch/csrc/_build); replicas that share "
+                        "DIR with the offline --save_index build start "
+                        "without compiling")
+    p.add_argument("--save_index", default="", metavar="DIR",
+                   help="after building the index, write it under DIR "
+                        "(Retriever.save_index): an offline build step; "
+                        "serving replicas then start with --load_index")
+    p.add_argument("--load_index", default="", metavar="DIR",
+                   help="load a --save_index artifact (of this package or "
+                        "of dldkd_tpu) instead of building the index from "
+                        "the dataset (refuses one built with other weights)")
+    p.add_argument("--prewarm", default="", metavar="LQ:K[,LQ:K...]",
+                   help="with --save_index and --score_quant: run one "
+                        "search of each lq:k signature now and record them "
+                        "in the artifact; replicas that load it run them "
+                        "once at load")
     args = p.parse_args(argv)
-    for flag in ("save_index", "load_index", "prewarm", "aot_cache_dir",
-                 "warm_start"):
-        if getattr(args, flag):
-            p.error(f"--{flag} is ROADMAP A13, not ported")
-    if not args.queries:
-        p.error("--queries is required (building an index artifact without "
-                "queries, --save_index, is ROADMAP A13)")
-    if not (args.root_path and args.collection and args.visual_feature):
-        p.error("--root_path/--collection/--visual_feature are required to "
-                "build the index")
+    if not args.queries and not args.save_index:
+        p.error("--queries is required unless --save_index builds an "
+                "index artifact and exits")
+    needs_dataset = (not args.load_index
+                     or (args.queries and not args.queries.endswith(
+                         (".hdf5", ".h5", ".npz"))))
+    if needs_dataset and not (args.root_path and args.collection
+                              and args.visual_feature):
+        p.error("--root_path/--collection/--visual_feature are required "
+                "when building the index or resolving caption-file "
+                "queries")
+    # the --prewarm checks run before any corpus work
+    if args.prewarm and not args.score_quant:
+        p.error("--prewarm needs --score_quant (the prebuilt int8 index)")
+    if args.prewarm and not args.save_index:
+        p.error("--prewarm only applies to --save_index artifact builds")
+    prewarm = None
+    if args.prewarm:
+        try:
+            prewarm = parse_prewarm(args.prewarm)
+        except ValueError:
+            p.error(f"--prewarm {args.prewarm!r}: expected LQ:K[,LQ:K...] "
+                    "with integer fields")
 
     r = Retriever.from_checkpoint(args.model_dir,
                                   score_quant=args.score_quant,
@@ -528,9 +808,18 @@ def main(argv=None):
                                   shortlist_factor=args.shortlist_factor,
                                   index_store=args.index_store,
                                   stream_block=args.stream_block,
+                                  warm_start=args.warm_start,
+                                  aot_cache_dir=args.aot_cache_dir or None,
                                   device=args.torch_device)
-    r.index_corpus(args.root_path, args.collection, args.visual_feature,
-                   args.split)
+    if args.load_index:
+        r.load_index(args.load_index)
+    else:
+        r.index_corpus(args.root_path, args.collection, args.visual_feature,
+                       args.split)
+    if args.save_index:
+        r.save_index(args.save_index, prewarm=prewarm)
+        if not args.queries:
+            return
     max_desc_l = r.model.config.max_desc_l
     if args.queries.endswith((".hdf5", ".h5", ".npz")):
         cap_ids, feats, mask = _read_query_store(args.queries, max_desc_l)

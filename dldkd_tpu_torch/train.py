@@ -88,25 +88,40 @@ def train_step(model: DLDKD, mcfg: ModelConfig, tcfg, optimizer: BertAdam,
 
 def build_model_and_data(cfg: Config):
     """Pack the train split and the val split, and resolve the
-    data-dependent model config (the JAX package's pack cache has no
-    counterpart: the port packs anew, ROADMAP A4b)."""
+    data-dependent model config. With cfg.data.pack_cache (the default;
+    --no_pack_cache turns it off) the packed arrays come from the
+    content-keyed cache (`data/cache.py`), as dldkd_tpu/train.py:86-95
+    takes them: a second run maps them and reads no BigFile or HDF5."""
     paths = dataset_paths(cfg.data.root_path, cfg.data.collection,
                           cfg.data.visual_feature)
-    visual_feats = BigFile(paths["visual_feat_dir"])
-    video2frames = read_dict(paths["video2frames"])
-    train_data = pack_train_dataset(
-        paths["cap_file"]["train"], visual_feats, video2frames,
-        paths["text_feat"], paths["teacher_vid_feat"],
-        paths["teacher_text_feat"],
-        max_ctx_l=cfg.data.max_ctx_l, max_desc_l=cfg.data.max_desc_l)
-    val_videos = pack_video_corpus(
-        read_video_ids(paths["cap_file"]["val"]), visual_feats,
-        video2frames, max_ctx_l=cfg.data.max_ctx_l)
-    val_queries = pack_query_set(paths["cap_file"]["val"],
-                                 paths["text_feat"],
-                                 max_desc_l=cfg.data.max_desc_l)
+    if cfg.data.pack_cache:
+        from dldkd_tpu_torch.data import cache as pack_cache
+
+        train_data = pack_cache.cached_train_pack(
+            paths, cfg.data.max_ctx_l, cfg.data.max_desc_l)
+        val_videos = pack_cache.cached_corpus_pack(paths, "val",
+                                                   cfg.data.max_ctx_l)
+        val_queries = pack_cache.cached_query_pack(paths, "val",
+                                                   cfg.data.max_desc_l)
+        # the feature width from the packed arrays: the BigFile header's
+        visual_dim = int(train_data.videos.feats.shape[-1])
+    else:
+        visual_feats = BigFile(paths["visual_feat_dir"])
+        video2frames = read_dict(paths["video2frames"])
+        visual_dim = visual_feats.ndims
+        train_data = pack_train_dataset(
+            paths["cap_file"]["train"], visual_feats, video2frames,
+            paths["text_feat"], paths["teacher_vid_feat"],
+            paths["teacher_text_feat"],
+            max_ctx_l=cfg.data.max_ctx_l, max_desc_l=cfg.data.max_desc_l)
+        val_videos = pack_video_corpus(
+            read_video_ids(paths["cap_file"]["val"]), visual_feats,
+            video2frames, max_ctx_l=cfg.data.max_ctx_l)
+        val_queries = pack_query_set(paths["cap_file"]["val"],
+                                     paths["text_feat"],
+                                     max_desc_l=cfg.data.max_desc_l)
     mcfg = cfg.model.replace(
-        visual_input_size=visual_feats.ndims,       # discovered at runtime
+        visual_input_size=visual_dim,               # discovered at runtime
         query_input_size=cfg.data.q_feat_size,      # (reference train.py:286-289)
         max_ctx_l=cfg.data.max_ctx_l,
         max_desc_l=cfg.data.max_desc_l,

@@ -714,3 +714,86 @@ def test_tower_sub_launches_match_one_launch(dev, dtype, monkeypatch):
     assert qt.LAUNCHES["context_tower"] - before == 4
     for a, b in zip(whole, parts):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------- slice 9: artifacts, q8_t
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cap", [None, 50], ids=["one_launch", "sub_launches"])
+def test_context_tower_q8_transposed_matches_plain(dev, dtype, cap,
+                                                   monkeypatch):
+    """The epilogue's transposed write (q8_transposed) bitwise against its
+    plain version (the plain epilogue of the same chain's frames on the
+    padded rows, permuted), in one launch and across sub-launches (each
+    writing its videos at their offset in the one output); the pad bias
+    against q8_index_bias's padding."""
+    gen = torch.Generator().manual_seed(13)
+    cfg = ModelConfig(visual_input_size=48, query_input_size=32,
+                      inheritance_hidden=60, exploration_hidden=60,
+                      max_ctx_l=20, max_desc_l=8, n_heads=4,
+                      double_branch=True, dtype=dtype)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(14))
+    tdt = getattr(torch, dtype)
+    ws = tower_weights(model, dev)["context"]
+    nv, lv = 130, 20                     # pads to 256 videos, 32 frames
+    x = torch.randn(nv, lv, 48, generator=gen).to(dev)
+    mask = _mask(nv, lv, gen, dev)
+    if cap is not None:
+        monkeypatch.setattr(qt, "sequences_per_launch", lambda *a: cap)
+    before = dict(qt.LAUNCHES)
+    got = qt.fused_context_tower_dual(x, mask, *ws, 4, tdt, emit_q8=True,
+                                      q8_transposed=True)
+    torch.cuda.synchronize()
+    n_launch = 1 if cap is None else -(-256 // cap)
+    assert qt.LAUNCHES["context_tower_q8_t"] \
+        == before["context_tower_q8_t"] + n_launch
+    assert qt.LAUNCHES["context_tower_q8"] == before["context_tower_q8"]
+    l_p, nv_p = 32, 256
+    xp = torch.nn.functional.pad(x, (0, 0, 0, l_p - lv, 0, nv_p - nv))
+    mp = torch.nn.functional.pad(mask, (0, l_p - lv, 0, nv_p - nv))
+    frames = qt._run(xp, mp, ws, 4, tdt, "context", lv, plain=False)
+    for g, f in zip(got, frames):
+        assert g.dtype == torch.int8 and tuple(g.shape) == (l_p, nv_p, 60)
+        want = qt.q8_transposed_plain(qt.quantize_frames_q8_plain(f))
+        assert torch.equal(g, want)
+    bias = sim_max.q8_index_bias(mask, l_p, nv_p)
+    assert tuple(bias.shape) == (l_p, nv_p)
+    assert bool((bias[lv:] == sim_max.INT8_MASK_BIAS).all())
+    assert bool((bias[:, nv:] == sim_max.INT8_MASK_BIAS).all())
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(score_quant=True), dict(score_quant=True, rescore=False),
+    dict(index_store="raw", stream_block=16)],
+    ids=["exact", "two_stage", "int8", "raw"])
+def test_index_artifact_round_trip_on_card(dev, kw, tmp_path, monkeypatch):
+    """save_index then load_index in a new Retriever on the card: the same
+    arrays (real rows) and bitwise the same ids and scores."""
+    monkeypatch.setenv("DLDKD_DENSE_RESCORE", "always")
+    cfg = ModelConfig(visual_input_size=48, query_input_size=32,
+                      inheritance_hidden=64, exploration_hidden=64,
+                      max_ctx_l=16, max_desc_l=8, n_heads=4,
+                      double_branch=True, dtype="bfloat16")
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(15))
+    rng = np.random.RandomState(16)
+    mask = (np.arange(16)[None] < rng.randint(3, 17, 40)[:, None]
+            ).astype(np.float32)
+    videos = PackedVideos(feats=rng.randn(40, 16, 48).astype(np.float32),
+                          mask=mask, ids=[f"v{i}" for i in range(40)])
+    qf = rng.randn(30, 8, 32).astype(np.float32)
+    qm = np.ones((30, 8), np.float32)
+    r1 = serving.Retriever(model, query_bsz=16, device="cuda", **kw)
+    r1.index(videos, context_bsz=16)
+    want = r1.search(qf, qm, k=7)
+    r1.save_index(str(tmp_path / "idx"))
+    r2 = serving.Retriever(model, query_bsz=16, device="cuda", **kw)
+    r2.load_index(str(tmp_path / "idx"), context_bsz=16)
+    for name in ("ctx_inher", "ctx_explore", "q8_inher", "q8_explore",
+                 "raw_feats"):
+        a, b = getattr(r1, name), getattr(r2, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.shape == b.shape and torch.equal(a[:40], b[:40]), name
+    got = r2.search(qf, qm, k=7)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])

@@ -47,10 +47,15 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("module", ["dldkd_tpu_torch.serving",
                                     "dldkd_tpu_torch.infer",
-                                    "dldkd_tpu_torch.train"])
+                                    "dldkd_tpu_torch.train",
+                                    "dldkd_tpu_torch.utils.index_io",
+                                    "dldkd_tpu_torch.data.native",
+                                    "dldkd_tpu_torch.data.cache"])
 def test_entry_points_import_no_jax(module):
-    """The serving CLI, the eval CLI and the training CLI, each imported
-    alone, load no JAX, Flax or JAX package module."""
+    """The serving CLI, the eval CLI and the training CLI, and the index
+    artifacts, native packer and pack cache modules (whose JAX originals
+    load no JAX either), each imported alone, load no JAX, Flax or JAX
+    package module."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dldkd_tpu')))")

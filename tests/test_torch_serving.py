@@ -203,32 +203,29 @@ def test_rescore_stage2_and_two_stage_topk_match_jax(clustered, monkeypatch):
 
 
 def test_unported_serving_routes_raise(clustered):
-    """The raw store is ported now (tests/test_torch_streaming.py); a mesh
-    (A14), warm start, the executable cache and index artifacts (A13)
-    still raise, also with the raw store."""
+    """The raw store (tests/test_torch_streaming.py), index artifacts,
+    prewarm, warm start and the kernel-library directory
+    (tests/test_torch_index_artifacts.py) are ported; a mesh (A14) still
+    raises, on either store. The CLI still refuses, at argparse time, a
+    run with no queries and no --save_index, and one with no dataset to
+    index."""
     _, _, _, model, _, _, _ = clustered
-    for kw, item in ((dict(mesh=object()), "A14"),
-                     (dict(warm_start=True), "A13"),
-                     (dict(aot_cache_dir="/nonexistent"), "A13"),
-                     (dict(index_store="raw", mesh=object()), "A14"),
-                     (dict(index_store="raw", warm_start=True), "A13")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw in (dict(mesh=object()), dict(index_store="raw", mesh=object()),
+               dict(mesh=object(), warm_start=True, score_quant=True)):
+        with pytest.raises(NotImplementedError, match="A14"):
             serving.Retriever(model, device="cpu", **kw)
     with pytest.raises(ValueError, match="index_store"):
         serving.Retriever(model, device="cpu", index_store="bogus")
     base = ["--model_dir", "/nonexistent", "--root_path", "/nonexistent",
             "--collection", "c", "--visual_feature", "v", "--queries",
             "q.npz"]
-    for extra in (["--save_index", "/tmp/i"], ["--load_index", "/tmp/i"],
-                  ["--index_store", "raw", "--save_index", "/tmp/i"],
-                  ["--prewarm", "4:3"], ["--aot_cache_dir", "/tmp/a"],
-                  ["--warm_start"]):
-        with pytest.raises(SystemExit):
-            serving.main(base + extra)
     with pytest.raises(SystemExit):   # no queries
         serving.main(base[:-2])
     with pytest.raises(SystemExit):   # no dataset to index
         serving.main(["--model_dir", "/nonexistent", "--queries", "q.npz"])
+    with pytest.raises(SystemExit):   # caption-file queries need the dataset
+        serving.main(["--model_dir", "/nonexistent", "--load_index", "/i",
+                      "--queries", "captions.txt"])
 
 
 def test_pack_query_rows_pad_to_multiple_matches_jax():

@@ -1,8 +1,9 @@
 """The port's training data against the JAX package's: the packed train
 split (`pack_train_dataset`) from HDF5 and from .npz stores, and the
 loader's batches over three epochs, with and without a recorded epoch
-order. The JAX side is pinned to its numpy packer (DLDKD_NO_NATIVE), so
-everything must be bitwise equal."""
+order. Both packages are pinned to their numpy packers (DLDKD_NO_NATIVE),
+so everything must be bitwise equal (tests/test_torch_pack.py holds the
+two native packers against each other)."""
 
 import numpy as np
 import pytest
@@ -34,10 +35,13 @@ def roots(tmp_path_factory):
 
 def _port_pack(root):
     p = dataset_paths(root, "synthetic", "i3d")
-    return pack_train_dataset(
-        p["cap_file"]["train"], BigFile(p["visual_feat_dir"]),
-        read_dict(p["video2frames"]), p["text_feat"], p["teacher_vid_feat"],
-        p["teacher_text_feat"], max_ctx_l=MAX_CTX, max_desc_l=MAX_DESC)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DLDKD_NO_NATIVE", "1")   # the port's numpy packer
+        return pack_train_dataset(
+            p["cap_file"]["train"], BigFile(p["visual_feat_dir"]),
+            read_dict(p["video2frames"]), p["text_feat"],
+            p["teacher_vid_feat"], p["teacher_text_feat"], max_ctx_l=MAX_CTX,
+            max_desc_l=MAX_DESC)
 
 
 @pytest.fixture(scope="module")
