@@ -103,7 +103,18 @@ package. Phases, in order; any failure exits non-zero without the final
    step on the card against the same step on the CPU (dropout 0, hard
    negatives from a pool of 1: losses within 1e-4, the whole gradient
    within 1e-4 of its norm; the parameters after the step are
-   reported);
+   reported). Then `train.main --dtype bfloat16 --stacked_towers` for 2
+   epochs: finite losses, its validations through the bf16 kernels (bf16
+   scoring, both bf16 towers) with no plain call, a bf16 checkpoint; on
+   it, one validation's launches, the kernel path's scores against the
+   plain path's in bf16 (within 3e-2, every rank flip a near tie), the
+   stacked forward against the sequential one on the card (dropout off:
+   1e-5 in f32, 3e-2 in bf16) and a bf16 stacked step on the card
+   against the CPU's (loss_overall within rtol 1e-2, the update apart by
+   less than its norm); then `dldkd_tpu_torch.tools.train_bench` in its
+   four settings (f32 / bf16 x sequential / stacked) and bf16 stacked at
+   matmul precision "highest", 8 reps a stage: stage medians, samples/s,
+   device-busy ms and CUDA kernels per step, peak GB;
 7. one JSON line listing every ported kernel; then the final `ok` line.
 
 Each path runs with the launch counts set to 0 just before it and read
@@ -117,7 +128,10 @@ queries, serving's 256). Each kernel also carries its check at the
 streaming shapes (`streaming_check`) and its launches on each streaming
 path (`streaming_launches`). Each kernel of the train phase's path (f32
 scoring, both f32 towers) also carries its launches in train.main
-(`train_launches`) and in one validation (`launches_per_validation`). The
+(`train_launches`) and in one validation (`launches_per_validation`);
+the bf16 ones (bf16 scoring, both bf16 towers) also in the bf16 stacked
+train.main (`train_launches_bf16_stacked`) and in one bf16 validation
+(`launches_per_bf16_validation`). The
 epilogue's transposed write (`context_tower_q8_t`) is on no path of the
 JAX package either; its launches are those of the artifact phase's
 transposed emission of the corpus, its times the phase-3 check's at 2,048
@@ -765,21 +779,6 @@ def _short_kernel_name(name: str) -> str:
     return "other: " + name[:60]
 
 
-def _busy_us(spans) -> float:
-    """The time covered by the union of (start, end) spans."""
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(spans):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
-
-
 # the towers' kernels as _short_kernel_name names them
 TOWER_KERNELS = ("normalize_kernel", "gemm_mma_kernel", "attention_mma_kernel",
                  "layernorm_kernel", "pool_kernel", "quantize_q8_kernel")
@@ -798,6 +797,7 @@ def profile_eval(model, videos, queries, dev, score_quant=False,
     from torch.profiler import ProfilerActivity, profile
 
     from dldkd_tpu_torch.evaluate import eval_retrieval
+    from dldkd_tpu_torch.tools.train_bench import span_union
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -823,8 +823,8 @@ def profile_eval(model, videos, queries, dev, score_quant=False,
             kernels.append((start, end))
         t, c = by_name.get(key, (0.0, 0))
         by_name[key] = (t + (end - start), c + 1)
-    busy = _busy_us(spans)
-    copy_busy, kernel_busy = _busy_us(copies), _busy_us(kernels)
+    busy = span_union(spans)
+    copy_busy, kernel_busy = span_union(copies), span_union(kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     towers = sum(by_name.get(k, (0.0, 0))[0] for k in TOWER_KERNELS)
     scoring = sum(t for k, (t, _) in by_name.items()
@@ -838,7 +838,7 @@ def profile_eval(model, videos, queries, dev, score_quant=False,
             "copies_h2d_ms": copy_busy / 1e3,
             # copy time during which some kernel also ran
             "copies_h2d_overlapped_ms": (copy_busy + kernel_busy
-                                         - _busy_us(copies + kernels)) / 1e3,
+                                         - span_union(copies + kernels)) / 1e3,
             "simt_products": by_name.get("gemm_kernel", (0.0, 0))[1],
             "device_idle_share": (1.0 - busy / wall_us) if wall_us else None,
             "device_events": len(spans),
@@ -2180,6 +2180,16 @@ TRAIN_ARGS = ["--collection", "synthetic", "--visual_feature", "i3d",
               "--max_ctx_l", "128", "--max_desc_l", "30", "--bsz", "128",
               "--torch_device", "cuda"]
 TRAIN_KERNELS = _eval_kernels("float32")
+# the bf16 + stacked run's validation: bf16 scoring, both bf16 towers
+TRAIN_KERNELS_BF16 = _eval_kernels("bfloat16")
+# the train bench's settings (dtype, stacked, matmul precision: None is
+# the bench's per-dtype default; the last is the trainer's own bf16
+# default) and repetitions per stage
+TRAIN_BENCH = dict(settings=(("float32", False, None), ("float32", True, None),
+                             ("bfloat16", False, None),
+                             ("bfloat16", True, None),
+                             ("bfloat16", True, "highest")),
+                   reps=8)
 
 
 class _PlainCalls:
@@ -2269,6 +2279,8 @@ def _trace_breakdown(path: str) -> dict:
     device's idle share, over a chrome trace written by torch.profiler
     (train.py's --profile_dir). A kernel or copy belongs to the part
     (train_step's profiler ranges) whose host range holds its launch."""
+    from dldkd_tpu_torch.tools.train_bench import span_union
+
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     parts = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
@@ -2297,7 +2309,7 @@ def _trace_breakdown(path: str) -> dict:
         part = next((name for a, b, name in parts
                      if at is not None and a <= at <= b), "outside the step")
         by_part[part] = by_part.get(part, 0.0) + dur
-    busy = _busy_us(spans)
+    busy = span_union(spans)
     wall = (t_hi - t_lo) if spans else 0.0
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
     return {"trace_wall_ms": wall / 1e3, "device_busy_ms": busy / 1e3,
@@ -2477,6 +2489,231 @@ def _cpu_step_check(state_dict, mcfg, cfg, batch_np, dev):
     return out
 
 
+def _near_tie_flips(k_i, k_e, p_i, p_e, gt) -> dict:
+    """Ranks of the ground truth under the fused scores of the kernel path
+    (k) and the plain path (p): how many differ, and the widest plain-path
+    gap between the ground truth and a video that crossed it (a near tie
+    is a crossing within the scores' tolerance)."""
+    kf, pf = 0.7 * k_i + 0.3 * k_e, 0.7 * p_i + 0.3 * p_e
+    flipped = (_rank_rows(k_i, k_e, gt) != _rank_rows(p_i, p_e, gt)
+               ).nonzero()[:, 0]
+    gap = 0.0
+    for q in flipped.tolist():
+        g = int(gt[q])
+        crossed = (kf[q] > kf[q, g]) != (pf[q] > pf[q, g])
+        if crossed.any():
+            gap = max(gap, float((pf[q] - pf[q, g]).abs()[crossed].max()))
+    return {"rank_flips": int(flipped.numel()), "max_crossing_gap": gap,
+            "queries": int(kf.shape[0]), "near_tie_tol": 2 * TOL[
+                ("scores", "bfloat16")]}
+
+
+def _stacked_vs_sequential(state_dict, mcfg, batch_np, dev) -> dict:
+    """The stacked forward against the sequential one on the card, eval
+    mode (dropout off), from the same weights and batch, in f32 and bf16:
+    the largest difference over the four tower outputs."""
+    import torch
+
+    from dldkd_tpu_torch.models import DLDKD
+    from dldkd_tpu_torch.models.stacked import encode_stacked
+
+    out = {}
+    args = tuple(torch.from_numpy(batch_np[k]).to(dev) for k in (
+        "student_videos", "student_videos_mask", "student_text",
+        "student_text_mask"))
+    for dtype in ("float32", "bfloat16"):
+        model = DLDKD(mcfg.replace(dtype=dtype))
+        model.load_state_dict(state_dict)
+        model.to(dev).eval()
+        with torch.no_grad():
+            seq = model(*args)
+            st = encode_stacked(model, *args)
+        out[dtype] = max(max_err(a, b) for a, b in zip(seq[0] + seq[1],
+                                                       st[0] + st[1]))
+    return out
+
+
+def _bf16_step_vs_cpu(state_dict, mcfg, cfg, batch_np, dev) -> dict:
+    """One bf16 stacked train step on the card and on the CPU from the
+    same state and batch, dropout 0, hard negatives from a pool of 1: the
+    losses of each and the parameters after the step. Held: loss_overall
+    within rtol 1e-2; the card's update (parameters after minus before,
+    so the backward and BertAdam) apart from the CPU's by less than the
+    CPU update's norm (an uncorrelated update of the same size is sqrt(2)
+    apart, a negated one 2; BertAdam's first step moves each entry by up
+    to ~3 lr with its gradient's sign, so a gradient entry near 0 whose
+    sign differs between the devices moves that parameter apart by up to
+    twice that: such flips alone stay well inside the bound), and no
+    parameter apart by more than twice the largest update entry."""
+    import dataclasses
+
+    import torch
+
+    from dldkd_tpu_torch import train
+    from dldkd_tpu_torch.models import DLDKD
+    from dldkd_tpu_torch.optim import BertAdam, default_wd_mask
+
+    run_cfg = mcfg.replace(dtype="bfloat16", input_drop=0.0, drop=0.0,
+                           use_hard_negative=True, hard_pool_size=1)
+    tcfg = dataclasses.replace(cfg.train, stacked_towers=True)
+    losses, updates = {}, {}
+    for side, where in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = DLDKD(run_cfg)
+        model.load_state_dict(state_dict)
+        model.to(where)
+        named = dict(model.named_parameters())
+        opt = BertAdam(named, cfg.train.lr, None, weight_decay=cfg.train.wd,
+                       wd_mask=default_wd_mask(named))
+        batch = {k: torch.from_numpy(v).to(where)
+                 for k, v in batch_np.items()}
+        ld = train.train_step(model, run_cfg, tcfg, opt, batch,
+                              torch.Generator(device=where),
+                              train.epoch_scalars(cfg, 0, where))
+        losses[side] = {k: float(v) for k, v in ld.items()}
+        updates[side] = torch.cat([
+            (v.detach().cpu() - state_dict[k]).flatten()
+            for k, v in model.state_dict().items()])
+    card, cpu = losses["card"]["loss_overall"], losses["cpu"]["loss_overall"]
+    d_card, d_cpu = updates["card"], updates["cpu"]
+    return {"losses_card": losses["card"], "losses_cpu": losses["cpu"],
+            "loss_overall_rel_err": abs(card - cpu) / abs(cpu),
+            "rtol": 1e-2,
+            "update_rel_err": float((d_card - d_cpu).norm() / d_cpu.norm()),
+            "update_rel_tol": 1.0,
+            "params_max_abs_err": float((d_card - d_cpu).abs().max()),
+            "params_tol": 2 * float(d_cpu.abs().max()),
+            "update_sign_flip_share": float(
+                ((d_card * d_cpu) < 0).float().mean())}
+
+
+def _train_bf16_stacked(workdir, dev, base, cfg, mcfg, val_videos,
+                        val_queries, host_batch) -> tuple:
+    """train.main with --dtype bfloat16 --stacked_towers for 2 epochs,
+    then on its checkpoint: one validation's launches, the kernel path
+    against the plain path in bf16, the stacked forward against the
+    sequential one and a card bf16 step against the CPU's. cfg: the f32
+    run's config (its eval and train settings)."""
+    import torch
+
+    from dldkd_tpu_torch import checkpoint as ckpt_lib
+    from dldkd_tpu_torch import train
+    from dldkd_tpu_torch.convert import load_jax_params
+    from dldkd_tpu_torch.evaluate import (_metrics_from_score_matrices,
+                                          run_retrieval_eval, score_matrices)
+    from dldkd_tpu_torch.metrics import build_gt_indices
+    from dldkd_tpu_torch.models import DLDKD
+
+    res = os.path.join(workdir, "train_bf16_stacked")
+    _reset_counts()
+    with _PlainCalls() as plain:
+        t0 = time.perf_counter()
+        test_metrics = train.main(base + ["--results_root", res,
+                                          "--n_epoch", "2", "--dtype",
+                                          "bfloat16", "--stacked_towers"])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+    counts = _counts()
+    run_dir = _run_dir(res)
+    steps, sumrs, epochs = _train_history(run_dir)
+    with open(os.path.join(run_dir, "ckpt", "model_cfg.json")) as f:
+        saved_dtype = json.load(f)["dtype"]
+    emit({"phase": "train.main bf16 stacked", "seconds": main_s,
+          "steps": len(steps), "epochs_logged": epochs,
+          "val_fused_sumr": sumrs,
+          "loss_overall": [r["Train/loss_overall"] for r in steps],
+          "launches": counts, "plain_calls": plain.calls,
+          "checkpoint_dtype": saved_dtype, "test_metrics": test_metrics})
+    _check_losses(steps, "train.main bf16 stacked")
+    _check_launched(counts, TRAIN_KERNELS_BF16, "train.main bf16 stacked")
+    if plain.calls:
+        fail(f"train.main bf16 stacked: the eval path on the card ran "
+             f"plain versions {plain.calls}")
+    if test_metrics is None:
+        fail("train.main bf16 stacked: no post-train test metrics")
+    _check_metrics(test_metrics, "train.main bf16 stacked test split")
+    if epochs != [0, 1] or len(sumrs) != 2 or saved_dtype != "bfloat16":
+        fail(f"train.main bf16 stacked: epochs {epochs}, {len(sumrs)} "
+             f"validations, checkpoint dtype {saved_dtype}")
+
+    params, _ = ckpt_lib.restore_params_only(os.path.join(run_dir, "ckpt"))
+    bf_cfg = mcfg.replace(dtype="bfloat16")
+    model = load_jax_params(DLDKD(bf_cfg), params).to(dev)
+    eval_cfg = cfg.eval
+    _reset_counts()
+    with _PlainCalls() as plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        val_metrics = run_retrieval_eval(model, val_videos, val_queries,
+                                         eval_cfg, device=dev)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+    per_val = _counts()
+    _check_launched(per_val, TRAIN_KERNELS_BF16, "bf16 validation")
+    if plain.calls:
+        fail(f"bf16 validation: plain versions ran {plain.calls}")
+    k_i, k_e = score_matrices(model, val_videos, val_queries,
+                              eval_cfg.eval_context_bsz,
+                              eval_cfg.eval_query_bsz, dev)
+    p_i, p_e = score_matrices(model, val_videos, val_queries,
+                              eval_cfg.eval_context_bsz,
+                              eval_cfg.eval_query_bsz, dev, plain=True)
+    gt = torch.from_numpy(build_gt_indices(val_queries.video_ids,
+                                           val_videos.ids)).to(dev)
+    score_err = max(max_err(k_i, p_i), max_err(k_e, p_e))
+    ties = _near_tie_flips(k_i, k_e, p_i, p_e, gt)
+    k_fused = _metrics_from_score_matrices(k_i, k_e, gt, (0.7, 0.3))["fused"]
+    p_fused = _metrics_from_score_matrices(p_i, p_e, gt, (0.7, 0.3))["fused"]
+    state = {k: v.detach().cpu().clone()
+             for k, v in load_jax_params(DLDKD(mcfg), params)
+             .state_dict().items()}
+    stacked = _stacked_vs_sequential(state, mcfg, host_batch, dev)
+    step = _bf16_step_vs_cpu(state, mcfg, cfg, host_batch, dev)
+    emit({"phase": "train_bf16_checkpoint", "validation_s": val_s,
+          "launches_per_validation": per_val, "val_metrics": val_metrics,
+          "kernel_vs_plain_scores_max_abs_err": score_err,
+          "tol": TOL[("scores", "bfloat16")], **ties,
+          "kernel_path_fused_sumr": k_fused["sumr"],
+          "plain_path_fused_sumr": p_fused["sumr"],
+          "stacked_vs_sequential_max_abs_err": stacked,
+          "stacked_tol": {"float32": 1e-5, "bfloat16": 3e-2},
+          "card_vs_cpu_bf16_step": step})
+    if not score_err <= TOL[("scores", "bfloat16")] \
+            or ties["max_crossing_gap"] > ties["near_tie_tol"]:
+        fail(f"bf16 trained checkpoint: kernel vs plain scores differ by "
+             f"{score_err}, rank flips {ties}")
+    if not (stacked["float32"] <= 1e-5 and stacked["bfloat16"] <= 3e-2):
+        fail(f"stacked vs sequential forward on the card: {stacked}")
+    if not (step["loss_overall_rel_err"] <= step["rtol"]
+            and step["update_rel_err"] <= step["update_rel_tol"]
+            and step["params_max_abs_err"] <= step["params_tol"]):
+        fail(f"bf16 train step: card vs CPU {step}")
+    del model, k_i, k_e, p_i, p_e
+    torch.cuda.empty_cache()
+    return counts, per_val
+
+
+def _train_bench(dev) -> list:
+    """dldkd_tpu_torch.tools.train_bench in its four settings (f32 / bf16 x
+    sequential / stacked), and bf16 stacked at the trainer's matmul
+    precision: one record each (stage medians, samples/s, device-busy ms
+    and CUDA kernels per step, peak GB)."""
+    import torch
+
+    from dldkd_tpu_torch.tools import train_bench
+
+    recs = []
+    for dtype, stacked, precision in TRAIN_BENCH["settings"]:
+        rec = train_bench.bench(dtype, stacked, TRAIN_BENCH["reps"], dev,
+                                precision)
+        emit({"phase": "train_bench", **rec})
+        if not all(math.isfinite(v) for v in rec["stages_ms"].values()) \
+                or not rec["kernels_per_step"]:
+            fail(f"train bench {dtype} stacked={stacked}: {rec}")
+        recs.append(rec)
+        torch.cuda.empty_cache()
+    return recs
+
+
 def phase_train(workdir: str, dev):
     """The do_tvr.sh path through dldkd_tpu_torch.train.main at full width
     on a synthetic dataset, its resume, and the measurements."""
@@ -2636,7 +2873,16 @@ def phase_train(workdir: str, dev):
         fail("train step timing failed")
     del model, batches, k_i, k_e, p_i, p_e
     torch.cuda.empty_cache()
-    return main_counts, per_val
+
+    # 4. --dtype bfloat16 --stacked_towers: train.main for 2 epochs, its
+    # validation through the bf16 kernels; then the train bench's four
+    # settings
+    bf_counts, bf_per_val = _train_bf16_stacked(
+        workdir, dev, base, cfg, mcfg, val_videos, val_queries,
+        host_batches[0])
+    _train_bench(dev)
+    emit({"phase": "train", "phase_s": time.perf_counter() - t_phase})
+    return main_counts, per_val, bf_counts, bf_per_val
 
 
 # each kernels-line entry's check at the streaming shapes
@@ -2655,8 +2901,10 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
     """Every ported kernel: its source, the TPU kernel it replaces, its
     launches on its main path and its phase-3 numbers; beside them, its
     launches in the train phase (train.main: three validations and the
-    test split's inference, all f32) and in one validation, read from the
-    same counter (the scorer and the chains are counted by dtype); its
+    test split's inference, all f32) and in one validation, and in the
+    bf16 stacked run (two validations and the test split's inference, all
+    bf16) and one bf16 validation, read from the same counter (the scorer
+    and the chains are counted by dtype); its
     check at the streaming shapes and its launches on each streaming path
     (`phase_streaming`)."""
     # (launch counter, source, TPU kernel replaced, check record, path whose
@@ -2705,7 +2953,7 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
                              ("context_tower_q8", "bfloat16", 2),
                              "tvr_int8_eval", int8_launches),
     }
-    main_counts, per_val = train_launches
+    main_counts, per_val, bf_counts, bf_per_val = train_launches
     stream_checks, stream_launches = stream
     kernels = []
     for name, (counter, src, replaces, key, path, counts) in sources.items():
@@ -2715,6 +2963,8 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
                         "launches_path": path,
                         "train_launches": main_counts[counter],
                         "launches_per_validation": per_val[counter],
+                        "train_launches_bf16_stacked": bf_counts[counter],
+                        "launches_per_bf16_validation": bf_per_val[counter],
                         "max_abs_err": rec["max_abs_err"],
                         "ms": rec["kernel_ms"], "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],

@@ -10,7 +10,11 @@ What is ported so far:
   schedules, the epoch loop with per-epoch validation on the eval engine
   below, the best-SumR checkpoint, early stop, full-state resume and the
   SIGTERM checkpoint, then test-split inference; the train step is plain
-  PyTorch autograd (the JAX package's step calls no Pallas kernel);
+  PyTorch autograd (the JAX package's step calls no Pallas kernel), in
+  f32 or with bf16 towers (`--dtype bfloat16`), the branches sequential
+  or stacked (`--stacked_towers`, `models/stacked.py`); the train bench
+  (`tools/train_bench.py`); the ablation losses, FeedForward /
+  TransformerBlock, the RNN encoder and the sequence helpers;
 - the evaluation path of `scripts/do_test.sh` (`infer`, `evaluate`):
   checkpoint -> corpus and query towers -> masked cosine max-over-frames
   scoring -> rank -> R@K/SumR/mAP per branch and for the 0.7/0.3 fusion,
@@ -28,8 +32,8 @@ Every TPU kernel of the JAX package has a hand-written CUDA counterpart for
 Hopper (`csrc/`: masked-cosine, int8 and exact-rescore scoring; the query
 and video towers with the int8 epilogue and its transposed write), each
 with a plain PyTorch version and a launch counter beside it
-(`ops/kernels/`). Not ported yet: multi-GPU, and the training speed knobs
-and ablations (ROADMAP queue A).
+(`ops/kernels/`). Not ported yet: multi-GPU and the JAX package's other
+tools and benches (ROADMAP queue A).
 
 Entry points take an explicit `device` and run on "cuda" unless the caller
 asks for "cpu"; on the CPU every kernel wrapper uses its plain version.

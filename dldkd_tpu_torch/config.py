@@ -93,11 +93,10 @@ class TrainConfig:
     belta: float = 0.8
     alpha_decay: Optional[str] = "sigmoid"
     belta_decay: Optional[str] = "sigmoid"
-    # TPU-native extension: run both branches' towers as one vmapped
-    # (2, ...) computation in the train step (half the kernel count; see
-    # models/stacked.py). Identical per-branch math; dropout streams are
-    # branch-split instead of flax path-derived, so the f32 PARITY config
-    # keeps this off — it is a bf16 speed knob.
+    # run both branches' towers as one stacked (2, ...) computation in the
+    # train step (models/stacked.py): half the tower launches, the same
+    # per-branch math; the dropout stream differs from the sequential
+    # forward's, so parity runs keep it off.
     stacked_towers: bool = False
     # TPU-native extension: PRNG implementation for the TRAINING streams
     # (dropout masks, triplet negative sampling). 'rbg' uses the TPU
@@ -416,9 +415,12 @@ def build_parser(test: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--belta_decay", type=str, default="sigmoid")
     # TPU-native extensions
     p.add_argument("--dtype", type=str, default="float32",
-                   help="tower compute dtype: float32 or bfloat16 (the "
-                        "PyTorch port trains in float32 only: bfloat16 "
-                        "training raises NotImplementedError, ROADMAP A15)")
+                   help="tower compute dtype: float32 or bfloat16. In "
+                        "bfloat16 the towers' products and LayerNorm outputs "
+                        "round to bf16 where the JAX package's flax modules "
+                        "do; parameters, gradients, the optimizer and every "
+                        "loss stay float32; validation and inference run "
+                        "the bf16 CUDA kernels")
     p.add_argument("--matmul_precision", type=str, default="highest",
                    help="f32 matmul precision: highest (parity) | high | "
                         "default (fast). In the PyTorch port it sets "
@@ -440,11 +442,13 @@ def build_parser(test: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--profile_dir", type=str, default="")
     p.add_argument("--profile_steps", type=int, default=8)
     p.add_argument("--stacked_towers", action="store_true",
-                   help="train both branches' towers as one vmapped "
-                        "(2, ...) computation (bf16 speed knob; "
-                        "branch-split dropout streams — keep off for f32 "
-                        "parity runs). The PyTorch port raises "
-                        "NotImplementedError (ROADMAP A15)")
+                   help="train both branches' towers as one stacked "
+                        "(2, ...) computation (models/stacked.py: batched "
+                        "products on the two branches' stacked weights, "
+                        "half the tower launches); needs --double_branch "
+                        "with equal hidden sizes. Its dropout stream "
+                        "differs from the sequential forward's: keep it "
+                        "off for parity runs")
     p.add_argument("--rng_impl", choices=("threefry2x32", "rbg"),
                    default="threefry2x32",
                    help="PRNG for the training streams (dropout, negative "

@@ -17,6 +17,12 @@ exploration and <t> = query | visual:
   out_mapping_linear/{kernel,bias}    -> <p>out_mapping_linear.{weight^T,bias}
 
 Flax Dense kernels are (in, out); torch Linear weights are (out, in).
+The blocks the DLDKD towers do not use map the same way:
+`feed_forward_state_from_jax` (FeedForward: intermediate/output/out_norm
+-> intermediate.dense, output.dense, output.LayerNorm),
+`transformer_block_state_from_jax` (attention/* as an encoder above, ffn/*
+as FeedForward) and `rnn_state_from_jax` (RNNEncoder's flax cells ->
+torch's stacked gate weights, models/rnn.py).
 The optimizer state maps the same way: BertAdam's m and v are trees shaped
 like the parameters (`opt_state_from_jax`, `opt_state_to_jax`), and so is
 the JAX package's weight-decay mask (`wd_mask_from_jax`).
@@ -32,38 +38,105 @@ import torch
 from dldkd_tpu_torch.models.dldkd import BRANCH_PREFIX
 
 
-def _branch_state(tree: Mapping, prefix: str, dtype=np.float32
-                  ) -> Dict[str, np.ndarray]:
-    out: Dict[str, np.ndarray] = {}
-
+def _putter(out: Dict[str, np.ndarray], prefix: str = "", dtype=np.float32):
     def put(name, value, transpose=False):
         arr = np.asarray(value, dtype=dtype)
         out[prefix + name] = np.ascontiguousarray(arr.T if transpose else arr)
+    return put
 
-    def dense(name, p):
-        put(f"{name}.weight", p["kernel"], transpose=True)
-        put(f"{name}.bias", p["bias"])
 
-    def norm(name, p):
-        put(f"{name}.weight", p["scale"])
-        put(f"{name}.bias", p["bias"])
+def _dense(put, name, p):
+    put(f"{name}.weight", p["kernel"], transpose=True)
+    put(f"{name}.bias", p["bias"])
 
+
+def _norm(put, name, p):
+    put(f"{name}.weight", p["scale"])
+    put(f"{name}.bias", p["bias"])
+
+
+def _attention(put, name, enc):
+    for ours, theirs in (("query", "self.query"), ("key", "self.key"),
+                         ("value", "self.value"), ("out", "output.dense")):
+        _dense(put, f"{name}.{theirs}", enc[ours])
+    _norm(put, f"{name}.output.LayerNorm", enc["out_norm"])
+
+
+def _feed_forward(put, tree):
+    _dense(put, "intermediate.dense", tree["intermediate"])
+    _dense(put, "output.dense", tree["output"])
+    _norm(put, "output.LayerNorm", tree["out_norm"])
+
+
+def _branch_state(tree: Mapping, prefix: str, dtype=np.float32
+                  ) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    put = _putter(out, prefix, dtype)
     for t in ("query", "visual"):
         pe = tree[f"{t}_pos_embed"]
         put(f"{t}_pos_embed.position_embeddings.weight", pe["pos_embed"])
-        norm(f"{t}_pos_embed.LayerNorm", pe["norm"])
+        _norm(put, f"{t}_pos_embed.LayerNorm", pe["norm"])
         ip = tree[f"{t}_input_proj"]
-        norm(f"{t}_input_proj.LayerNorm", ip["input_norm"])
-        dense(f"{t}_input_proj.net.1", ip["proj"])
-        enc = tree[f"{t}_encoder"]
-        for ours, theirs in (("query", "self.query"), ("key", "self.key"),
-                             ("value", "self.value"), ("out", "output.dense")):
-            dense(f"{t}_encoder.{theirs}", enc[ours])
-        norm(f"{t}_encoder.output.LayerNorm", enc["out_norm"])
+        _norm(put, f"{t}_input_proj.LayerNorm", ip["input_norm"])
+        _dense(put, f"{t}_input_proj.net.1", ip["proj"])
+        _attention(put, f"{t}_encoder", tree[f"{t}_encoder"])
     put("modular_vector_mapping.weight",
         tree["modular_vector_mapping"]["kernel"], transpose=True)
-    dense("out_mapping_linear", tree["out_mapping_linear"])
+    _dense(put, "out_mapping_linear", tree["out_mapping_linear"])
     return out
+
+
+def _tensors(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(v) for k, v in arrays.items()}
+
+
+def feed_forward_state_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX FeedForward's parameters ({"intermediate", "output",
+    "out_norm"}, numpy leaves) -> components.FeedForward's state_dict."""
+    out: Dict[str, np.ndarray] = {}
+    _feed_forward(_putter(out), tree)
+    return _tensors(out)
+
+
+def transformer_block_state_from_jax(tree: Mapping
+                                     ) -> Dict[str, torch.Tensor]:
+    """A JAX TransformerBlock's parameters ({"attention"?, "ffn"}) ->
+    components.TransformerBlock's state_dict (attention.* and the
+    feed-forward names)."""
+    out: Dict[str, np.ndarray] = {}
+    put = _putter(out)
+    if "attention" in tree:
+        _attention(put, "attention", tree["attention"])
+    _feed_forward(put, tree["ffn"])
+    return _tensors(out)
+
+
+# each flax cell's gates in torch's order, and which side has a bias
+_RNN_GATES = {"lstm": (("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho")),
+              "gru": (("ir", "iz", "in"), ("hr", "hz", "hn")),
+              "rnn": (("i",), ("h",))}
+
+
+def rnn_state_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX RNNEncoder's parameters ({"l<k>_fwd", "l<k>_bwd"?: cell
+    params}) -> rnn.RNNEncoder's state_dict: each gate's kernel stacked
+    in torch's gate order; a side flax gives no bias gets zeros there
+    (see models/rnn.py)."""
+    cell0 = tree["l0_fwd"]
+    kind = "lstm" if "ii" in cell0 else "gru" if "ir" in cell0 else "rnn"
+    out: Dict[str, np.ndarray] = {}
+    for name, cell in tree.items():
+        layer, direction = name[1:].split("_")
+        put = _putter(out, f"layers.{layer}.")
+        sfx = "_l0" + ("_reverse" if direction == "bwd" else "")
+        for side, gates in zip(("ih", "hh"), _RNN_GATES[kind]):
+            put(f"weight_{side}{sfx}", np.concatenate(
+                [cell[g]["kernel"] for g in gates], axis=1), transpose=True)
+            put(f"bias_{side}{sfx}", np.concatenate(
+                [np.asarray(cell[g]["bias"]) if "bias" in cell[g]
+                 else np.zeros(np.shape(cell[g]["kernel"])[1], np.float32)
+                 for g in gates]))
+    return _tensors(out)
 
 
 def _named_arrays(params: Mapping, dtype=np.float32
@@ -82,7 +155,7 @@ def _named_arrays(params: Mapping, dtype=np.float32
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX parameter tree (numpy leaves) -> the port's state_dict."""
-    return {k: torch.tensor(v) for k, v in _named_arrays(params).items()}
+    return _tensors(_named_arrays(params))
 
 
 def wd_mask_from_jax(mask: Mapping) -> Dict[str, bool]:

@@ -11,6 +11,11 @@ exploration ones under an `exp_` prefix, and so does this module: its
 modules for the encode methods; DLDKD registers them under the flat names
 and keeps the `Branch` objects in a plain tuple, so each parameter appears
 once in the state_dict.
+
+`ModelConfig.dtype` is the towers' compute dtype (components.py: f32
+parameters, bf16 products and LayerNorm outputs where flax rounds them);
+the pooled query comes out f32 and the frame features in the compute
+dtype.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from torch import nn
 from dldkd_tpu_torch.config import ModelConfig
 from dldkd_tpu_torch.models.components import (AttentionBlock, Generator,
                                                LinearInputProj,
-                                               TrainablePositionalEncoding)
+                                               TrainablePositionalEncoding,
+                                               compute_dtype, dense)
 from dldkd_tpu_torch.ops.masking import mask_logits
 
 BRANCH_PREFIX = {"inheritance": "", "exploration": "exp_"}
@@ -34,19 +40,20 @@ class Branch(nn.Module):
 
     def __init__(self, cfg: ModelConfig, hidden: int):
         super().__init__()
+        self.dtype = dt = compute_dtype(cfg.dtype)
         self.query_input_proj = LinearInputProj(
-            cfg.query_input_size, hidden, cfg.input_drop)
+            cfg.query_input_size, hidden, cfg.input_drop, dt)
         self.query_pos_embed = TrainablePositionalEncoding(
-            cfg.max_desc_l, hidden, cfg.input_drop)
+            cfg.max_desc_l, hidden, cfg.input_drop, dt)
         self.query_encoder = AttentionBlock(hidden, cfg.n_heads, cfg.drop,
-                                            cfg.drop)
+                                            cfg.drop, dt)
         self.modular_vector_mapping = nn.Linear(hidden, 1, bias=False)
         self.visual_input_proj = LinearInputProj(
-            cfg.visual_input_size, hidden, cfg.input_drop)
+            cfg.visual_input_size, hidden, cfg.input_drop, dt)
         self.visual_pos_embed = TrainablePositionalEncoding(
-            cfg.max_ctx_l, hidden, cfg.input_drop)
+            cfg.max_ctx_l, hidden, cfg.input_drop, dt)
         self.visual_encoder = AttentionBlock(hidden, cfg.n_heads, cfg.drop,
-                                             cfg.drop)
+                                             cfg.drop, dt)
         self.out_mapping_linear = nn.Linear(hidden, hidden)
 
     def encode_query(self, feat: torch.Tensor, mask: torch.Tensor,
@@ -57,7 +64,8 @@ class Branch(nn.Module):
         x = self.query_input_proj(feat, generator)
         x = self.query_pos_embed(x, generator)
         x = self.query_encoder(x, mask, generator)
-        att = self.modular_vector_mapping(x)                 # (Nq, Lq, 1)
+        mv = self.modular_vector_mapping
+        att = dense(x, mv.weight, None, self.dtype)           # (Nq,Lq,1)
         att = torch.softmax(mask_logits(att, mask[:, :, None]), dim=1)
         return (att * x).sum(dim=1)
 
@@ -68,7 +76,8 @@ class Branch(nn.Module):
         x = self.visual_input_proj(feat, generator)
         x = self.visual_pos_embed(x, generator)
         x = self.visual_encoder(x, mask, generator)
-        return self.out_mapping_linear(x)
+        out = self.out_mapping_linear
+        return dense(x, out.weight, out.bias, self.dtype)
 
 
 class DLDKD(nn.Module):

@@ -10,8 +10,11 @@ Reproduces reference `DLDKD.forward` (method/model.py:100-163):
        + explore_nce_weight * (clip_nce | clip_nce_soft vs itself)
 
 kd_weight / alpha / belta are the per-epoch decay scalars
-(optim/schedules.py), float32 tensors on the step's device. The stacked
-towers and bf16 tower training of the JAX package are ROADMAP A15.
+(optim/schedules.py), float32 tensors on the step's device. The towers run
+sequentially, or both branches as one stacked computation with
+`--stacked_towers` (models/stacked.py), in the model's compute dtype; every
+loss is computed in float32 (the tower outputs are cast first, as
+dldkd_tpu/models/objective.py:76-83 does).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from dldkd_tpu_torch.config import ModelConfig, TrainConfig
+from dldkd_tpu_torch.models.stacked import can_stack, encode_stacked
 from dldkd_tpu_torch.ops import losses
 from dldkd_tpu_torch.ops.similarity import (clip_scores,
                                             clip_scores_unnormalized)
@@ -35,15 +39,13 @@ class LossScalars(NamedTuple):
 
 
 def check_trainable(mcfg: ModelConfig, tcfg: TrainConfig) -> None:
-    """Raise on the training settings the port does not run yet."""
-    if tcfg.stacked_towers:
-        raise NotImplementedError(
-            "--stacked_towers (both branches as one batched computation) "
-            "is ROADMAP A15, not ported")
-    if mcfg.dtype != "float32":
-        raise NotImplementedError(
-            f"training with --dtype {mcfg.dtype} is ROADMAP A15, not "
-            f"ported: train in float32")
+    """Raise on a training setting that cannot run, before any data is
+    packed: --stacked_towers without two branches of one hidden size."""
+    if tcfg.stacked_towers and not can_stack(mcfg):
+        raise ValueError(
+            "--stacked_towers needs --double_branch with equal "
+            "inheritance and exploration hidden sizes (stacked towers "
+            "run both branches as one computation)")
 
 
 def compute_losses(model, batch: Dict[str, torch.Tensor],
@@ -61,11 +63,16 @@ def compute_losses(model, batch: Dict[str, torch.Tensor],
     mcfg is the epoch's model config (hard negatives flip per epoch), not
     necessarily model.config.
     """
-    check_trainable(mcfg, tcfg)
-    (inher_ctx, explore_ctx), (inher_q, explore_q) = model(
-        batch["student_videos"], batch["student_videos_mask"],
-        batch["student_text"], batch["student_text_mask"],
-        generator=generator)
+    args = (batch["student_videos"], batch["student_videos_mask"],
+            batch["student_text"], batch["student_text_mask"])
+    if tcfg.stacked_towers:
+        outs = encode_stacked(model, *args, generator=generator)
+    else:
+        outs = model(*args, generator=generator)
+    # bf16 towers: every loss in f32 (params and optimizer are f32 too)
+    (inher_ctx, explore_ctx), (inher_q, explore_q) = (
+        tuple(t.float() if t is not None and t.dtype == torch.bfloat16
+              else t for t in pair) for pair in outs)
 
     vmask = batch["student_videos_mask"]
     labels = batch["text_labels"].long()

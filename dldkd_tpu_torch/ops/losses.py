@@ -1,5 +1,7 @@
-"""Retrieval and distillation losses of the training step (port of
-dldkd_tpu/ops/losses.py:32-248).
+"""Retrieval and distillation losses (port of dldkd_tpu/ops/losses.py):
+those of the training step, and the reference's ablation losses
+(`clip_mse` .. `batch_kl_loss`, losses.py:251-410 there), which the
+shipped training path does not call.
 
 The same masked tensor math as the JAX package, in PyTorch autograd. Batch
 convention (static shapes; see data/pipeline.py):
@@ -14,10 +16,15 @@ ties; the hard-negative ranking through a stable descending sort, which
 breaks ties by the lowest index as `jax.lax.top_k` does. Negatives are
 drawn from the caller's `torch.Generator`: the same distributions as the
 JAX package's key streams (which torch cannot reproduce), not the same
-draws. The ablation losses (losses.py:251-410) are ROADMAP A15.
+draws. The ablations keep the JAX versions' `valid` masks (padded rows
+drop out of sums and means; the reference never pads, so `valid=None` is
+the reference's math) and their zero-length rules (a mean over no valid
+row or frame divides by 1).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -249,3 +256,170 @@ def frame_kl_loss(student_frame: Tensor, teacher_frame: Tensor,
     contrib = torch.where(fmask, torch.exp(log_t) * (log_t - log_p),
                           _zero(log_t))
     return (contrib.sum(dim=-1) * valid_q.float()).sum()
+
+
+def clip_mse(x: Tensor, target: Tensor,
+             valid: Optional[Tensor] = None) -> Tensor:
+    """Plain MSE distillation (ablation); reference clip_mse
+    (model_components.py:28-38): squared diff summed over the frame axis
+    (3-D input) or the last axis (2-D), then meaned. `valid` (bool, first
+    axis) excludes padded rows from the mean."""
+    d = torch.square(x - target)
+    d = d.sum(dim=1 if d.dim() == 3 else -1)
+    if valid is None:
+        return d.mean()
+    vf = valid.to(d.dtype)
+    w = vf.reshape((-1,) + (1,) * (d.dim() - 1))
+    per_row = d.numel() // d.shape[0]
+    return (d * w).sum() / (torch.clamp(vf.sum(), min=1.0) * per_row)
+
+
+def _pos_frames(frame_x: Tensor, frame_t: Tensor, video_mask: Tensor,
+                labels: Tensor):
+    """Each query's positive-video frame vectors, (Nq, L) twice, with the
+    valid-frame and valid-query masks."""
+    nq, l_frames, _ = frame_x.shape
+    valid_q = labels >= 0
+    safe = torch.where(valid_q, labels, 0).long()
+    idx = safe[:, None, None].expand(nq, l_frames, 1)
+    p = torch.gather(frame_x, 2, idx)[..., 0]
+    q = torch.gather(frame_t, 2, idx)[..., 0]
+    return p, q, video_mask[safe] > 0, valid_q
+
+
+def clip_mse_pos_pair(frame_x: Tensor, frame_t: Tensor, video_mask: Tensor,
+                      labels: Tensor) -> Tensor:
+    """Frame-MSE on positive pairs (ablation); reference clip_mse_pos_pair
+    (model_components.py:40-52): per query, mean over the positive video's
+    valid frames of squared frame-score diffs, summed over queries."""
+    p, q, fmask, valid_q = _pos_frames(frame_x, frame_t, video_mask, labels)
+    d = torch.where(fmask, torch.square(p - q), _zero(p))
+    m = torch.clamp(fmask.sum(dim=-1), min=1)
+    return (d.sum(dim=-1) / m * valid_q.float()).sum()
+
+
+def clip_mse_max_pos_pair(scores_x: Tensor, scores_t: Tensor,
+                          labels: Tensor) -> Tensor:
+    """Clip-score MSE at the positive (ablation); reference
+    clip_mse_max_pos_pair (model_components.py:54-67): squared diff of the
+    max-pooled clip scores at each query's positive video, meaned over the
+    valid queries."""
+    valid_q = labels >= 0
+    safe = torch.where(valid_q, labels, 0).long()[:, None]
+    p = torch.gather(scores_x, 1, safe)[:, 0]
+    q = torch.gather(scores_t, 1, safe)[:, 0]
+    d = torch.square(p - q) * valid_q.float()
+    return d.sum() / torch.clamp(valid_q.sum(), min=1)
+
+
+def clip_mse_only_pos_max(frame_x: Tensor, frame_t: Tensor,
+                          video_mask: Tensor, labels: Tensor) -> Tensor:
+    """MSE at the teacher's best frame (ablation); reference
+    clip_mse_only_pos_max (model_components.py:69-83): per query, the
+    valid frame where the teacher score peaks (the first at ties), squared
+    diff there, summed."""
+    p, q, fmask, valid_q = _pos_frames(frame_x, frame_t, video_mask, labels)
+    best = torch.argmax(torch.where(fmask, q, NEG_INF), dim=-1)[:, None]
+    d = torch.gather(p, 1, best)[:, 0] - torch.gather(q, 1, best)[:, 0]
+    return (torch.square(d) * valid_q.float()).sum()
+
+
+def frame_nce(scores: Tensor, reduction: bool = True,
+              valid: Optional[Tensor] = None) -> Tensor:
+    """Frame-level NCE (ablation); reference frame_nce
+    (model_components.py:238-265). scores: (B, B, F) per-frame
+    query-to-video scores for a square batch.
+      nominator_i   = logsumexp over frames of the diagonal block i
+      denominator_i = logsumexp over row i AND column i (both directions)
+    `valid` (bool (B,)) excludes padded rows and columns.
+    """
+    b = scores.shape[0]
+    x = scores.reshape(b, b, -1)
+    idx = torch.arange(b, device=scores.device)
+    nom = torch.logsumexp(x[idx, idx, :], dim=1)
+    den_in = torch.cat([x, x.permute(1, 0, 2)], dim=1)
+    if valid is not None:
+        ok = torch.cat([valid, valid]).bool()
+        den_in = torch.where(ok[None, :, None], den_in, NEG_INF)
+    out = torch.logsumexp(den_in.reshape(b, -1), dim=1) - nom
+    if valid is None:
+        return out.mean() if reduction else out
+    vf = valid.to(out.dtype)
+    out = out * vf
+    return out.sum() / torch.clamp(vf.sum(), min=1.0) if reduction else out
+
+
+def ranking_loss(pos_score: Tensor, neg_score: Tensor,
+                 margin: float) -> Tensor:
+    """Mean hinge; reference get_ranking_loss (model.py:434-442)."""
+    return (torch.maximum(margin + neg_score - pos_score,
+                          _zero(pos_score)).sum() / pos_score.shape[0])
+
+
+def sample_neg_scores(scores: Tensor, scores_masked: Tensor,
+                      generator: torch.Generator, use_hard_negative: bool,
+                      hard_pool_size: int) -> Tensor:
+    """Per row, a negative score drawn uniformly from ranks [1, max_idx)
+    of the descending sort of `scores_masked` (positives pre-masked to 999
+    so they rank first and get skipped); reference get_neg_scores
+    (model.py:412-432). max_idx = min(1 + pool, N) when hard, else N.
+    With N = 1 there is no rank 1: the row's negative is NaN, as JAX's
+    out-of-range gather gives."""
+    n_rows, n = scores.shape
+    k = min(1 + hard_pool_size, n) if use_hard_negative else n
+    if k < 2:
+        return torch.full((n_rows,), float("nan"), dtype=scores.dtype,
+                          device=scores.device)
+    idx = torch.sort(scores_masked, dim=1, descending=True,
+                     stable=True).indices[:, :k]
+    ranks = torch.randint(1, k, (n_rows,), generator=generator,
+                          device=scores.device)
+    cols = torch.gather(idx, 1, ranks[:, None])
+    return torch.gather(scores, 1, cols)[:, 0]
+
+
+def frame_trip_loss(scores: Tensor, generator: torch.Generator,
+                    margin: float, use_hard_negative: bool,
+                    hard_pool_size: int) -> Tensor:
+    """Frame-level bidirectional ranking loss over a square (N, N) score
+    matrix with diagonal positives; reference get_frame_trip_loss
+    (model.py:389-410). Deterministic when hard_pool_size=1 with hard
+    negatives."""
+    n = scores.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=scores.device)
+    pos = torch.diagonal(scores)
+    masked = torch.where(eye, 999.0, scores)
+    neg_ctx = sample_neg_scores(scores, masked, generator,
+                                use_hard_negative, hard_pool_size)
+    neg_q = sample_neg_scores(scores.T, masked.T, generator,
+                              use_hard_negative, hard_pool_size)
+    return (ranking_loss(pos, neg_ctx, margin)
+            + ranking_loss(pos, neg_q, margin))
+
+
+def batch_kl_loss(predict: Tensor, target: Tensor, temperature: float,
+                  valid_q: Optional[Tensor] = None) -> Tensor:
+    """Batch-score KL(target || predict) in both directions; reference
+    compute_kl_loss mode='batch_score' (model.py:166-182). predict,
+    target: (Nq, Nv); `valid_q` (bool (Nq,)) drops padded queries from
+    the t2v rows and the v2t columns."""
+    nq, nv = predict.shape
+    if valid_q is None:
+        valid_q = torch.ones(nq, dtype=torch.bool, device=predict.device)
+    vf = valid_q.float()
+    n_valid = torch.clamp(vf.sum(), min=1.0)
+
+    def kl_rows(p_logits, t_logits, row_mask, col_mask, n_rows):
+        p = torch.where(col_mask, p_logits / temperature, NEG_INF)
+        t = torch.where(col_mask, t_logits / temperature, NEG_INF)
+        log_p = p - torch.logsumexp(p, dim=-1, keepdim=True)
+        log_t = t - torch.logsumexp(t, dim=-1, keepdim=True)
+        contrib = torch.where(col_mask, torch.exp(log_t) * (log_t - log_p),
+                              _zero(log_t))
+        return (contrib.sum(dim=-1) * row_mask).sum() / n_rows
+
+    all_cols = torch.ones((nq, nv), dtype=torch.bool, device=predict.device)
+    t2v = kl_rows(predict, target, vf, all_cols, n_valid)
+    v2t = kl_rows(predict.T, target.T, torch.ones_like(predict[0]),
+                  valid_q[None, :], float(nv))
+    return t2v + v2t

@@ -5,10 +5,14 @@ per-epoch distillation/alpha/belta decays, per-epoch validation retrieval,
 best-SumR checkpointing, early stop, then test-split inference.
 
 The train step (forward, backward, the global-norm clip, BertAdam) is plain
-PyTorch autograd: the JAX package's step calls no Pallas kernel. The
-per-epoch validation runs on the resident eval engine (`evaluate.py`), so
-on a CUDA device it goes through the hand-written tower and scoring
-kernels, on weights packed anew at every validation. Loss values stay on
+PyTorch autograd: the JAX package's step calls no Pallas kernel. With
+--dtype bfloat16 the towers compute in bf16 while the parameters, the
+gradients, BertAdam's moments and every loss stay f32; --stacked_towers
+runs both branches' towers as one stacked computation
+(models/stacked.py). The per-epoch validation runs on the resident eval
+engine (`evaluate.py`) in the model's dtype, so on a CUDA device it goes
+through the hand-written tower and scoring kernels of that dtype, on
+weights packed anew at every validation. Loss values stay on
 the device until the epoch ends. Dropout masks and negative samples come
 from one `torch.Generator` on the device, seeded from seed + 1 and saved in
 every checkpoint, so `--resume` continues a run exactly. Checkpoints are
@@ -59,6 +63,16 @@ LOSS_KEYS = ("loss_overall", "inher_trip", "inher_nce", "explore_trip",
              "explore_nce", "kl", "kl_intra")
 
 
+def clip_grads(grads, grad_clip: float):
+    """The global-norm clip before the optimizer (reference
+    train.py:149-150); BertAdam then clips each tensor on its own."""
+    if grad_clip <= 0:
+        return grads
+    gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    scale = torch.clamp(grad_clip / (gnorm + 1e-6), max=1.0)
+    return [g * scale for g in grads]
+
+
 def train_step(model: DLDKD, mcfg: ModelConfig, tcfg, optimizer: BertAdam,
                batch: Dict[str, torch.Tensor], generator: torch.Generator,
                scalars: LossScalars) -> Dict[str, torch.Tensor]:
@@ -73,14 +87,8 @@ def train_step(model: DLDKD, mcfg: ModelConfig, tcfg, optimizer: BertAdam,
     with record_function("train_step/backward"):
         params = list(optimizer.params.values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, params)]
-        if tcfg.grad_clip > 0:
-            # global-norm clip before the optimizer (reference
-            # train.py:149-150); BertAdam then clips each tensor on its own
-            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-            scale = torch.clamp(tcfg.grad_clip / (gnorm + 1e-6), max=1.0)
-            grads = [g * scale for g in grads]
+        grads = clip_grads([torch.zeros_like(p) if g is None else g
+                            for g, p in zip(grads, params)], tcfg.grad_clip)
     with record_function("train_step/optimizer"):
         optimizer.step(grads)
     return {k: v.detach() for k, v in loss_dict.items()}

@@ -50,12 +50,17 @@ def test_port_imports_no_jax():
                                     "dldkd_tpu_torch.train",
                                     "dldkd_tpu_torch.utils.index_io",
                                     "dldkd_tpu_torch.data.native",
-                                    "dldkd_tpu_torch.data.cache"])
+                                    "dldkd_tpu_torch.data.cache",
+                                    "dldkd_tpu_torch.models.stacked",
+                                    "dldkd_tpu_torch.models.rnn",
+                                    "dldkd_tpu_torch.utils.sequences",
+                                    "dldkd_tpu_torch.tools.train_bench"])
 def test_entry_points_import_no_jax(module):
-    """The serving CLI, the eval CLI and the training CLI, and the index
+    """The serving CLI, the eval CLI and the training CLI, the index
     artifacts, native packer and pack cache modules (whose JAX originals
-    load no JAX either), each imported alone, load no JAX, Flax or JAX
-    package module."""
+    load no JAX either), the stacked towers, the RNN encoder, the sequence
+    helpers and the train bench, each imported alone, load no JAX, Flax or
+    JAX package module."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dldkd_tpu')))")

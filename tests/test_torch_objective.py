@@ -8,7 +8,8 @@ largest entry if that is larger (f32; the same operations, sums in another
 order, which leaves a few 1e-7 on entries near zero; the attention keys'
 bias has a zero gradient, rounding noise of ~3e-9 in both packages).
 Also: the training forward's dropout (keep rate 1 - p, scaling 1 / (1 - p),
-masks from the generator only) and the settings that raise.
+masks from the generator only) and the settings that raise (stacked
+towers without two branches of one hidden size).
 
 The JAX parameters are made with numpy on the shapes `jax.eval_shape`
 gives, and each JAX configuration is compiled once (`jax.jit`)."""
@@ -198,15 +199,20 @@ def test_training_forward_masks_come_from_the_generator():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(train=dict(stacked_towers=True)), "A15"),
-    (dict(model=dict(dtype="bfloat16")), "A15"),
+    (dict(train=dict(stacked_towers=True), model=dict(double_branch=False)),
+     "stacked"),
+    (dict(train=dict(stacked_towers=True),
+          model=dict(dtype="bfloat16", exploration_hidden=32)), "stacked"),
 ])
 def test_untrainable_settings_raise(change, match):
+    """Stacked towers need two branches of one hidden size; bf16 and
+    stacked training otherwise run (tests/test_torch_stacked.py,
+    tests/test_torch_bf16_train.py)."""
     _, _, pm, pt = _cfgs("soft", True)
     pm = dataclasses.replace(pm, **change.get("model", {}))
     pt = dataclasses.replace(pt, **change.get("train", {}))
     model = DLDKD(pm)
     b = {k: torch.from_numpy(v) for k, v in make_batch().items()}
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         compute_losses(model, b, torch.Generator(), pm, pt,
                        LossScalars(*(torch.tensor(v) for v in SCALARS)))

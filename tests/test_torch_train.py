@@ -15,7 +15,10 @@
   loaders shuffle alike (RandomState(seed + epoch)).
 - Exact resume: with dropout on, 3 epochs straight give bitwise the same
   parameters, optimizer state and generator state as 2 epochs, then
-  --resume for the third.
+  --resume for the third (`assert_resume_exact`, also run in bf16 with
+  stacked towers by tests/test_torch_bf16_train.py).
+- --dtype bfloat16 and --stacked_towers train; stacked towers without two
+  branches of one hidden size raise before packing.
 - Checkpoints across packages: the port's restores in
   `dldkd_tpu.checkpoint.restore_checkpoint`, and a JAX one resumes in the
   port (which re-seeds its generator and says so).
@@ -311,12 +314,17 @@ def test_resume_is_exact(small_root, tmp_path, monkeypatch):
     2 epochs (stopped after the second validation, as a SIGTERM there
     would) plus --resume for the third; the state after epoch 2 is bitwise
     the same."""
+    assert_resume_exact(small_root, tmp_path, monkeypatch)
+
+
+def assert_resume_exact(small_root, tmp_path, monkeypatch, **over):
+    """The body of test_resume_is_exact, on `_small_cfg(**over)`."""
     from dldkd_tpu_torch.utils import PreemptionGuard
 
-    def run(out, nth, **over):
+    def run(out, nth, **more):
         guard = PreemptionGuard()
         _stop_at_eval(monkeypatch, guard, nth)
-        cfg = _small_cfg(small_root, out, **over)
+        cfg = _small_cfg(small_root, out, **over, **more)
         train_mod.start_training(cfg, device="cpu", preempt_guard=guard)
         monkeypatch.undo()
         return cfg
@@ -343,6 +351,7 @@ def test_resume_is_exact(small_root, tmp_path, monkeypatch):
     with open(resumed.train_log_filepath) as f:
         log = f.read()
     assert "[Epoch] 002" in log and "[Epoch] 001" not in log
+    return straight
 
 
 def test_sigterm_mid_epoch_checkpoints_and_resumes(small_root, tmp_path,
@@ -494,12 +503,21 @@ def test_debug_nans_turns_on_anomaly_detection(small_root, tmp_path,
         seen.clear()
 
 
-def test_untrainable_flags_raise_before_packing(tmp_path):
-    for extra, match in ((["--stacked_towers"], "A15"),
-                         (["--dtype", "bfloat16"], "A15")):
+def test_untrainable_flags_raise_before_packing(small_root, tmp_path):
+    """--dtype bfloat16 and --stacked_towers train (one epoch on the small
+    fixture); --stacked_towers without two branches of one hidden size
+    raises ValueError before any data is packed (the root does not
+    exist)."""
+    cfg = _small_cfg(small_root, str(tmp_path / "ok"), n_epoch=1,
+                     dtype="bfloat16", stacked_towers=True)
+    train_mod.start_training(cfg, device="cpu")
+    assert os.path.isfile(os.path.join(cfg.ckpt_dir, "model.ckpt"))
+    for extra in (["--stacked_towers"],
+                  ["--stacked_towers", "--double_branch",
+                   "--exploration_hidden", "32", "--dtype", "bfloat16"]):
         cfg = parse_args(["--root_path", str(tmp_path / "nowhere"),
                           "--results_root", str(tmp_path / "r")] + extra)
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match="stacked"):
             train_mod.start_training(cfg, device="cpu")
 
 
