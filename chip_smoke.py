@@ -87,7 +87,22 @@ package. Phases, in order; any failure exits non-zero without the final
    (the first search after load_index with and without the manifest, in
    turns), and the towers' transposed int8 emission of the whole corpus
    against the int8-only artifact's rows;
-6. training (`dldkd_tpu_torch.train.main`) at do_tvr.sh's widths and
+6. CLIP teacher extraction (`phase_teacher`): a model directory in the
+   JAX tool's layout (config.json at openai/clip-vit-base-patch32's
+   published widths, flax_model.msgpack of seeded weights written through
+   `convert.clip_params_to_flax`, preprocessor_config.json at 224 / 224),
+   a synthetic dataset with seeded uint8 .npy frame stacks (64 train
+   videos x 32 frames at 240 x 320); `python -m
+   dldkd_tpu_torch.tools.extract_teacher --feature_format npz` in both
+   modes in fresh processes on the card; the stores (every caption and
+   video, 512 wide, finite); both loops timed in this process (captions/s,
+   images/s, the preprocess share, peak memory, the least time from the
+   forward's operations at the f32 rate); the preprocessing on the card
+   bitwise the CPU's; 16 captions' and 16 frames' features on the card,
+   and the stores' rows, against the same model on the CPU (1e-4); then
+   one `train.main --debug` epoch on the extracted 512-d stores (finite
+   losses, the validation's kernels launched);
+7. training (`dldkd_tpu_torch.train.main`) at do_tvr.sh's widths and
    hyperparameters on a synthetic dataset (.npz stores; 1,024 train
    videos, 8 steps of 128 per epoch, 500 val and 500 test videos):
    `--eval_untrained --n_epoch 2`, then `--resume` from the best
@@ -103,11 +118,15 @@ package. Phases, in order; any failure exits non-zero without the final
    step on the card against the same step on the CPU (dropout 0, hard
    negatives from a pool of 1: losses within 1e-4, the whole gradient
    within 1e-4 of its norm; the parameters after the step are
-   reported). Then `train.main --dtype bfloat16 --stacked_towers` for 2
+   reported), and the int8 eval of the trained checkpoint, kernel path
+   against plain (scores within 3e-2, each rank flip of the ground truth
+   listed with its plain-path gap, every one a near tie). Then
+   `train.main --dtype bfloat16 --stacked_towers` for 2
    epochs: finite losses, its validations through the bf16 kernels (bf16
    scoring, both bf16 towers) with no plain call, a bf16 checkpoint; on
    it, one validation's launches, the kernel path's scores against the
-   plain path's in bf16 (within 3e-2, every rank flip a near tie), the
+   plain path's in bf16 (within 3e-2, every rank flip a near tie) and in
+   int8 as for the f32 checkpoint, the
    stacked forward against the sequential one on the card (dropout off:
    1e-5 in f32, 3e-2 in bf16) and a bf16 stacked step on the card
    against the CPU's (loss_overall within rtol 1e-2, the update apart by
@@ -115,7 +134,7 @@ package. Phases, in order; any failure exits non-zero without the final
    four settings (f32 / bf16 x sequential / stacked) and bf16 stacked at
    matmul precision "highest", 8 reps a stage: stage medians, samples/s,
    device-busy ms and CUDA kernels per step, peak GB;
-7. one JSON line listing every ported kernel; then the final `ok` line.
+8. one JSON line listing every ported kernel; then the final `ok` line.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails if a kernel of that path never launched. The counts
@@ -179,6 +198,9 @@ TOL = {
     ("context_tower_q8", "bfloat16"): 0.0,
     # exact rescores by the dense kernel and by the gather, ~1e-6 apart
     ("dense_vs_gather", "scores"): 1e-5,
+    # the teacher's CLIP features, card vs CPU: twelve f32 layers at matmul
+    # precision "highest" on both, sums in another order; features O(1)
+    ("clip", "float32"): 1e-4,
 }
 SERVE = dict(query_bsz=256, k=10, plain_queries=512, shortlist=40)
 # corpus streaming: the streaming eval's and the raw store's corpus blocks,
@@ -2489,23 +2511,75 @@ def _cpu_step_check(state_dict, mcfg, cfg, batch_np, dev):
     return out
 
 
-def _near_tie_flips(k_i, k_e, p_i, p_e, gt) -> dict:
-    """Ranks of the ground truth under the fused scores of the kernel path
-    (k) and the plain path (p): how many differ, and the widest plain-path
-    gap between the ground truth and a video that crossed it (a near tie
-    is a crossing within the scores' tolerance)."""
+def _rank_flip_list(k_i, k_e, p_i, p_e, gt) -> list:
+    """Each query whose ground-truth rank under the fused scores differs
+    between the kernel path (k) and the plain path (p): both ranks and the
+    widest plain-path gap between the ground truth and a video that
+    crossed it (a near tie is a crossing within the scores' tolerance)."""
     kf, pf = 0.7 * k_i + 0.3 * k_e, 0.7 * p_i + 0.3 * p_e
-    flipped = (_rank_rows(k_i, k_e, gt) != _rank_rows(p_i, p_e, gt)
-               ).nonzero()[:, 0]
-    gap = 0.0
-    for q in flipped.tolist():
+    r_k, r_p = _rank_rows(k_i, k_e, gt), _rank_rows(p_i, p_e, gt)
+    flips = []
+    for q in (r_k != r_p).nonzero()[:, 0].tolist():
         g = int(gt[q])
         crossed = (kf[q] > kf[q, g]) != (pf[q] > pf[q, g])
-        if crossed.any():
-            gap = max(gap, float((pf[q] - pf[q, g]).abs()[crossed].max()))
-    return {"rank_flips": int(flipped.numel()), "max_crossing_gap": gap,
-            "queries": int(kf.shape[0]), "near_tie_tol": 2 * TOL[
-                ("scores", "bfloat16")]}
+        gap = float((pf[q] - pf[q, g]).abs()[crossed].max()) \
+            if crossed.any() else 0.0
+        flips.append({"query": q, "rank_kernel": int(r_k[q]),
+                      "rank_plain": int(r_p[q]), "gap": gap})
+    return flips
+
+
+def _near_tie_flips(k_i, k_e, p_i, p_e, gt) -> dict:
+    """How many ground-truth ranks differ between the kernel path and the
+    plain path, and the widest crossing gap among them."""
+    flips = _rank_flip_list(k_i, k_e, p_i, p_e, gt)
+    return {"rank_flips": len(flips),
+            "max_crossing_gap": max((f["gap"] for f in flips), default=0.0),
+            "queries": int(k_i.shape[0]),
+            "near_tie_tol": 2 * TOL[("scores", "bfloat16")]}
+
+
+def _int8_checkpoint_flips(model, videos, queries, eval_cfg, dev,
+                           what: str) -> dict:
+    """ROADMAP C5 row by row: the int8 eval (score_quant) of a trained
+    checkpoint, kernel path against plain path on the card: the scores'
+    largest difference, fused SumR of each, and every rank flip of the
+    ground truth with its plain-path gap. Fails unless the scores agree
+    within the int8 eval's tolerance and every flip is a near tie."""
+    import torch
+
+    from dldkd_tpu_torch.evaluate import (_metrics_from_score_matrices,
+                                          score_matrices)
+    from dldkd_tpu_torch.metrics import build_gt_indices
+
+    args = (model, videos, queries, eval_cfg.eval_context_bsz,
+            eval_cfg.eval_query_bsz, dev)
+    _reset_counts()
+    k = score_matrices(*args, score_quant=True)
+    counts = _counts()
+    p = score_matrices(*args, plain=True, score_quant=True)
+    n = len(videos)
+    k_i, k_e, p_i, p_e = (s[:, :n] for s in k + p)
+    gt = torch.from_numpy(build_gt_indices(queries.video_ids,
+                                           videos.ids)).to(dev)
+    tol = TOL[("scores", "bfloat16")]
+    flips = _rank_flip_list(k_i, k_e, p_i, p_e, gt)
+    rec = {"check": "int8_trained_checkpoint", "what": what,
+           "queries": len(queries), "videos": n,
+           "scores_max_abs_err": max(max_err(k_i, p_i), max_err(k_e, p_e)),
+           "tol": tol, "near_tie_tol": 2 * tol,
+           "kernel_path_fused_sumr": _metrics_from_score_matrices(
+               k_i, k_e, gt, (0.7, 0.3))["fused"]["sumr"],
+           "plain_path_fused_sumr": _metrics_from_score_matrices(
+               p_i, p_e, gt, (0.7, 0.3))["fused"]["sumr"],
+           "rank_flips": len(flips), "flips": flips, "launches": counts}
+    emit(rec)
+    _check_launched(counts, INT8_EVAL_KERNELS, what)
+    if rec["scores_max_abs_err"] > tol \
+            or any(f["gap"] > 2 * tol for f in flips):
+        fail(f"{what}: int8 kernel vs plain scores differ by "
+             f"{rec['scores_max_abs_err']}, flips {flips[:5]}")
+    return rec
 
 
 def _stacked_vs_sequential(state_dict, mcfg, batch_np, dev) -> dict:
@@ -2687,7 +2761,10 @@ def _train_bf16_stacked(workdir, dev, base, cfg, mcfg, val_videos,
             and step["update_rel_err"] <= step["update_rel_tol"]
             and step["params_max_abs_err"] <= step["params_tol"]):
         fail(f"bf16 train step: card vs CPU {step}")
-    del model, k_i, k_e, p_i, p_e
+    del k_i, k_e, p_i, p_e
+    _int8_checkpoint_flips(model, val_videos, val_queries, eval_cfg, dev,
+                           "int8 eval of the trained bf16 checkpoint")
+    del model
     torch.cuda.empty_cache()
     return counts, per_val
 
@@ -2871,7 +2948,10 @@ def phase_train(workdir: str, dev):
         fail(f"train step: card vs CPU {step_check}")
     if not np.isfinite(timing["step_ms_median"]):
         fail("train step timing failed")
-    del model, batches, k_i, k_e, p_i, p_e
+    del k_i, k_e, p_i, p_e
+    _int8_checkpoint_flips(model, val_videos, val_queries, cfg.eval, dev,
+                           "int8 eval of the trained f32 checkpoint")
+    del model, batches
     torch.cuda.empty_cache()
 
     # 4. --dtype bfloat16 --stacked_towers: train.main for 2 epochs, its
@@ -2883,6 +2963,300 @@ def phase_train(workdir: str, dev):
     _train_bench(dev)
     emit({"phase": "train", "phase_s": time.perf_counter() - t_phase})
     return main_counts, per_val, bf_counts, bf_per_val
+
+
+# ------------------------------------------ slice 11: teacher extraction
+
+# openai/clip-vit-base-patch32's published widths, as its config.json
+# gives them (eos_token_id 2: the legacy argmax pooling)
+CLIP_B32 = {"projection_dim": 512,
+            "text_config": {"hidden_size": 512, "intermediate_size": 2048,
+                            "num_hidden_layers": 12,
+                            "num_attention_heads": 8,
+                            "max_position_embeddings": 77,
+                            "vocab_size": 49408, "eos_token_id": 2},
+            "vision_config": {"hidden_size": 768, "intermediate_size": 3072,
+                              "num_hidden_layers": 12,
+                              "num_attention_heads": 12, "image_size": 224,
+                              "patch_size": 32}}
+# the synthetic corpus: 64 train videos of 32 seeded uint8 frames at
+# 240 x 320, their captions; the card's features held against the CPU's
+# on 16 captions and 16 frames; the extraction's batch (text and frames)
+TEACHER = dict(n_train=64, n_val=16, n_test=16, frames=32, height=240,
+               width=320, check=16, bsz=256, seed=11, train_bsz=16)
+
+
+def _clip_forward_flops(cfg, n_tokens: int, tower: str) -> float:
+    """Operations of one sequence's CLIP forward (products and the
+    attention's two matmuls) at n_tokens positions, with its projection
+    (and, for images, the patch product)."""
+    t = getattr(cfg, tower)
+    d, i, n = t.hidden_size, t.intermediate_size, n_tokens
+    per_layer = 2 * n * d * (4 * d + 2 * i) + 4 * n * n * d
+    flops = t.num_hidden_layers * per_layer + 2 * d * cfg.projection_dim
+    if tower == "vision":
+        flops += 2 * (n - 1) * t.num_channels * t.patch_size ** 2 * d
+    return float(flops)
+
+
+def _teacher_cli(mode: str, common, extra=()) -> float:
+    """python -m dldkd_tpu_torch.tools.extract_teacher in a fresh process
+    on the card; its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dldkd_tpu_torch.tools.extract_teacher",
+         "--mode", mode, *common, *extra], capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        fail(f"extract_teacher --mode {mode} in a fresh process: exit "
+             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def _timed_extraction(fns, cap_file, video_ids, frames_root, out_dir):
+    """Both extraction loops in this process with the CLI's callables:
+    captions/s and images/s (wall, ended by the copy back), the time the
+    text loop spent tokenizing, the share of the video loop spent
+    preprocessing (synchronized spans) and the peak device memory."""
+    import torch
+
+    from dldkd_tpu_torch.tools import extract_teacher as et
+
+    spent = {"preprocess": 0.0, "tokenize": 0.0}
+
+    def tokenize(texts):
+        t0 = time.perf_counter()
+        out = fns["tokenize"](texts)
+        spent["tokenize"] += time.perf_counter() - t0
+        return out
+
+    def preprocess(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fns["preprocess"](frames)
+        torch.cuda.synchronize()
+        spent["preprocess"] += time.perf_counter() - t0
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n_caps = et.extract_query_features(
+        cap_file, os.path.join(out_dir, "q.hdf5"), tokenize,
+        fns["encode_text"], TEACHER["bsz"], "npz")
+    text_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    et.extract_video_features(
+        video_ids, frames_root, os.path.join(out_dir, "v.hdf5"), preprocess,
+        fns["encode_image"], TEACHER["bsz"], 0, "npz")
+    video_s = time.perf_counter() - t0
+    n_img = len(video_ids) * TEACHER["frames"]
+    return {"captions": n_caps, "text_s": text_s,
+            "captions_per_s": n_caps / text_s,
+            "tokenize_s": spent["tokenize"], "images": n_img,
+            "video_s": video_s, "images_per_s": n_img / video_s,
+            "preprocess_s": spent["preprocess"],
+            "preprocess_share": spent["preprocess"] / video_s,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _video_loop_profile(fns, frames_list) -> dict:
+    """One pass of preprocess + image forward over the given videos'
+    frames under torch.profiler: wall ms, device busy ms by op class, the
+    idle share and the longest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for frames in frames_list:
+            fns["encode_image"](fns["preprocess"](frames))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_class, by_name = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        cls = _op_class(e.name)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + ms
+    busy = sum(by_class.values())
+    return {"videos": len(frames_list), "wall_ms": wall_ms,
+            "busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "busy_ms_by_class": by_class,
+            "top_kernels_ms": dict(sorted(by_name.items(),
+                                          key=lambda kv: -kv[1])[:5])}
+
+
+def phase_teacher(workdir: str, dev, card: str):
+    """CLIP teacher extraction at ViT-B/32's published widths with seeded
+    weights: the model directory in the JAX tool's layout, both modes of
+    `python -m dldkd_tpu_torch.tools.extract_teacher --feature_format
+    npz` in fresh processes on the card, then the checks (preprocessing
+    card vs CPU bitwise, features card vs CPU, the stores complete) and
+    one `train.main --debug` epoch on the extracted 512-d stores."""
+    import numpy as np
+    import torch
+
+    from dldkd_tpu_torch import train
+    from dldkd_tpu_torch.data.ingest import (dataset_paths, load_captions,
+                                             open_features, read_video_ids)
+    from dldkd_tpu_torch.data.synthetic import generate_dataset
+    from dldkd_tpu_torch.models.clip import (ClipConfig, ClipModel,
+                                             load_clip, save_clip)
+    from dldkd_tpu_torch.tools.clip_preprocess import (
+        PREPROCESSOR_NAME, ClipPreprocessor, PreprocessConfig)
+    from dldkd_tpu_torch.tools.extract_teacher import build_clip_fns
+
+    t_phase = time.perf_counter()
+    cfg = ClipConfig.from_dict(CLIP_B32)
+    model_dir = os.path.join(workdir, "clip-vit-base-patch32")
+    model = ClipModel(cfg).init_weights(
+        torch.Generator().manual_seed(TEACHER["seed"]))
+    n_params = sum(p.numel() for p in model.parameters())
+    save_clip(model, model_dir)
+    del model
+    side = cfg.vision.image_size
+    pre_cfg = PreprocessConfig(shortest_edge=side, crop_size=(side, side))
+    with open(os.path.join(model_dir, PREPROCESSOR_NAME), "w") as f:
+        json.dump(pre_cfg.to_dict(), f)
+    root = os.path.join(workdir, "data")
+    generate_dataset(root, n_videos={"train": TEACHER["n_train"],
+                                     "val": TEACHER["n_val"],
+                                     "test": TEACHER["n_test"]},
+                     frames_range=(20, 200), tokens_range=(5, 31),
+                     d_student=TRAIN["d_video"], d_query=TRAIN["d_query"],
+                     d_teacher=16, seed=TEACHER["seed"], feature_format="npz")
+    paths = dataset_paths(root, "synthetic", "i3d")
+    cap_file = paths["cap_file"]["train"]
+    video_ids = read_video_ids(cap_file)
+    cap_ids, captions, _, _ = load_captions(cap_file)
+    frames_root = os.path.join(workdir, "frames")
+    os.makedirs(frames_root)
+    rng = np.random.RandomState(TEACHER["seed"])
+    shape = (TEACHER["frames"], TEACHER["height"], TEACHER["width"], 3)
+    for vid in video_ids:
+        np.save(os.path.join(frames_root, f"{vid}.npy"),
+                rng.randint(0, 256, shape, dtype=np.uint8))
+    setup_s = time.perf_counter() - t_phase
+
+    # 1. the CLI in fresh processes, writing the trainer's teacher stores
+    common = ["--collection", "synthetic", "--root_path", root,
+              "--clip_model", model_dir, "--feature_format", "npz",
+              "--bsz", str(TEACHER["bsz"])]
+    text_cli_s = _teacher_cli("text", common)
+    video_cli_s = _teacher_cli("video", common,
+                               ["--frames_root", frames_root])
+
+    # 2. the stores: every caption and video, 512 wide, finite
+    text_store, vid_store = (paths["teacher_text_feat"],
+                             paths["teacher_vid_feat"])
+    with open_features(text_store) as f:
+        text_feats = {k: np.asarray(f[k]) for k in f.files}
+    with open_features(vid_store) as f:
+        vid_feats = {k: np.asarray(f[k]) for k in f.files}
+    width = cfg.projection_dim
+    stores_ok = (
+        text_store.endswith(".npz") and vid_store.endswith(".npz")
+        and sorted(text_feats) == sorted(cap_ids)
+        and sorted(vid_feats) == sorted(video_ids)
+        and all(v.shape == (width,) and np.isfinite(v).all()
+                for v in text_feats.values())
+        and all(v.shape == (TEACHER["frames"], width)
+                and np.isfinite(v).all() for v in vid_feats.values()))
+
+    # 3. throughput in this process, with the CLI's callables: a first
+    # pass (the first calls' set-up included), then the steady pass; a
+    # profile of 8 videos' loop
+    fns = build_clip_fns(model_dir, device=dev)
+    first = _timed_extraction(fns, cap_file, video_ids, frames_root,
+                              os.path.join(workdir, "timed"))
+    timing = _timed_extraction(fns, cap_file, video_ids, frames_root,
+                               os.path.join(workdir, "timed"))
+    loop_profile = _video_loop_profile(fns, [
+        np.load(os.path.join(frames_root, f"{v}.npy"))
+        for v in video_ids[:8]])
+
+    # 4. card against CPU: the preprocessing bitwise, the features within
+    # TOL on a subset, the stores' rows against the CPU's
+    n = TEACHER["check"]
+    frames = np.load(os.path.join(frames_root, f"{video_ids[0]}.npy"))[:n]
+    px_card = ClipPreprocessor(pre_cfg, dev)(frames)
+    px_cpu = ClipPreprocessor(pre_cfg, "cpu")(frames)
+    pre_bitwise = bool(torch.equal(px_card.cpu(), px_cpu))
+    tokens = fns["tokenize"]([captions[c] for c in cap_ids[:n]])
+    card_text = fns["encode_text"](tokens)
+    card_img = fns["encode_image"]({"pixel_values": px_card})
+    cpu_model = load_clip(model_dir, "cpu")
+    with torch.inference_mode():
+        cpu_text = cpu_model.get_text_features(
+            torch.from_numpy(tokens["input_ids"]),
+            torch.from_numpy(tokens["attention_mask"])).numpy()
+        cpu_img = cpu_model.get_image_features(px_cpu).numpy()
+    del cpu_model
+    errs = {
+        "text": float(np.abs(card_text - cpu_text).max()),
+        "image": float(np.abs(card_img - cpu_img).max()),
+        "text_store": float(np.abs(np.stack(
+            [text_feats[c] for c in cap_ids[:n]]) - cpu_text).max()),
+        "video_store": float(np.abs(vid_feats[video_ids[0]][:n]
+                                    - cpu_img).max())}
+    tol = TOL[("clip", "float32")]
+    text_flops = _clip_forward_flops(cfg, cfg.text.max_position_embeddings,
+                                     "text")
+    img_flops = _clip_forward_flops(
+        cfg, (pre_cfg.crop_size[0] // cfg.vision.patch_size) ** 2 + 1,
+        "vision")
+    emit({"phase": "teacher", "card": card, "model": "CLIP ViT-B/32 "
+          "(published widths, seeded weights)", "params": n_params,
+          "setup_s": setup_s, "text_cli_process_s": text_cli_s,
+          "video_cli_process_s": video_cli_s, **timing,
+          "first_pass": {k: first[k] for k in (
+              "text_s", "captions_per_s", "tokenize_s", "video_s",
+              "images_per_s")},
+          "video_loop_profile": loop_profile,
+          "gflop_per_caption": text_flops / 1e9,
+          "gflop_per_image": img_flops / 1e9,
+          "bound_ms_text": bound(0, timing["captions"] * text_flops,
+                                 "float32")[0],
+          "bound_ms_video": bound(0, timing["images"] * img_flops,
+                                  "float32")[0],
+          "features_max_abs_err_card_vs_cpu": errs, "tol": tol,
+          "feature_max_abs": float(max(np.abs(cpu_text).max(),
+                                       np.abs(cpu_img).max())),
+          "preprocess_card_vs_cpu_bitwise": pre_bitwise,
+          "stores_complete": stores_ok, "captions": len(cap_ids),
+          "videos": len(video_ids)})
+    if not pre_bitwise:
+        fail("teacher: the preprocessing on the card differs from the CPU's")
+    if not all(v <= tol for v in errs.values()):
+        fail(f"teacher: card vs CPU features {errs} > {tol}")
+    if not stores_ok:
+        fail("teacher: the extracted stores miss captions or videos, or "
+             "hold rows that are not 512 wide and finite")
+
+    # 5. one --debug epoch of train.main on the extracted teacher stores
+    res = os.path.join(workdir, "train", "results")
+    _reset_counts()
+    t0 = time.perf_counter()
+    train.main(TRAIN_ARGS + ["--root_path", root, "--results_root", res,
+                             "--debug", "--n_epoch", "1", "--bsz",
+                             str(TEACHER["train_bsz"])])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _counts()
+    steps, sumrs, _ = _train_history(
+        _run_dir(os.path.join(os.path.dirname(res), "debug_results")))
+    emit({"phase": "teacher train.main --debug", "seconds": train_s,
+          "steps": len(steps), "val_fused_sumr": sumrs,
+          "loss_overall": [r["Train/loss_overall"] for r in steps],
+          "launches": counts, "phase_s": time.perf_counter() - t_phase})
+    _check_losses(steps, "teacher train.main --debug")
+    _check_launched(counts, TRAIN_KERNELS, "teacher train.main --debug")
+    torch.cuda.empty_cache()
 
 
 # each kernels-line entry's check at the streaming shapes
@@ -3020,7 +3394,7 @@ def main() -> None:
     check_no_jax()
 
     t_start = time.perf_counter()
-    kind, count, _ = phase_device()
+    kind, count, card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     checks = phase_kernels(dev)
@@ -3039,6 +3413,9 @@ def main() -> None:
         serve_launches = phase_serving(dev, videos, queries)
         artifact_launches = phase_artifacts(dev, videos, queries)
         del videos, queries
+        with tempfile.TemporaryDirectory(
+                prefix="chip_smoke_teacher_") as workdir:
+            phase_teacher(workdir, dev, card)
         with tempfile.TemporaryDirectory(
                 prefix="chip_smoke_train_") as workdir:
             train_launches = phase_train(workdir, dev)

@@ -55,10 +55,26 @@ def _ext_default(obj):
     raise TypeError(f"cannot serialize {type(obj)}")
 
 
+def read_msgpack(path: str) -> Dict[str, Any]:
+    """A tree written by Flax's `serialization.to_bytes` (or by
+    `write_msgpack`), decoded with numpy leaves."""
+    with open(path, "rb") as f:
+        return msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+
+
+def write_msgpack(path: str, tree: Mapping[str, Any]) -> None:
+    """Write a tree of numpy leaves as Flax's `serialization.from_bytes`
+    reads it; the file is replaced atomically."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack.packb(dict(tree), default=_ext_default,
+                              strict_types=True, use_bin_type=True))
+    os.replace(tmp, path)
+
+
 def read_checkpoint(ckpt_dir: str) -> Dict[str, Any]:
     """The whole decoded checkpoint tree (numpy leaves)."""
-    with open(os.path.join(ckpt_dir, CKPT_NAME), "rb") as f:
-        return msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+    return read_msgpack(os.path.join(ckpt_dir, CKPT_NAME))
 
 
 STATE_KEYS = ("params", "opt_state", "epoch", "best_score", "rng")
@@ -96,11 +112,7 @@ def save_checkpoint(ckpt_dir: str, state: Mapping[str, Any],
     format. The file is replaced atomically."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, CKPT_NAME)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(msgpack.packb(dict(state), default=_ext_default,
-                              strict_types=True, use_bin_type=True))
-    os.replace(tmp, path)
+    write_msgpack(path, state)
     with open(os.path.join(ckpt_dir, CFG_NAME), "w") as f:
         json.dump({k: getattr(model_cfg, k)
                    for k in model_cfg.__dataclass_fields__}, f, indent=2)

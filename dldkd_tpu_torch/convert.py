@@ -228,3 +228,110 @@ def params_from_state_dict(state_dict: Mapping[str, Any]
         b["out_mapping_linear"] = dense("out_mapping_linear")
         tree[branch] = b
     return {"params": tree}
+
+
+# ------------------------------------------------------------------ CLIP
+# transformers' Flax CLIP tree (flax_model.msgpack) <-> models/clip.py's
+# names (transformers' PyTorch CLIPModel names): Dense kernels (in, out)
+# -> Linear weights (out, in); the patch convolution's kernel (kh, kw,
+# cin, cout) -> Conv2d's (cout, cin, kh, kw); LayerNorm scale -> weight;
+# Embed embedding -> weight.
+
+def _clip_layer_names(tower: str, n_layers: int):
+    for i in range(n_layers):
+        base = f"{tower}.encoder.layers.{i}"
+        for sub in ("self_attn.q_proj", "self_attn.k_proj",
+                    "self_attn.v_proj", "self_attn.out_proj", "mlp.fc1",
+                    "mlp.fc2"):
+            yield f"{base}.{sub}", "dense"
+        yield f"{base}.layer_norm1", "norm"
+        yield f"{base}.layer_norm2", "norm"
+
+
+def _clip_names(n_text: int, n_vision: int):
+    """(module name, kind) of every CLIP parameter holder."""
+    yield "text_model.embeddings.token_embedding", "embed"
+    yield "text_model.embeddings.position_embedding", "embed"
+    yield from _clip_layer_names("text_model", n_text)
+    yield "text_model.final_layer_norm", "norm"
+    yield "vision_model.embeddings.class_embedding", "leaf"
+    yield "vision_model.embeddings.patch_embedding", "conv"
+    yield "vision_model.embeddings.position_embedding", "embed"
+    yield "vision_model.pre_layrnorm", "norm"
+    yield from _clip_layer_names("vision_model", n_vision)
+    yield "vision_model.post_layernorm", "norm"
+    yield "text_projection", "dense_nobias"
+    yield "visual_projection", "dense_nobias"
+    yield "logit_scale", "leaf"
+
+
+def _transpose(a: np.ndarray) -> np.ndarray:
+    return a.T
+
+
+# kind -> ((flax leaf, torch suffix, flax->torch, torch->flax), ...)
+_CLIP_LEAVES = {
+    "dense": (("kernel", "weight", _transpose, _transpose),
+              ("bias", "bias", None, None)),
+    "dense_nobias": (("kernel", "weight", _transpose, _transpose),),
+    "norm": (("scale", "weight", None, None), ("bias", "bias", None, None)),
+    "embed": (("embedding", "weight", None, None),),
+    # (kh, kw, cin, cout) <-> (cout, cin, kh, kw)
+    "conv": (("kernel", "weight", lambda a: a.transpose(3, 2, 0, 1),
+              lambda a: a.transpose(2, 3, 1, 0)),),
+}
+
+
+def _clip_layer_count(keys, tower: str) -> int:
+    prefix = f"{tower}.encoder.layers."
+    return len({k[len(prefix):].split(".")[0] for k in keys
+                if k.startswith(prefix)})
+
+
+def clip_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """transformers' Flax CLIP parameter tree (numpy leaves, as
+    `checkpoint.read_msgpack` reads flax_model.msgpack) -> models/clip.py's
+    state_dict."""
+    if "params" in params and "text_model" not in params:
+        params = params["params"]
+    n_text = len(params["text_model"]["encoder"]["layers"])
+    n_vision = len(params["vision_model"]["encoder"]["layers"])
+    out: Dict[str, np.ndarray] = {}
+    for name, kind in _clip_names(n_text, n_vision):
+        node = params
+        for part in name.split("."):
+            node = node[part]
+        if kind == "leaf":
+            out[name] = np.asarray(node, np.float32)
+            continue
+        for leaf, suffix, to_torch, _ in _CLIP_LEAVES[kind]:
+            arr = np.asarray(node[leaf], np.float32)
+            out[f"{name}.{suffix}"] = np.ascontiguousarray(
+                to_torch(arr) if to_torch else arr)
+    return _tensors(out)
+
+
+def clip_params_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """models/clip.py's state_dict -> transformers' Flax CLIP parameter
+    tree (numpy leaves), the inverse of clip_state_dict_from_flax: what
+    `FlaxCLIPModel.save_pretrained` writes to flax_model.msgpack."""
+    # np.array, not ascontiguousarray: logit_scale stays 0-d
+    sd = {k: np.array(v.detach().cpu().float().numpy()
+                      if hasattr(v, "detach") else v, np.float32)
+          for k, v in state_dict.items()}
+    tree: Dict[str, Any] = {}
+    for name, kind in _clip_names(_clip_layer_count(sd, "text_model"),
+                                  _clip_layer_count(sd, "vision_model")):
+        *parents, last = name.split(".")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        if kind == "leaf":
+            node[last] = sd[name]
+            continue
+        leaves = node.setdefault(last, {})
+        for leaf, suffix, _, to_flax in _CLIP_LEAVES[kind]:
+            arr = sd[f"{name}.{suffix}"]
+            leaves[leaf] = np.ascontiguousarray(to_flax(arr) if to_flax
+                                                else arr)
+    return tree

@@ -797,3 +797,53 @@ def test_index_artifact_round_trip_on_card(dev, kw, tmp_path, monkeypatch):
     got = r2.search(qf, qm, k=7)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("h,w", [(240, 320), (100, 150), (500, 333)])
+def test_clip_preprocess_on_card_bitwise_cpu(dev, h, w):
+    """The teacher's frame preprocessing (PIL's bicubic as two float64
+    products of integers, exact; then float32 rescale and normalize) on
+    the card: bitwise the CPU's."""
+    from dldkd_tpu_torch.tools.clip_preprocess import (ClipPreprocessor,
+                                                       PreprocessConfig)
+
+    frames = np.random.RandomState(h).randint(0, 256, (6, h, w, 3),
+                                              dtype=np.uint8)
+    cfg = PreprocessConfig()
+    got = ClipPreprocessor(cfg, dev)(frames)
+    assert got.device.type == "cuda" and got.shape == (6, 3, 224, 224)
+    assert torch.equal(got.cpu(), ClipPreprocessor(cfg, "cpu")(frames))
+
+
+def test_clip_forward_on_card_matches_cpu(dev):
+    """A two-layer CLIP at ViT-B/32's head widths (64), text and image
+    features on the card against the CPU: within 1e-4 abs (f32 products
+    at "highest" on both, sums in another order)."""
+    from dldkd_tpu_torch.models.clip import (ClipConfig, ClipModel,
+                                             ClipTowerConfig)
+
+    torch.set_float32_matmul_precision("highest")
+    cfg = ClipConfig(
+        text=ClipTowerConfig(hidden_size=128, intermediate_size=512,
+                             num_hidden_layers=2, num_attention_heads=2,
+                             eos_token_id=2),
+        vision=ClipTowerConfig(hidden_size=128, intermediate_size=512,
+                               num_hidden_layers=2, num_attention_heads=2),
+        projection_dim=64)
+    cpu = ClipModel(cfg).init_weights(torch.Generator().manual_seed(17))
+    card = ClipModel(cfg)
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    rng = np.random.RandomState(18)
+    ids = torch.from_numpy(rng.randint(0, 49406, (8, 77)))
+    ids[:, 0], ids[:, 20] = 49406, 49407
+    mask = (torch.arange(77)[None] <= 20).int().expand(8, 77)
+    px = torch.from_numpy(rng.randn(4, 3, 224, 224).astype(np.float32))
+    with torch.no_grad():
+        pairs = ((cpu.get_text_features(ids, mask),
+                  card.get_text_features(ids.to(dev), mask.to(dev))),
+                 (cpu.get_image_features(px),
+                  card.get_image_features(px.to(dev))))
+    for want, got in pairs:
+        assert float(want.abs().max()) > 0.01
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing it, or `chip_smoke.py`, loads
-nothing of JAX, Flax or the JAX package; its entry points run on CUDA unless
-told otherwise; `chip_smoke.py` refuses to report without a GPU."""
+nothing of JAX, Flax or the JAX package, nor transformers or regex; its
+entry points run on CUDA unless told otherwise; `chip_smoke.py` refuses to
+report without a GPU."""
 
 import os
 import shutil
@@ -24,7 +25,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "dldkd_tpu"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "dldkd_tpu",
+                                       "transformers", "regex"))
 print(len(names), leaked)
 """
 
@@ -54,16 +56,23 @@ def test_port_imports_no_jax():
                                     "dldkd_tpu_torch.models.stacked",
                                     "dldkd_tpu_torch.models.rnn",
                                     "dldkd_tpu_torch.utils.sequences",
-                                    "dldkd_tpu_torch.tools.train_bench"])
+                                    "dldkd_tpu_torch.tools.train_bench",
+                                    "dldkd_tpu_torch.tools.extract_teacher",
+                                    "dldkd_tpu_torch.tools.clip_tokenizer",
+                                    "dldkd_tpu_torch.tools.clip_preprocess",
+                                    "dldkd_tpu_torch.models.clip",
+                                    "dldkd_tpu_torch.data.vocab"])
 def test_entry_points_import_no_jax(module):
     """The serving CLI, the eval CLI and the training CLI, the index
     artifacts, native packer and pack cache modules (whose JAX originals
     load no JAX either), the stacked towers, the RNN encoder, the sequence
-    helpers and the train bench, each imported alone, load no JAX, Flax or
-    JAX package module."""
+    helpers, the train bench and the teacher extraction with its
+    tokenizer, preprocessing and CLIP, each imported alone, load no JAX,
+    Flax, JAX package, transformers or regex module."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'dldkd_tpu')))")
+            "('jax', 'jaxlib', 'flax', 'dldkd_tpu', 'transformers', "
+            "'regex')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)
