@@ -86,7 +86,20 @@ package. Phases, in order; any failure exits non-zero without the final
    exact store's unnormalized frames would add, a two-signature prewarm
    (the first search after load_index with and without the manifest, in
    turns), and the towers' transposed int8 emission of the whole corpus
-   against the int8-only artifact's rows;
+   against the int8-only artifact's rows; then the benches
+   (`phase_benches`, `dldkd_tpu_torch/tools/`): in this process
+   stage_bench (3 reps a stage; its one-branch rows launch the one-branch
+   towers) and the port bench's whole line (`tools.bench.main`: the int8
+   and exact evals at TVR scale, the three train keys, the replica fleet
+   drill of coldstart_bench in subprocesses, streaming at 8x TVR), each
+   with every kernel of its path launched, no plain version run and finite
+   positive times, the line with bench.py's keys (vs_baseline null,
+   train_speed null with its reason, the card's name and power limit),
+   then the bench's int8 eval kernel against plain on 1,024 queries (every
+   rank flip a near tie, C5); in fresh processes search_bench (its exact
+   row's first-batch ids equal to Retriever.search's), stream_bench
+   --scale 8 --reps 2 --host and coldstart_bench --policy cold (a fresh
+   kernel-library directory: nvcc builds inside its time);
 6. CLIP teacher extraction (`phase_teacher`): a model directory in the
    JAX tool's layout (config.json at openai/clip-vit-base-patch32's
    published widths, flax_model.msgpack of seeded weights written through
@@ -154,7 +167,11 @@ train.main (`train_launches_bf16_stacked`) and in one bf16 validation
 epilogue's transposed write (`context_tower_q8_t`) is on no path of the
 JAX package either; its launches are those of the artifact phase's
 transposed emission of the corpus, its times the phase-3 check's at 2,048
-videos.
+videos. Each kernel also carries its launches on each in-process path of
+`phase_benches` (`bench_launches`: stage_bench, the port bench); the
+one-branch tower launches (`query_tower_1br`, `context_tower_1br`) have
+entries of their own, their launches those of stage_bench's one-branch
+rows and their times phase 3's one-branch bf16 checks.
 """
 
 from __future__ import annotations
@@ -439,6 +456,56 @@ def _scoring_smem(kind: str, nq: int, d: int) -> dict:
     return {"warpgroups": wg, "bytes": smem(wg)}
 
 
+def _tower_check(kind, dtype, branches, shape, lp, packed, run, plain,
+                 chain, n_plain=20, **extra) -> dict:
+    """One tower launch of `branches` branches on x of `shape` (n, l, d),
+    padded to lp rows, against its plain version: run() and plain() give
+    the wrapper's and the plain version's outputs, chain() the CUDA chain
+    alone (`tower_cuda` on the prepared inputs). Emits and returns its
+    record (largest difference, the chain's time, also on the device, the
+    wrapper's, the plain version's, the bound at these shapes, and
+    `extra`); fails on a non-finite output or a difference past
+    TOL[("tower", dtype)]."""
+    import torch
+
+    n, l, d = shape
+    h = TVR["hidden"]
+    f32 = dtype == "float32"
+    item = torch.tensor([], dtype=getattr(torch, dtype)).element_size()
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+    del got, want
+    tol = TOL[("tower", dtype)]
+    w_bytes = sum(t.numel() * t.element_size() for t in packed.values())
+    out_item = 4 if kind == "query" else item
+    out_n = n * h if kind == "query" else n * l * h
+    n_bytes = (n * lp * d * 4 + n * lp * 4 + w_bytes
+               + branches * out_n * out_item)
+    flops = branches * _tower_flops(n, lp, d, h, kind)
+    # f32: three TF32 products (3xTF32); bf16: one
+    b_ms, b_by = bound(n_bytes, (3 if f32 else 1) * flops,
+                       "tf32" if f32 else dtype)
+    name = f"{kind}_tower"
+    rec = {"check": name, "dtype": dtype, "branches": branches,
+           "shape": {"x": [n, l, d], "hidden": h},
+           "max_abs_err": err, "tol": tol, "finite": finite,
+           "kernel_ms": cuda_ms(chain), "device_ms": device_ms(chain),
+           "wrapper_ms": cuda_ms(run), "plain_ms": cuda_ms(plain, n=n_plain),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **extra,
+           "mma_smem_bytes": _mma_smem(lp, h, TVR["heads"], dtype)}
+    if f32:  # the replaced SIMT chain's rule
+        rec["bound_ms_f32_fma"] = bound(n_bytes, flops, "float32")[0]
+    emit(rec)
+    if not finite:
+        fail(f"{name} {dtype} x{branches} n={n}: non-finite output")
+    if not err <= tol:
+        fail(f"{name} {dtype} x{branches} n={n}: max abs error {err} > "
+             f"{tol}")
+    return rec
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the per-launch shapes."""
     import torch
@@ -534,51 +601,17 @@ def phase_kernels(dev):
                         packed=packed))
                     plain = (lambda: qt.context_towers(
                         x, xm, w, TVR["heads"], tdt, "check", plain=True))
-                got, want = run(), plain()
-                torch.cuda.synchronize()
-                err = max(max_err(a, b) for a, b in zip(got, want))
-                finite = all(bool(torch.isfinite(a.float()).all())
-                             for a in got)
-                tol = TOL[("tower", dtype)]
                 chain = (lambda: qt.tower_cuda(xp, mp, packed, TVR["heads"],
                                                tdt, kind, pos_rows=l))
-                w_bytes = sum(t.numel() * t.element_size()
-                              for t in packed.values())
-                out_item = 4 if kind == "query" else item
-                out_n = n * h if kind == "query" else n * l * h
-                n_bytes = (n * lp * d * 4 + n * lp * 4 + w_bytes
-                           + branches * out_n * out_item)
-                flops = branches * _tower_flops(n, lp, d, h, kind)
-                # f32: three TF32 products (3xTF32); bf16: one
-                b_ms, b_by = bound(n_bytes,
-                                   (3 if dtype == "float32" else 1) * flops,
-                                   "tf32" if dtype == "float32" else dtype)
-                name = f"{kind}_tower"
-                rec = {"check": name, "dtype": dtype, "branches": branches,
-                       "shape": {"x": [n, l, d], "hidden": h},
-                       "max_abs_err": err, "tol": tol, "finite": finite,
-                       "kernel_ms": cuda_ms(chain),
-                       "device_ms": device_ms(chain),
-                       "wrapper_ms": cuda_ms(run),
-                       "plain_ms": cuda_ms(plain, n=20),
-                       "bound_ms": b_ms, "bound_by": b_by,
-                       "library_ms": None,
-                       # yardstick only: the products alone, torch.matmul
-                       "product_ms": cuda_ms(_tower_products(
-                           n, lp, d, h, branches, kind, tdt, gen, dev))}
-                rec["mma_smem_bytes"] = _mma_smem(lp, h, TVR["heads"], dtype)
-                if dtype == "float32":  # the replaced SIMT chain's rule
-                    rec["bound_ms_f32_fma"] = bound(n_bytes, flops,
-                                                    "float32")[0]
-                emit(rec)
-                results[(name, dtype, branches) if n != SERVE["query_bsz"]
-                        else (name, dtype, branches, n)] = rec
-                if not finite:
-                    fail(f"{name} {dtype} x{branches} n={n}: non-finite "
-                         f"output")
-                if not err <= tol:
-                    fail(f"{name} {dtype} x{branches} n={n}: max abs error "
-                         f"{err} > {tol}")
+                rec = _tower_check(
+                    kind, dtype, branches, (n, l, d), lp, packed, run, plain,
+                    chain,
+                    # yardstick only: the products alone, torch.matmul
+                    product_ms=cuda_ms(_tower_products(
+                        n, lp, d, h, branches, kind, tdt, gen, dev)))
+                results[(rec["check"], dtype, branches)
+                        if n != SERVE["query_bsz"]
+                        else (rec["check"], dtype, branches, n)] = rec
         del model, ws
         torch.cuda.empty_cache()
     return results
@@ -2181,6 +2214,357 @@ def phase_artifacts(dev, videos, queries):
     return launches
 
 
+# -------------------------------------------------- slice 12: the benches
+
+# the kernels each in-process bench path must launch: stage_bench's
+# one-branch rows reach the one-branch towers (Pallas `fused_query_tower`,
+# `fused_context_tower`); the port bench's eval, train and streaming parts
+STAGE_KERNELS = ("query_tower_bf16", "context_tower_bf16", "query_tower_1br",
+                 "context_tower_1br", "sim_max_bf16", "sim_max_int8",
+                 "context_tower_q8")
+PORT_BENCH_KERNELS = ("query_tower_bf16", "context_tower_bf16",
+                      "sim_max_bf16", "sim_max_int8", "context_tower_q8")
+# repetitions in this check's runs (the tools' defaults otherwise): the
+# stage bench's per stage, stream_bench's passes (the port bench's
+# streaming_8x times the same pass at 4); the C5 check's queries
+BENCHES = dict(stage_reps=3, stream_reps=1, flip_queries=1024)
+
+
+def _tool(name: str, args, timeout: int = 900) -> tuple:
+    """`python -m dldkd_tpu_torch.tools.<name> args` in a fresh process
+    from the repository root: its last stdout line (JSON) and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"dldkd_tpu_torch.tools.{name}", *args],
+        capture_output=True, text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"{name} {args}: exit {proc.returncode}: {proc.stderr[-1500:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), secs
+
+
+def _check_times(values, what: str) -> None:
+    bad = [v for v in values
+           if not (isinstance(v, (int, float)) and math.isfinite(v)
+                   and v > 0)]
+    if bad:
+        fail(f"{what}: times not finite and positive: {bad}")
+
+
+def _bench_shape_checks(dev) -> dict:
+    """The kernels of the benches' paths at the shapes stage_bench and the
+    port bench give them, on their own inputs and weights
+    (`workload.serving_inputs` and `serving_model`, seed 0): 11,264
+    queries in one query-tower launch, 2,304 videos in one video-tower
+    launch. The towers of the two-branch model and of its one-branch twin
+    against their plain versions (`_tower_check`, TOL tower bf16). Then
+    the int8 route, stage by stage, each stage held exactly: the int8
+    epilogue of the kernel's towers against its plain version on the same
+    frames (bitwise), and the int8 scorer of all the queries on an index
+    and query vectors built once on the plain path, kernel against plain
+    (every valid video's score bitwise). Last, C5 on the whole route: the
+    first BENCHES["flip_queries"] queries' ranks, kernel path against
+    plain path, every rank that differs a near tie (crossing gap within
+    twice TOL scores bf16). Returns each record by name."""
+    import torch
+    import torch.nn.functional as F
+
+    from dldkd_tpu_torch.ops.fast_eval import (encode_context_best,
+                                               encode_context_q8,
+                                               encode_query_best,
+                                               tower_weights)
+    from dldkd_tpu_torch.ops.kernels import query_tower as qt
+    from dldkd_tpu_torch.ops.kernels import sim_max
+    from dldkd_tpu_torch.ops.masking import l2_normalize
+    from dldkd_tpu_torch.ops.similarity import clip_scores_maxpool_pre8
+    from dldkd_tpu_torch.tools import workload as wl
+
+    data = wl.serving_inputs(dev, wl.N_VIDEOS, wl.N_QUERIES)
+    frames = data.pop("vfeats").float()   # the benches widen it so
+    vmask, qfeats, qmask, gt = (data[k] for k in ("vmask", "qfeats",
+                                                  "qmask", "gt"))
+    dual = wl.serving_model(0, dev)
+    one = wl.serving_model(device=dev, one_branch_of=dual)
+    heads, bf, lq, lf = TVR["heads"], torch.bfloat16, qfeats.shape[1], \
+        frames.shape[1]
+    out = {}
+
+    def outs(fn):
+        return lambda: [t for t in fn() if t is not None]
+
+    for model, tag in ((dual, "dual"), (one, "1br")):
+        ws = tower_weights(model, dev)
+        branches = len(model.branches)
+        # query_towers' token mask: positions past the table are padding
+        n_pos = min(w[2].shape[0] for w in ws["query"])
+        mq = F.pad(qmask[:, :n_pos], (0, lq - n_pos))
+        pq, pc = ws["packed"]["query"][0], ws["packed"]["context"][0]
+        out[f"query_tower_{tag}"] = _tower_check(
+            "query", "bfloat16", branches, tuple(qfeats.shape), lq, pq,
+            outs(lambda: encode_query_best(model, qfeats, qmask, ws)),
+            outs(lambda: encode_query_best(model, qfeats, qmask, ws,
+                                           plain=True)),
+            lambda: qt.tower_cuda(qfeats, mq, pq, heads, bf, "query",
+                                  pos_rows=lq),
+            n_plain=5, shapes_of="stage_bench, port bench")
+        out[f"context_tower_{tag}"] = _tower_check(
+            "context", "bfloat16", branches, tuple(frames.shape), lf, pc,
+            outs(lambda: encode_context_best(model, frames, vmask, ws)),
+            outs(lambda: encode_context_best(model, frames, vmask, ws,
+                                             plain=True)),
+            lambda: qt.tower_cuda(frames, vmask, pc, heads, bf, "context",
+                                  pos_rows=lf),
+            n_plain=5, shapes_of="stage_bench, port bench")
+    del one
+    torch.cuda.empty_cache()
+
+    # the int8 route: the epilogue on the kernel's own frames
+    ws = tower_weights(dual, dev)
+    k8 = encode_context_q8(dual, frames, vmask, ws)
+    kf = encode_context_best(dual, frames, vmask, ws)
+    p8 = encode_context_q8(dual, frames, vmask, ws, plain=True)
+    torch.cuda.synchronize()
+    epi = {"check": "bench_context_tower_q8", "dtype": "bfloat16",
+           "shape": {"frames": [2, *kf[0].shape]},
+           "max_abs_err": max(max_err(a, qt.quantize_frames_q8_plain(f))
+                              for a, f in zip(k8, kf)),
+           "tol": TOL[("context_tower_q8", "bfloat16")],
+           "vs_plain_towers_max_levels": max(
+               int((a.int() - b.int()).abs().max()) for a, b in zip(k8, p8)),
+           "vs_plain_towers_share_off": sum(
+               int((a != b).sum()) for a, b in zip(k8, p8))
+           / (2 * k8[0].numel())}
+    del kf
+    emit(epi)
+    out["context_tower_q8"] = epi
+    if not epi["max_abs_err"] <= epi["tol"] \
+            or epi["vs_plain_towers_max_levels"] > 1:
+        fail(f"bench int8 epilogue: {epi}")
+
+    # the scorer, every query, on the plain path's index and queries
+    k_idx = [sim_max.build_q8_index(t, vmask) for t in k8]
+    p_idx = [sim_max.build_q8_index(t, vmask) for t in p8]
+    del k8, p8
+    kq = encode_query_best(dual, qfeats, qmask, ws)
+    pq = encode_query_best(dual, qfeats, qmask, ws, plain=True)
+    nv, (nq, h), nv_pad = wl.N_VIDEOS, pq[0].shape, frames.shape[0]
+    del frames
+    got = [clip_scores_maxpool_pre8(q, *i) for q, i in zip(pq, p_idx)]
+    want = [clip_scores_maxpool_pre8(q, *i, plain=True)
+            for q, i in zip(pq, p_idx)]
+    torch.cuda.synchronize()
+    q8 = sim_max.quantize_unit_int8(l2_normalize(pq[0])).contiguous()
+    c8, bias = p_idx[0]
+    n_bytes = nq * h + nv_pad * lf * h + nv_pad * lf * 4 + nq * nv_pad * 4
+    b_ms, b_by = bound(n_bytes, 2 * nq * nv_pad * lf * h, "int8")
+    sc = {"check": "bench_sim_max_int8", "dtype": "int8",
+          "shape": {"q": [nq, h], "ctx": [nv_pad, lf, h]},
+          "max_abs_err": max(max_err(g[:, :nv], w[:, :nv])
+                             for g, w in zip(got, want)),
+          "tol": TOL[("sim_max_int8", "int8")],
+          "bitwise_valid_columns": all(
+              bool(torch.equal(g[:, :nv], w[:, :nv]))
+              for g, w in zip(got, want)),
+          "kernel_ms": cuda_ms(scoring_launch("sim_max_int8", q8, c8, bias)),
+          "wrapper_ms": cuda_ms(lambda: clip_scores_maxpool_pre8(
+              pq[0], c8, bias)),
+          "plain_ms": cuda_ms(lambda: clip_scores_maxpool_pre8(
+              pq[0], c8, bias, plain=True), n=5),
+          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+          "shapes_of": "stage_bench pre8 row, port bench int8 route"}
+    del got, q8
+    emit(sc)
+    out["sim_max_int8"] = sc
+    if not sc["bitwise_valid_columns"]:
+        fail(f"bench int8 scorer: valid columns differ from the plain "
+             f"version by {sc['max_abs_err']}")
+
+    # C5 on the whole route: kernel path against plain path
+    n = BENCHES["flip_queries"]
+    k_i, k_e = (clip_scores_maxpool_pre8(q[:n], *i)[:, :nv]
+                for q, i in zip(kq, k_idx))
+    p_i, p_e = (w[:n, :nv] for w in want)
+    tol = TOL[("scores", "bfloat16")]
+    flips = _rank_flip_list(k_i, k_e, p_i, p_e, gt[:n])
+    rec = {"check": "bench_int8_kernel_vs_plain", "queries": n,
+           "videos": nv,
+           "scores_max_abs_err": max(max_err(k_i, p_i), max_err(k_e, p_e)),
+           "tol": tol, "near_tie_tol": 2 * tol, "rank_flips": len(flips),
+           "max_crossing_gap": max((f["gap"] for f in flips), default=0.0),
+           "flips": flips[:20]}
+    emit(rec)
+    out["int8_flips"] = rec
+    if rec["scores_max_abs_err"] > tol \
+            or any(f["gap"] > 2 * tol for f in flips):
+        fail(f"bench int8 eval: kernel vs plain scores differ by "
+             f"{rec['scores_max_abs_err']}, flips {flips[:5]}")
+    del data, dual, ws, k_idx, p_idx, kq, pq, want, k_i, k_e, p_i, p_e
+    torch.cuda.empty_cache()
+    return out
+
+
+def _search_ids_check(dev, ids_path: str) -> dict:
+    """search_bench's exact row on its first batch against
+    `Retriever.search` on the same batch (the same seeded corpus, weights
+    and queries, the index built in one tower launch as the tool builds
+    it): the ids must be equal."""
+    import numpy as np
+    import torch
+
+    from dldkd_tpu_torch.data.ingest import PackedVideos
+    from dldkd_tpu_torch.serving import Retriever
+    from dldkd_tpu_torch.tools import search_bench
+    from dldkd_tpu_torch.tools import workload as wl
+
+    data = search_bench.search_inputs(dev, wl.N_VIDEOS, 1, 256)
+    n_pad = data["vfeats"].shape[0]
+    videos = PackedVideos(feats=data["vfeats"].float().cpu().numpy(),
+                          mask=data["vmask"].cpu().numpy(),
+                          ids=[f"v{i}" for i in range(n_pad)])
+    r = Retriever(wl.serving_model(0, dev), query_bsz=256, device=dev)
+    r.index(videos, context_bsz=n_pad)
+    _, got = r.search(data["qfeats"][0].cpu().numpy(),
+                      data["qmask"][0].cpu().numpy(), k=search_bench.K)
+    want = np.load(ids_path)
+    rec = {"check": "search_bench_exact_ids_vs_retriever",
+           "shape": list(want.shape), "equal": bool(np.array_equal(got,
+                                                                    want))}
+    emit(rec)
+    if not rec["equal"]:
+        fail(f"search_bench exact ids differ from Retriever.search's: "
+             f"{int((got != want).sum())} of {want.size}")
+    del r, videos, data
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_benches(dev, card: str) -> tuple:
+    """The port's benches on the card (`dldkd_tpu_torch/tools/`). In this
+    process, with the launch counts set to 0 just before each and read
+    just after: stage_bench (3 reps a stage) and the port bench's whole
+    line (`tools/bench.main`: the eval keys at TVR scale, the train keys,
+    the fleet drill of coldstart_bench --policy fleet --replicas 2
+    --n_videos 545 in subprocesses, streaming at 8x TVR); each must launch
+    every kernel of its path, stage_bench the one-branch towers too, run
+    no plain version, and give finite positive times; the port bench's
+    line must carry bench.py's keys, vs_baseline null, train_speed null
+    with its reason, the card's name and power limit as `device`, both
+    fleet replicas. Between the two, `_bench_shape_checks`: every kernel
+    of these paths against its plain version at the shapes they give it,
+    and C5 on the bench's int8 eval. In fresh processes: search_bench (its
+    exact row's first-batch ids against Retriever.search's), stream_bench
+    --scale 8 --reps 1 --host, and coldstart_bench --policy cold (a fresh
+    kernel-library directory: the nvcc builds are in its time). HOME
+    points at a temporary directory for the phase, so the drill's artifact
+    and library directory live and die with it; that library directory is
+    filled from this run's build. Returns each in-process path's launch
+    counts and the records of `_bench_shape_checks`."""
+    import shutil
+
+    import torch
+
+    from dldkd_tpu_torch.ops.kernels import build
+    from dldkd_tpu_torch.tools import bench, stage_bench
+
+    t_phase = time.perf_counter()
+    launches = {}
+    _reset_counts()
+    with _PlainCalls() as plain:
+        t0 = time.perf_counter()
+        rec = stage_bench.main(["--reps", str(BENCHES["stage_reps"])])
+        secs = time.perf_counter() - t0
+    launches["stage_bench"] = counts = _counts()
+    emit({"phase": "stage_bench", "card": card, "seconds": secs,
+          "launches": counts, "plain_calls": plain.calls, **rec})
+    _check_launched(counts, STAGE_KERNELS, "stage_bench")
+    if plain.calls:
+        fail(f"stage_bench: plain versions ran: {plain.calls}")
+    _check_times(list(rec["stages_ms"].values())
+                 + [rec["sum_ms"], rec["q8_sum_ms"]], "stage_bench")
+    torch.cuda.empty_cache()
+    checks = _bench_shape_checks(dev)
+
+    saved_home = os.environ.get("HOME")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_home_") as home:
+        kernel_dir = os.path.join(home, ".cache", "dldkd_torch_kernels")
+        os.makedirs(kernel_dir)
+        for path in build.build().values():
+            shutil.copy2(path, kernel_dir)
+        os.environ["HOME"] = home
+        try:
+            _reset_counts()
+            with _PlainCalls() as plain:
+                t0 = time.perf_counter()
+                line = bench.main([])
+                secs = time.perf_counter() - t0
+            launches["bench"] = counts = _counts()
+            emit({"phase": "port_bench", "card": card, "seconds": secs,
+                  "launches": counts, "plain_calls": plain.calls})
+            _check_launched(counts, PORT_BENCH_KERNELS, "port bench")
+            if plain.calls:
+                fail(f"port bench: plain versions ran: {plain.calls}")
+            missing = [k for k in bench.BENCH_KEYS if k not in line]
+            fleet = line.get("coldstart_fleet", {})
+            if missing or line["vs_baseline"] is not None \
+                    or line["train_speed"]["value"] is not None \
+                    or not line["train_speed"].get("reason") \
+                    or line["device"] != card \
+                    or len(fleet.get("first_result_s", [])) != 2:
+                fail(f"port bench line: missing {missing} or wrong values: "
+                     f"{json.dumps(line)[:800]}")
+            _check_times([line["value"], line["exact_bf16"]["value"],
+                          line["train"]["value"], line["train_bf16"]["value"],
+                          line["train_bf16_stacked"]["value"],
+                          line["train_scan"]["f32_parity"],
+                          line["train_scan"]["speed_stack"],
+                          fleet["p50_first_result_s"],
+                          fleet["p95_first_result_s"],
+                          fleet["max_first_search_s"],
+                          line["streaming_8x"]["value"]], "port bench")
+            torch.cuda.empty_cache()
+
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_ids_") as d:
+                ids_path = os.path.join(d, "exact_ids.npy")
+                search, secs = _tool("search_bench", ["--ids_out", ids_path])
+                emit({"phase": "search_bench", "card": card, "seconds": secs,
+                      "ms_per_batch": search})
+                if list(search) != ["exact", "two_stage", "two_stage_q8",
+                                    "int8_only_q8"]:
+                    fail(f"search_bench rows: {search}")
+                _check_times(search.values(), "search_bench")
+                ids = _search_ids_check(dev, ids_path)
+
+            stream, secs = _tool("stream_bench", [
+                "--scale", "8", "--reps", str(BENCHES["stream_reps"]),
+                "--host"])
+            emit({"phase": "stream_bench", "card": card, "seconds": secs,
+                  **stream})
+            if stream["detail"]["videos"] != 8 * TVR["n_videos"] \
+                    or "host_stream" not in stream:
+                fail(f"stream_bench: {stream}")
+            _check_times([stream["value"], stream["detail"]["qps"],
+                          stream["host_stream"]["seconds"]], "stream_bench")
+
+            cold, secs = _tool("coldstart_bench", ["--policy", "cold"])
+            emit({"phase": "coldstart_bench", "card": card, "seconds": secs,
+                  **cold})
+            _check_times([cold["first_result_s"], cold["index_s"],
+                          cold["first_search_s"]], "coldstart_bench cold")
+            if not cold["first_result_s"] > cold["first_search_s"]:
+                fail(f"coldstart_bench cold: {cold}")
+        finally:
+            if saved_home is None:
+                os.environ.pop("HOME", None)
+            else:
+                os.environ["HOME"] = saved_home
+    emit({"phase": "benches", "seconds": time.perf_counter() - t_phase,
+          "port_bench_line": line,
+          "bench_int8_flips": checks["int8_flips"]["rank_flips"],
+          "search_ids_equal": ids["equal"]})
+    return launches, checks
+
+
 # ------------------------------------------------- slice 7: training
 
 # the train phase's dataset: do_tvr.sh's widths (video 1024, query 768,
@@ -3270,8 +3654,25 @@ STREAM_CHECKS = {"sim_max": "sim_max_bf16", "sim_max_f32": "sim_max_f32",
                  "context_tower_q8": "context_tower_q8_bfloat16"}
 
 
+def _bench_launches(bench_launches, counter: str) -> dict:
+    """A kernel's launches on each path of phase_benches that ran it."""
+    return {path: c[counter] for path, c in bench_launches.items()
+            if c.get(counter)}
+
+
+# a check record's keys that the kernels line carries
+BRIEF_KEYS = ("shape", "max_abs_err", "tol", "kernel_ms", "device_ms",
+              "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+              "vs_plain_towers_max_levels")
+
+
+def _brief(rec) -> dict:
+    return {k: rec[k] for k in BRIEF_KEYS if k in rec}
+
+
 def kernels_line(checks, launches, int8_launches, serve_launches,
-                 train_launches, stream, q8t_checks, artifact_launches):
+                 train_launches, stream, q8t_checks, artifact_launches,
+                 bench):
     """Every ported kernel: its source, the TPU kernel it replaces, its
     launches on its main path and its phase-3 numbers; beside them, its
     launches in the train phase (train.main: three validations and the
@@ -3280,7 +3681,15 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
     bf16) and one bf16 validation, read from the same counter (the scorer
     and the chains are counted by dtype); its
     check at the streaming shapes and its launches on each streaming path
-    (`phase_streaming`)."""
+    (`phase_streaming`); its launches on each path of `phase_benches`
+    (`bench_launches`: stage_bench, the port bench) and, for the bf16
+    two-branch towers, the int8 epilogue and the int8 scorer, its check at
+    the shapes those paths give it (`bench_check`). The one-branch tower
+    launches (`query_tower_1br`, `context_tower_1br`: the Pallas
+    `fused_query_tower` and `fused_context_tower`) have their own entries,
+    on stage_bench's one-branch rows, with the check at stage_bench's
+    shapes (11,264 queries, 2,304 videos) and phase 3's beside it."""
+    bench_launches, bench_checks = bench
     # (launch counter, source, TPU kernel replaced, check record, path whose
     # launches count)
     mma = "dldkd_tpu_torch/csrc/sim_max_mma.cu"
@@ -3346,6 +3755,14 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
                         "product_ms": rec.get("product_ms")})
         if "device_ms" in rec:
             kernels[-1]["device_ms"] = rec["device_ms"]
+        kernels[-1]["bench_launches"] = _bench_launches(bench_launches,
+                                                        counter)
+        at_bench = {"query_tower": "query_tower_dual",
+                    "context_tower": "context_tower_dual",
+                    "sim_max_int8": "sim_max_int8",
+                    "context_tower_q8": "context_tower_q8"}.get(name)
+        if at_bench:
+            kernels[-1]["bench_check"] = _brief(bench_checks[at_bench])
         kernels[-1]["streaming_check"] = stream_checks[STREAM_CHECKS[name]]
         kernels[-1]["streaming_launches"] = {
             p: c[counter] for p, c in stream_launches.items()
@@ -3360,6 +3777,30 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
             # the in-place epilogue at the streaming block (2,048 videos)
             kernels[-1]["streaming_check"]["kernel_ms_2048"] = \
                 q8t_checks["bfloat16"]["in_place_epilogue_ms"]
+    # the one-branch launches: on stage_bench's one-branch rows (bf16),
+    # checked at their shapes
+    for name, kind, replaces in (
+            ("query_tower_1br", "query",
+             "dldkd_tpu/ops/pallas/query_tower.py:196"),
+            ("context_tower_1br", "context",
+             "dldkd_tpu/ops/pallas/query_tower.py:229")):
+        rec = bench_checks[f"{kind}_tower_1br"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "dldkd_tpu_torch/csrc/tower_mma.cu",
+            "replaces": replaces,
+            "launches": bench_launches["stage_bench"][name],
+            "launches_path": "stage_bench (1-branch rows)",
+            "bench_launches": _bench_launches(bench_launches, name),
+            "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": None,
+            "device_ms": rec["device_ms"],
+            "chain_sources": ["dldkd_tpu_torch/csrc/tower_mma.cu",
+                              "dldkd_tpu_torch/csrc/tower.cu"],
+            "check_shape": rec["shape"],
+            "phase3_check": _brief(checks[(f"{kind}_tower", "bfloat16",
+                                           1)])})
     # the epilogue's transposed write (q8_transposed): on the path of the
     # artifact phase's transposed emission of the corpus; its numbers from
     # the check at 2,048 videos (bf16, the serving dtype)
@@ -3371,6 +3812,8 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
         "launches": artifact_launches["artifacts_q8_transposed"][
             "context_tower_q8_t"],
         "launches_path": "artifacts q8_transposed",
+        "bench_launches": _bench_launches(bench_launches,
+                                          "context_tower_q8_t"),
         "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None,
@@ -3413,6 +3856,7 @@ def main() -> None:
         serve_launches = phase_serving(dev, videos, queries)
         artifact_launches = phase_artifacts(dev, videos, queries)
         del videos, queries
+        bench = phase_benches(dev, card)
         with tempfile.TemporaryDirectory(
                 prefix="chip_smoke_teacher_") as workdir:
             phase_teacher(workdir, dev, card)
@@ -3422,7 +3866,7 @@ def main() -> None:
 
     kernels = kernels_line(checks, launches, int8_launches,
                            serve_launches, train_launches, stream,
-                           q8t_checks, artifact_launches)
+                           q8t_checks, artifact_launches, bench)
     check_no_jax()
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -32,13 +32,16 @@ What is ported so far:
   a PyTorch CLIP (`models/clip.py`) read from a Flax model directory, the
   CLIP BPE tokenizer without `regex` (`tools/clip_tokenizer.py`), PIL's
   bicubic preprocessing on the card (`tools/clip_preprocess.py`), writing
-  the teacher stores the trainer reads; `data/vocab.py`.
+  the teacher stores the trainer reads; `data/vocab.py`;
+- the benches (`tools/`): the JAX package's stage, search, stream and
+  cold-start benches on the port's kernels, and `python -m
+  dldkd_tpu_torch.tools.bench`, one JSON line with the root bench.py's
+  keys, their shapes from `tools/workload.py`.
 Every TPU kernel of the JAX package has a hand-written CUDA counterpart for
 Hopper (`csrc/`: masked-cosine, int8 and exact-rescore scoring; the query
 and video towers with the int8 epilogue and its transposed write), each
 with a plain PyTorch version and a launch counter beside it
-(`ops/kernels/`). Not ported yet: multi-GPU and the JAX package's
-stage, search, stream and cold-start benches (ROADMAP queue A).
+(`ops/kernels/`). Not ported yet: multi-GPU (ROADMAP queue A).
 
 Entry points take an explicit `device` and run on "cuda" unless the caller
 asks for "cpu"; on the CPU every kernel wrapper uses its plain version.

@@ -52,12 +52,16 @@ import torch
 import torch.nn.functional as F
 
 # launches of the CUDA chains and of the int8 epilogue since the counts
-# were last set to 0; the chains also by their dtype (query_tower_f32, ...),
-# the epilogue's transposed write (q8_transposed) as context_tower_q8_t
+# were last set to 0; the chains also by their dtype (query_tower_f32, ...)
+# and, when the launch packs one branch (the one-branch Pallas kernels
+# `fused_query_tower` / `fused_context_tower`), as query_tower_1br /
+# context_tower_1br; the epilogue's transposed write (q8_transposed) as
+# context_tower_q8_t
 LAUNCHES = {"query_tower": 0, "query_tower_bf16": 0, "query_tower_f32": 0,
+            "query_tower_1br": 0,
             "context_tower": 0, "context_tower_bf16": 0,
-            "context_tower_f32": 0, "context_tower_q8": 0,
-            "context_tower_q8_t": 0}
+            "context_tower_f32": 0, "context_tower_1br": 0,
+            "context_tower_q8": 0, "context_tower_q8_t": 0}
 # calls of pack_weights since the counts were last set to 0, by tower kind
 PACKS = {"query": 0, "context": 0}
 
@@ -573,6 +577,8 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
                 g_n, n, l, hdim, hp, ghp, bf, s), "tower_pool")
             LAUNCHES["query_tower"] += 1
             LAUNCHES["query_tower_" + ("bf16" if bf else "f32")] += 1
+            if g_n == 1:
+                LAUNCHES["query_tower_1br"] += 1
             return list(pooled.unbind(0))
         y = new(g_n, m, hp)
         gemm("out_mapping", out.data_ptr(), "wm", p["bm"], y.data_ptr(),
@@ -588,6 +594,8 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
             y = y8
     LAUNCHES["context_tower"] += 1
     LAUNCHES["context_tower_" + ("bf16" if bf else "f32")] += 1
+    if g_n == 1:
+        LAUNCHES["context_tower_1br"] += 1
     if y is None:
         return list(q8_out[0].unbind(0))
     outs = [t.view(n, l, hp) for t in y.unbind(0)]

@@ -146,33 +146,58 @@ def profile_step(step, n_steps: int) -> Dict[str, float]:
             "kernels_per_step": kernels / n_steps}
 
 
+def default_precision(dtype: str) -> str:
+    """The JAX tool's matmul precision per dtype."""
+    return "highest" if dtype == "float32" else "default"
+
+
+class Setup:
+    """The workload's model (seeded weights), BertAdam, batch, dropout
+    generator and loss scalars for one setting, on `dev`; `step()` is one
+    `train.train_step`."""
+
+    def __init__(self, dtype: str, stacked: bool, precision: str,
+                 dev: torch.device, w: Optional[Dict[str, int]] = None):
+        w = w or WORKLOAD
+        self.bsz = w["bsz"]
+        self.mcfg = ModelConfig(
+            visual_input_size=w["d_video"], query_input_size=w["d_query"],
+            inheritance_hidden=w["hidden"], exploration_hidden=w["hidden"],
+            max_ctx_l=w["frames"], max_desc_l=w["tokens"],
+            n_heads=w["n_heads"], double_branch=True, label_style="soft",
+            use_hard_negative=True, hard_pool_size=w["hard_pool_size"],
+            dtype=dtype, matmul_precision=precision)
+        self.tcfg = TrainConfig(stacked_towers=stacked)
+        self.model = DLDKD(self.mcfg).init_weights(
+            torch.Generator().manual_seed(1))
+        self.model.to(dev).train()
+        self.named = dict(self.model.named_parameters())
+        self.opt = BertAdam(
+            self.named, self.tcfg.lr,
+            schedules.make_lr_schedule("warmup_linear", 0.01, 1e5),
+            weight_decay=self.tcfg.wd, wd_mask=default_wd_mask(self.named))
+        self.batch = make_batch(w, dev)
+        self.gen = torch.Generator(device=dev).manual_seed(2)
+        self.scalars = LossScalars(*(
+            torch.tensor(v, dtype=torch.float32, device=dev)
+            for v in (1.0, 0.8, 0.8)))
+
+    def step(self) -> Dict[str, torch.Tensor]:
+        return train_step(self.model, self.mcfg, self.tcfg, self.opt,
+                          self.batch, self.gen, self.scalars)
+
+
 def bench(dtype: str = "bfloat16", stacked: bool = False, reps: int = 30,
           device=None, matmul_precision: Optional[str] = None) -> dict:
     """The benchmark's record (the JSON line) for one setting;
     matmul_precision None picks the JAX tool's per dtype."""
     dev = resolve_device(device)
     w = WORKLOAD
-    precision = matmul_precision or (
-        "highest" if dtype == "float32" else "default")
-    mcfg = ModelConfig(
-        visual_input_size=w["d_video"], query_input_size=w["d_query"],
-        inheritance_hidden=w["hidden"], exploration_hidden=w["hidden"],
-        max_ctx_l=w["frames"], max_desc_l=w["tokens"], n_heads=w["n_heads"],
-        double_branch=True, label_style="soft", use_hard_negative=True,
-        hard_pool_size=w["hard_pool_size"], dtype=dtype,
-        matmul_precision=precision)
-    tcfg = TrainConfig(stacked_towers=stacked)
-    model = DLDKD(mcfg).init_weights(torch.Generator().manual_seed(1))
-    model.to(dev).train()
-    named = dict(model.named_parameters())
-    opt = BertAdam(named, tcfg.lr,
-                   schedules.make_lr_schedule("warmup_linear", 0.01, 1e5),
-                   weight_decay=tcfg.wd, wd_mask=default_wd_mask(named))
-    batch = make_batch(w, dev)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    scalars = LossScalars(*(torch.tensor(v, dtype=torch.float32, device=dev)
-                            for v in (1.0, 0.8, 0.8)))
-    params = list(named.values())
+    precision = matmul_precision or default_precision(dtype)
+    st = Setup(dtype, stacked, precision, dev, w)
+    model, mcfg, tcfg, opt, batch, gen, scalars = (
+        st.model, st.mcfg, st.tcfg, st.opt, st.batch, st.gen, st.scalars)
+    params = list(st.named.values())
     grads0 = []     # one fwd_bwd's gradients, for the update stage
 
     def fwd():
@@ -186,9 +211,7 @@ def bench(dtype: str = "bfloat16", stacked: bool = False, reps: int = 30,
     def update():
         opt.step(clip_grads(grads0, tcfg.grad_clip))
 
-    def full():
-        train_step(model, mcfg, tcfg, opt, batch, gen, scalars)
-
+    full = st.step
     stages = {}
     with float32_matmul_precision(precision):
         grads0.extend(torch.zeros_like(p) if g is None else g

@@ -847,3 +847,37 @@ def test_clip_forward_on_card_matches_cpu(dev):
     for want, got in pairs:
         assert float(want.abs().max()) > 0.01
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_branch_launch_moves_the_1br_counters(dev, dtype):
+    """A single-branch model's tower launch (the one-branch Pallas kernels'
+    counterpart) moves query_tower_1br / context_tower_1br by one each;
+    the two-branch model's launch moves neither."""
+    from dldkd_tpu_torch.ops.fast_eval import (encode_context_best,
+                                               encode_query_best)
+
+    cfg = ModelConfig(visual_input_size=40, query_input_size=24,
+                      inheritance_hidden=32, exploration_hidden=32,
+                      max_ctx_l=12, max_desc_l=8, n_heads=4,
+                      double_branch=True, dtype=dtype)
+    dual = DLDKD(cfg).init_weights(torch.Generator().manual_seed(21))
+    one = DLDKD(cfg.replace(double_branch=False))
+    one.load_state_dict({k: v for k, v in dual.state_dict().items()
+                         if k in one.state_dict()}, strict=True)
+    gen = torch.Generator().manual_seed(22)
+    vf = torch.randn(6, 12, 40, generator=gen).to(dev)
+    qf = torch.randn(5, 8, 24, generator=gen).to(dev)
+    vm, qm = _mask(6, 12, gen, dev), _mask(5, 8, gen, dev)
+    names = ("query_tower_1br", "context_tower_1br")
+    for model, moved in ((dual.to(dev).eval(), 0), (one.to(dev).eval(), 1)):
+        before = {n: qt.LAUNCHES[n] for n in names}
+        towers = (qt.LAUNCHES["query_tower"], qt.LAUNCHES["context_tower"])
+        ci = encode_context_best(model, vf, vm)
+        qi = encode_query_best(model, qf, qm)
+        torch.cuda.synchronize()
+        assert (ci[1] is None) == (qi[1] is None) == bool(moved)
+        assert (qt.LAUNCHES["query_tower"], qt.LAUNCHES["context_tower"]) \
+            == (towers[0] + 1, towers[1] + 1)
+        assert {n: qt.LAUNCHES[n] - before[n] for n in names} \
+            == {n: moved for n in names}

@@ -61,13 +61,20 @@ def test_port_imports_no_jax():
                                     "dldkd_tpu_torch.tools.clip_tokenizer",
                                     "dldkd_tpu_torch.tools.clip_preprocess",
                                     "dldkd_tpu_torch.models.clip",
-                                    "dldkd_tpu_torch.data.vocab"])
+                                    "dldkd_tpu_torch.data.vocab",
+                                    "dldkd_tpu_torch.tools.workload",
+                                    "dldkd_tpu_torch.tools.stage_bench",
+                                    "dldkd_tpu_torch.tools.search_bench",
+                                    "dldkd_tpu_torch.tools.stream_bench",
+                                    "dldkd_tpu_torch.tools.coldstart_bench",
+                                    "dldkd_tpu_torch.tools.bench"])
 def test_entry_points_import_no_jax(module):
     """The serving CLI, the eval CLI and the training CLI, the index
     artifacts, native packer and pack cache modules (whose JAX originals
     load no JAX either), the stacked towers, the RNN encoder, the sequence
-    helpers, the train bench and the teacher extraction with its
-    tokenizer, preprocessing and CLIP, each imported alone, load no JAX,
+    helpers, the train bench, the teacher extraction with its tokenizer,
+    preprocessing and CLIP, and the benches with their workload (whose JAX
+    originals read the root bench.py), each imported alone, load no JAX,
     Flax, JAX package, transformers or regex module."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
