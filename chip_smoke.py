@@ -86,7 +86,26 @@ package. Phases, in order; any failure exits non-zero without the final
    exact store's unnormalized frames would add, a two-signature prewarm
    (the first search after load_index with and without the manifest, in
    turns), and the towers' transposed int8 emission of the whole corpus
-   against the int8-only artifact's rows; then the benches
+   against the int8-only artifact's rows; then multi-GPU on one card
+   (`phase_parallel`, `dldkd_tpu_torch/parallel/`): the corpus-sharded
+   eval through run_retrieval_eval on a mesh of two shards on cuda:0
+   (and over every GPU when there are several), resident bf16 and f32,
+   streaming 512 bf16, resident and streaming int8, each against the
+   single-device eval in turns (every metric equal, wall time, peak
+   memory, launches; the score matrices against the single-device
+   engine's at its query batch and at the mesh route's 64), the
+   workload's one-branch twin sharded (the one-branch towers launch, one
+   scorer launch per shard and query batch), `train.main` in this
+   process as an NCCL world of one (torchrun's variables set by the
+   phase: the data-parallel log line, finite losses, the checkpoint, the
+   validation's and test inference's kernels on the process-group mesh;
+   then its data-parallel step against the single-device step in turns,
+   wall ms and device-busy ms), and two gloo ranks sharing cuda:0
+   (`chip_smoke.py --dp-rank R PORT`, gloo takes CUDA tensors; NCCL
+   refuses two ranks on one device): their data-parallel step at the
+   train phase's widths, plain and stacked, against the single-device
+   step (losses within rtol 2e-4, parameters within rtol 2e-4 + 1e-6,
+   the ranks equal); then the benches
    (`phase_benches`, `dldkd_tpu_torch/tools/`): in this process
    stage_bench (3 reps a stage; its one-branch rows launch the one-branch
    towers) and the port bench's whole line (`tools.bench.main`: the int8
@@ -171,12 +190,15 @@ videos. Each kernel also carries its launches on each in-process path of
 `phase_benches` (`bench_launches`: stage_bench, the port bench); the
 one-branch tower launches (`query_tower_1br`, `context_tower_1br`) have
 entries of their own, their launches those of stage_bench's one-branch
-rows and their times phase 3's one-branch bf16 checks.
+rows and their times phase 3's one-branch bf16 checks. Each kernel that
+`phase_parallel` ran also carries its launches on each of that phase's
+paths (`parallel_launches`).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import subprocess
@@ -2214,6 +2236,655 @@ def phase_artifacts(dev, videos, queries):
     return launches
 
 
+# ----------------------------------------- slice 13: multi-GPU, parallel/
+
+# the sharded eval's routes: (name, dtype, score_quant, corpus_stream_bsz
+# (-1 resident), kernels of the path)
+# the one-card mesh's shards; the streaming routes' corpus block; the
+# world-of-one run's dataset (train.main at phase_train's widths: 2 steps
+# of 128, then validation and inference)
+PARALLEL = dict(shards=2, block=512, n_train=256, n_val=100, n_test=100)
+PARALLEL_ROUTES = (
+    ("resident bf16", "bfloat16", False, -1, _eval_kernels("bfloat16")),
+    ("resident f32", "float32", False, -1, _eval_kernels("float32")),
+    (f"streaming {PARALLEL['block']} bf16", "bfloat16", False,
+     PARALLEL["block"], _eval_kernels("bfloat16")),
+    ("resident int8", "bfloat16", True, -1, INT8_EVAL_KERNELS),
+    (f"streaming {PARALLEL['block']} int8", "bfloat16", True,
+     PARALLEL["block"], INT8_EVAL_KERNELS),
+)
+
+
+def _timed_eval(model, videos, queries, cfg, mesh, dev) -> dict:
+    """run_retrieval_eval on one device (mesh None) or a mesh: metrics,
+    wall seconds, peak memory and launches."""
+    import torch
+
+    from dldkd_tpu_torch.evaluate import run_retrieval_eval
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    metrics = run_retrieval_eval(model, videos, queries, cfg, mesh=mesh,
+                                 device=dev)
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0, "metrics": metrics,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "launches": _counts()}
+
+
+def _sharded_evals(mesh, mesh_name, videos, queries, dev, launches) -> None:
+    """Each route of PARALLEL_ROUTES through run_retrieval_eval on one
+    device and on `mesh`, in turns: every metric equal, the mesh's
+    kernels launched; then the sharded score matrices against the
+    single-device engine's (`eval_shard.sharded_score_matrices` against
+    `score_matrices` / `stream_score_matrices`)."""
+    import torch
+
+    from dldkd_tpu_torch.config import EvalConfig
+    from dldkd_tpu_torch.evaluate import score_matrices, stream_score_matrices
+    from dldkd_tpu_torch.parallel.eval_shard import sharded_score_matrices
+
+    nv = len(videos)
+    for name, dtype, quant, stream, kernels in PARALLEL_ROUTES:
+        model = _serving_model(dtype, seed=6)
+        cfg = EvalConfig(eval_query_bsz=TVR["query_bsz"],
+                         eval_context_bsz=TVR["context_bsz"],
+                         corpus_stream_bsz=stream, score_quant=quant)
+        what = f"sharded eval {name}, {mesh_name}"
+        runs = {tag: _timed_eval(model, videos, queries, cfg, m, dev)
+                for tag, m in (("single", None), ("sharded", mesh))}
+        sharded = runs["sharded"]
+        _check_metrics(sharded["metrics"], what)
+        _check_launched(sharded["launches"], kernels, what)
+        if sharded["metrics"] != runs["single"]["metrics"]:
+            fail(f"{what}: metrics {sharded['metrics']} differ from the "
+                 f"single-device eval's {runs['single']['metrics']}")
+        # the scores at the single-device engine's query batch (resident
+        # 50, streaming 64), and at the mesh route's 64
+        if stream > 0:
+            ref = stream_score_matrices(model, videos, queries, stream,
+                                        64, dev, score_quant=quant)
+        else:
+            ref = score_matrices(model, videos, queries, TVR["context_bsz"],
+                                 TVR["query_bsz"], dev, score_quant=quant)
+        ref = [r[:, :nv] for r in ref]
+        diffs = {}
+        for bsz in dict.fromkeys((64 if stream > 0 else TVR["query_bsz"],
+                                  64)):
+            got = sharded_score_matrices(model, videos, queries, mesh,
+                                         query_bsz=bsz, score_quant=quant,
+                                         corpus_block=max(stream, 0),
+                                         context_bsz=TVR["context_bsz"])
+            diffs[bsz] = {
+                "max_abs_err": max(max_err(g, r) for g, r in zip(got, ref)),
+                "bitwise": all(torch.equal(g, r) for g, r in zip(got, ref))}
+            del got
+        tol = TOL[("scores", dtype)]
+        emit({"phase": "parallel_eval", "route": name, "mesh": mesh_name,
+              "shards": mesh.size, "videos": nv, "queries": len(queries),
+              "single": runs["single"], "sharded": sharded,
+              "sharded_vs_single_wall": sharded["seconds"]
+              / runs["single"]["seconds"],
+              "scores_vs_single_by_query_bsz": diffs, "tol": tol})
+        for bsz, d in diffs.items():
+            if not d["max_abs_err"] <= tol:
+                fail(f"{what}: scores at query batch {bsz} differ from the "
+                     f"single-device engine's by {d['max_abs_err']} > {tol}")
+        launches[f"{name}, {mesh_name}"] = sharded["launches"]
+        del model, ref
+        torch.cuda.empty_cache()
+
+
+def _one_branch_sharded(mesh, videos, queries, dev, launches) -> None:
+    """The workload's one-branch twin (`tools/workload.py`'s
+    serving_model(one_branch_of=...)) through the sharded resident eval:
+    the one-branch towers launch, the corpus is scored once per shard and
+    query batch, the metrics are the single-device eval's."""
+    from dldkd_tpu_torch.config import EvalConfig
+    from dldkd_tpu_torch.tools import workload
+
+    twin = workload.serving_model(one_branch_of=_serving_model("bfloat16",
+                                                               seed=6))
+    cfg = EvalConfig(eval_query_bsz=TVR["query_bsz"],
+                     eval_context_bsz=TVR["context_bsz"],
+                     corpus_stream_bsz=-1)
+    single = _timed_eval(twin, videos, queries, cfg, None, dev)
+    sharded = _timed_eval(twin, videos, queries, cfg, mesh, dev)
+    counts = sharded["launches"]
+    what = "sharded eval, one-branch twin"
+    _check_launched(counts, ("query_tower_1br", "context_tower_1br",
+                             "sim_max_bf16"), what)
+    want_scores = mesh.size * -(-len(queries) // max(TVR["query_bsz"], 64))
+    emit({"phase": "parallel_eval_1br", "shards": mesh.size,
+          "single": single, "sharded": sharded,
+          "scorer_launches_want": want_scores})
+    if set(sharded["metrics"]) != {"inher", "fused"} \
+            or sharded["metrics"] != single["metrics"]:
+        fail(f"{what}: metrics {sharded['metrics']} vs the single-device "
+             f"eval's {single['metrics']}")
+    if counts["sim_max"] != want_scores:
+        fail(f"{what}: {counts['sim_max']} scorer launches, want "
+             f"{want_scores} (one per shard and query batch)")
+    launches[f"resident bf16 one-branch, {mesh.size} shards on {dev}"] = \
+        counts
+
+
+def _parallel_shape_checks(dev, videos, queries, mesh) -> dict:
+    """The kernels of the sharded evals at the shapes that path gives
+    them, on the path's own data and models (`_serving_model(dtype, 6)`,
+    its one-branch twin, shard 0 of `mesh`): the query towers at the mesh
+    route's batch of 64 queries (two branches in both dtypes, one on the
+    twin); the video towers on one streaming block of a shard
+    (PARALLEL["block"] / shard count videos; two branches, both dtypes)
+    and on the twin's resident context batch; the int8 epilogue on that
+    block (bitwise against its plain version on the same frames); each
+    scorer of the 64 queries against shard 0's resident index, as the
+    resident engine builds it in context batches (bf16 and f32 frames;
+    the int8 index with every valid column bitwise). Each against its
+    plain version at the TOL values; returns each record by name."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from dldkd_tpu_torch.data.ingest import PackedVideos
+    from dldkd_tpu_torch.evaluate import embed_corpus, embed_corpus_q8
+    from dldkd_tpu_torch.ops.fast_eval import (encode_context_best,
+                                               encode_context_q8,
+                                               encode_query_best,
+                                               tower_weights)
+    from dldkd_tpu_torch.ops.kernels import query_tower as qt
+    from dldkd_tpu_torch.ops.kernels import sim_max
+    from dldkd_tpu_torch.ops.masking import l2_normalize
+    from dldkd_tpu_torch.ops.similarity import clip_scores_maxpool_pre8
+    from dldkd_tpu_torch.parallel.mesh import shard_rows
+    from dldkd_tpu_torch.tools import workload
+
+    nq, h, cb = max(TVR["query_bsz"], 64), TVR["hidden"], TVR["context_bsz"]
+    rows = shard_rows(len(videos), mesh)[0]
+    shard = PackedVideos(videos.feats[rows], videos.mask[rows],
+                         videos.ids[rows])
+    block = -(-PARALLEL["block"] // mesh.size)
+
+    def on_dev(a, n):
+        return torch.from_numpy(np.ascontiguousarray(a[:n])).to(dev)
+
+    qf, qm = on_dev(queries.feats, nq), on_dev(queries.mask, nq)
+    vf, vm = on_dev(shard.feats, block), on_dev(shard.mask, block)
+    lf = vf.shape[1]
+    out = {}
+
+    def tower(model, ws, dtype, kind, x, m, shapes_of):
+        enc = encode_query_best if kind == "query" else encode_context_best
+        l = x.shape[1]
+        lp = -(-l // 8) * 8
+        xp, mp = F.pad(x, (0, 0, 0, lp - l)), F.pad(m, (0, lp - l))
+        packed = ws["packed"][kind][0]
+        return _tower_check(
+            kind, dtype, len(model.branches), tuple(x.shape), lp, packed,
+            lambda: [t for t in enc(model, x, m, ws) if t is not None],
+            lambda: [t for t in enc(model, x, m, ws, plain=True)
+                     if t is not None],
+            lambda: qt.tower_cuda(xp, mp, packed, TVR["heads"],
+                                  getattr(torch, dtype), kind, pos_rows=l),
+            n_plain=5, shapes_of=shapes_of)
+
+    def scorer(dtype, entry, run, plain, launch, q, c, per_frame, nv_real,
+               tol):
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        nvp, item = c.shape[0], c.element_size()
+        n_bytes = (q.numel() * q.element_size() + nvp * lf * h * item
+                   + nvp * lf * 4 + nq * nvp * 4)
+        arith, passes = {"bfloat16": ("bfloat16", 1), "float32": ("tf32", 3),
+                         "int8": ("int8", 1)}[dtype]
+        b_ms, b_by = bound(n_bytes, passes * 2 * nq * nvp * lf * h, arith)
+        rec = {"check": "parallel_scorer", "kernel": entry, "dtype": dtype,
+               "shape": {"q": [nq, h], "ctx": [nvp, lf, h]},
+               "max_abs_err": max_err(got[:, :nv_real], want[:, :nv_real]),
+               "tol": tol,
+               "bitwise_valid_columns": bool(torch.equal(
+                   got[:, :nv_real], want[:, :nv_real])),
+               "kernel_ms": cuda_ms(scoring_launch(entry, q, c, *per_frame)),
+               "wrapper_ms": cuda_ms(run), "plain_ms": cuda_ms(plain, n=5),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "shapes_of": "sharded resident: a query batch against "
+                            "shard 0's index"}
+        emit(rec)
+        if not rec["max_abs_err"] <= tol:
+            fail(f"sharded eval {entry}: {nq} queries x shard 0: max abs "
+                 f"error {rec['max_abs_err']} > {tol}")
+        return rec
+
+    for dtype in ("bfloat16", "float32"):
+        model = _serving_model(dtype, seed=6)
+        ws = tower_weights(model, dev)
+        out[f"query_tower_{dtype}"] = tower(
+            model, ws, dtype, "query", qf, qm,
+            "sharded eval: the mesh route's query batch")
+        out[f"context_tower_{dtype}"] = tower(
+            model, ws, dtype, "context", vf, vm,
+            f"sharded streaming: a block of {block} per shard")
+        q_i = encode_query_best(model, qf, qm, ws)[0]
+        c_i, _, cmask = embed_corpus(model, shard, cb, dev, ws)
+        qn, cn = l2_normalize(q_i).contiguous(), l2_normalize(c_i).contiguous()
+        del c_i
+        cmask = cmask.float().contiguous()
+        entry = "sim_max_f32" if dtype == "float32" else "sim_max_bf16"
+        out[f"sim_max_{dtype}"] = scorer(
+            dtype, entry, lambda: sim_max.fused_clip_scores(qn, cn, cmask),
+            lambda: sim_max.sim_max_plain(qn, cn, cmask), entry, qn, cn,
+            (cmask,), len(shard), TOL[("sim_max", dtype)])
+        del cn
+        if dtype == "bfloat16":
+            # the int8 route: the epilogue on the streaming block, the
+            # scorer on shard 0's prebuilt index
+            k8 = encode_context_q8(model, vf, vm, ws)
+            kf = encode_context_best(model, vf, vm, ws)
+            torch.cuda.synchronize()
+            rec = {"check": "parallel_context_tower_q8", "dtype": dtype,
+                   "shape": {"frames": [len(k8), *kf[0].shape]},
+                   "max_abs_err": max(
+                       max_err(a, qt.quantize_frames_q8_plain(f))
+                       for a, f in zip(k8, kf)),
+                   "tol": TOL[("context_tower_q8", dtype)],
+                   "bitwise": all(
+                       torch.equal(a, qt.quantize_frames_q8_plain(f))
+                       for a, f in zip(k8, kf)),
+                   "shapes_of": f"sharded streaming int8: a block of "
+                                f"{block} per shard"}
+            del k8, kf
+            emit(rec)
+            out["context_tower_q8"] = rec
+            if not rec["bitwise"]:
+                fail(f"sharded eval int8 epilogue: {rec}")
+            i8, _, bias = embed_corpus_q8(model, shard, cb, dev, ws)
+            q8 = sim_max.quantize_unit_int8(qn).contiguous()
+            out["sim_max_int8"] = scorer(
+                "int8", "sim_max_int8",
+                lambda: clip_scores_maxpool_pre8(q_i, i8, bias),
+                lambda: clip_scores_maxpool_pre8(q_i, i8, bias, plain=True),
+                "sim_max_int8", q8, i8, (bias,), len(shard),
+                TOL[("sim_max_int8", "int8")])
+            if not out["sim_max_int8"]["bitwise_valid_columns"]:
+                fail("sharded eval int8 scorer: valid columns differ from "
+                     "the plain version")
+            del i8, bias, q8
+            twin = workload.serving_model(device=dev, one_branch_of=model)
+            tws = tower_weights(twin, dev)
+            out["query_tower_1br"] = tower(
+                twin, tws, dtype, "query", qf, qm,
+                "sharded eval, one-branch twin: the mesh route's query "
+                "batch")
+            out["context_tower_1br"] = tower(
+                twin, tws, dtype, "context", vf[:cb], vm[:cb],
+                "sharded resident, one-branch twin: a context batch")
+            del twin, tws
+        del model, ws, q_i, qn, cmask
+        torch.cuda.empty_cache()
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class _LogLines(logging.Handler):
+    """Collects the port's log messages while attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _dp_step_timing(dev, group) -> dict:
+    """The data-parallel step in `group` (a world of one) against the
+    single-device step on _dp_batch(), in turns after one warm-up step
+    each: synchronized wall ms (median of DP_GLOO["timed_steps"]), then
+    device-busy ms and CUDA kernels per step over 3 profiled steps."""
+    import statistics
+
+    import torch
+
+    from dldkd_tpu_torch.tools.train_bench import profile_step
+
+    steps = {"single": _dp_stepper(False, dev)[0],
+             "data_parallel": _dp_stepper(False, dev, group)[0]}
+    for step in steps.values():
+        step()
+    wall = {tag: [] for tag in steps}
+    for _ in range(DP_GLOO["timed_steps"]):
+        for tag, step in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall[tag].append((time.perf_counter() - t0) * 1e3)
+    return {tag: {"step_ms_median": statistics.median(wall[tag]),
+                  "step_ms_all": wall[tag], **profile_step(step, 3)}
+            for tag, step in steps.items()}
+
+
+def _train_world_of_one(workdir: str, dev, launches) -> None:
+    """`python -m dldkd_tpu_torch.train`'s main in this process as an NCCL
+    world of one (torchrun's variables set here, restored after): the
+    data-parallel path (the autograd gather and the gradient all-reduce
+    on NCCL, the validation and the test inference on the process-group
+    mesh) for one epoch at phase_train's widths."""
+    import torch
+    import torch.distributed as dist
+
+    from dldkd_tpu_torch import train
+    from dldkd_tpu_torch.data.synthetic import generate_dataset
+
+    root = os.path.join(workdir, "dp_data")
+    generate_dataset(root, n_videos={"train": PARALLEL["n_train"],
+                                     "val": PARALLEL["n_val"],
+                                     "test": PARALLEL["n_test"]},
+                     frames_range=(20, 200), tokens_range=(5, 31),
+                     d_student=TRAIN["d_video"], d_query=TRAIN["d_query"],
+                     d_teacher=TRAIN["d_teacher"], seed=8,
+                     noise=TRAIN["noise"], feature_format="npz")
+    res = os.path.join(workdir, "dp_run")
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    log = _LogLines()
+    logger = logging.getLogger("dldkd_tpu_torch")
+    logger.addHandler(log)
+    _reset_counts()
+    try:
+        with _PlainCalls() as plain:
+            t0 = time.perf_counter()
+            test_metrics = train.main(TRAIN_ARGS + [
+                "--root_path", root, "--results_root", res,
+                "--n_epoch", "1"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        counts = _counts()   # train.main's alone, before the step timing
+        backend = dist.get_backend() if dist.is_initialized() else None
+        world = dist.get_world_size() if dist.is_initialized() else None
+        timing = (_dp_step_timing(dev, dist.group.WORLD)
+                  if backend else None)
+    finally:
+        logger.removeHandler(log)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    run_dir = _run_dir(res)
+    steps, sumrs, epochs = _train_history(run_dir)
+    dp_lines = [x for x in log.lines if x.startswith("data-parallel")]
+    emit({"phase": "parallel_train_world_of_one", "seconds": secs,
+          "backend": backend, "world_size": world, "log": dp_lines,
+          "step_timing": timing,
+          "steps": len(steps), "epochs_logged": epochs,
+          "val_fused_sumr": sumrs,
+          "loss_overall": [r["Train/loss_overall"] for r in steps],
+          "launches": counts, "plain_calls": plain.calls,
+          "test_metrics": test_metrics})
+    what = "train.main, NCCL world of one"
+    if backend != "nccl" or world != 1:
+        fail(f"{what}: process group {backend} of {world}")
+    if dp_lines != ["data-parallel: 1 of 1 devices / 1 processes"]:
+        fail(f"{what}: data-parallel log lines {dp_lines}")
+    _check_losses(steps, what)
+    _check_launched(counts, TRAIN_KERNELS, what)
+    if plain.calls:
+        fail(f"{what}: the eval path on the card ran plain versions "
+             f"{plain.calls}")
+    if not os.path.isfile(os.path.join(run_dir, "ckpt", "model.ckpt")):
+        fail(f"{what}: no checkpoint in {run_dir}")
+    if epochs != [0] or len(sumrs) != 1 \
+            or len(steps) != PARALLEL["n_train"] // TRAIN["bsz"]:
+        fail(f"{what}: epochs {epochs}, {len(sumrs)} validations, "
+             f"{len(steps)} steps")
+    if test_metrics is None:
+        fail(f"{what}: no post-train test metrics")
+    _check_metrics(test_metrics, f"{what}, test split")
+    for tag, t in timing.items():
+        _check_times([t["step_ms_median"], t["device_busy_ms_per_step"]],
+                     f"{what}: the {tag} step")
+    launches["train.main NCCL world of one"] = counts
+
+
+# the gloo ranks' step: phase_train's widths and do_tvr.sh's dropout, a
+# loader-shaped batch of 128 videos and 256 captions, hard negatives from
+# the default pool; held (as tests/test_torch_parallel.py holds the CPU
+# step): losses within rtol 2e-4, parameters within rtol 2e-4 + 1e-6
+DP_GLOO = dict(videos=128, queries=256, seed=13, rtol=2e-4, atol=1e-6,
+               timed_steps=10)
+
+
+def _dp_setting(stacked: bool):
+    from dldkd_tpu_torch.config import ModelConfig, TrainConfig
+
+    mcfg = ModelConfig(
+        visual_input_size=TRAIN["d_video"], query_input_size=TRAIN["d_query"],
+        inheritance_hidden=384, exploration_hidden=384, max_ctx_l=128,
+        max_desc_l=30, n_heads=4, double_branch=True, label_style="soft",
+        drop=0.2, input_drop=0.2, margin=0.1, use_hard_negative=True)
+    return mcfg, TrainConfig(lr=3e-4, stacked_towers=stacked)
+
+
+def _dp_batch():
+    """A loader-shaped host batch: videos by caption count, captions
+    video-major with label -1 padding, ragged masks."""
+    import numpy as np
+
+    rng = np.random.RandomState(DP_GLOO["seed"])
+    b, q = DP_GLOO["videos"], DP_GLOO["queries"]
+    caps = np.sort(rng.randint(1, 3, b))[::-1]
+    n_q = int(caps.sum())
+    labels = np.full(q, -1, np.int32)
+    labels[:n_q] = np.repeat(np.arange(b), caps)
+    vmask = (np.arange(128)[None] < rng.randint(20, 129, b)[:, None]
+             ).astype(np.float32)
+    tmask = (np.arange(30)[None] < rng.randint(5, 31, q)[:, None]
+             ).astype(np.float32)
+    tmask[n_q:] = 0
+    f32 = np.float32
+    return {
+        "student_videos": rng.randn(b, 128, TRAIN["d_video"]).astype(f32)
+        * vmask[..., None],
+        "student_videos_mask": vmask,
+        "teacher_videos": rng.randn(b, 128, TRAIN["d_teacher"]).astype(f32)
+        * vmask[..., None],
+        "student_text": rng.randn(q, 30, TRAIN["d_query"]).astype(f32)
+        * tmask[..., None],
+        "student_text_mask": tmask,
+        "teacher_text": rng.randn(q, TRAIN["d_teacher"]).astype(f32),
+        "text_labels": labels}
+
+
+def _dp_stepper(stacked: bool, dev, group=None) -> tuple:
+    """(step, model): step() runs one step of `model` (seeded weights) on
+    _dp_batch(), the data-parallel step over `group`, else the
+    single-device step, and returns its loss dict."""
+    import functools
+
+    import torch
+
+    from dldkd_tpu_torch import train
+    from dldkd_tpu_torch.models import DLDKD
+    from dldkd_tpu_torch.models.objective import LossScalars
+    from dldkd_tpu_torch.optim import BertAdam, default_wd_mask
+    from dldkd_tpu_torch.parallel import (make_dp_train_step, make_mesh,
+                                          shard_batch_multihost)
+
+    mcfg, tcfg = _dp_setting(stacked)
+    model = DLDKD(mcfg).init_weights(torch.Generator().manual_seed(3))
+    model.to(dev).train()
+    named = dict(model.named_parameters())
+    opt = BertAdam(named, tcfg.lr, None, wd_mask=default_wd_mask(named))
+    batch = _dp_batch()
+    if group is None:
+        step = functools.partial(train.train_step, model, mcfg, tcfg, opt)
+    else:
+        batch = shard_batch_multihost(batch, group)
+        step = make_dp_train_step(model, mcfg, tcfg, opt,
+                                  make_mesh(devices=[dev], group=group))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    scalars = LossScalars(*(torch.tensor(v, device=dev)
+                            for v in (0.9, 0.8, 0.7)))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    return (lambda: step(batch, gen, scalars)), model
+
+
+def _dp_step(stacked: bool, dev, group=None) -> tuple:
+    """One step of _dp_stepper's: (losses, parameters on the CPU,
+    seconds)."""
+    import torch
+
+    step, model = _dp_stepper(stacked, dev, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = step()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return ({k: float(v) for k, v in losses.items()},
+            {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            secs)
+
+
+def _gloo_dp_rank(rank: int, port: str) -> None:
+    """One of two gloo ranks sharing cuda:0 (`chip_smoke.py --dp-rank R
+    PORT`): the data-parallel step plain and stacked; rank 0 also runs the
+    single-device step and compares. Prints one JSON line."""
+    import torch
+    import torch.distributed as dist
+
+    from dldkd_tpu_torch.models import DLDKD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    out = {"rank": rank, "backend": dist.get_backend()}
+    try:
+        for stacked in (False, True):
+            losses, params, secs = _dp_step(stacked, dev, dist.group.WORLD)
+            rec = {"losses": losses, "seconds": secs,
+                   "checksum": float(sum(p.double().abs().sum()
+                                         for p in params.values()))}
+            if rank == 0:
+                want, want_p, want_s = _dp_step(stacked, dev)
+                rec["single_losses"], rec["single_seconds"] = want, want_s
+                rec["losses_max_rel_err"] = max(
+                    abs(losses[k] - v) / max(abs(v), 1e-12)
+                    for k, v in want.items())
+                rec["params_max_abs_err"] = max(
+                    float((params[k] - v).abs().max())
+                    for k, v in want_p.items())
+                rec["params_over_tol"] = sum(
+                    int(((params[k] - v).abs() > DP_GLOO["atol"]
+                         + DP_GLOO["rtol"] * v.abs()).sum())
+                    for k, v in want_p.items())
+                init = DLDKD(_dp_setting(stacked)[0]).init_weights(
+                    torch.Generator().manual_seed(3)).state_dict()
+                rec["update_max_abs"] = max(
+                    float((v - init[k]).abs().max())
+                    for k, v in want_p.items())
+            out["stacked" if stacked else "plain"] = rec
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def _gloo_dp_on_one_card() -> None:
+    """Two gloo ranks sharing cuda:0 (gloo takes CUDA tensors; NCCL
+    refuses two ranks on one device): the data-parallel step equals the
+    single-device step, plain and stacked, and both ranks end equal. A
+    second pair of ranks, on a fresh port, runs only when the first lost
+    the race for its port (the store's bind failed: the port was free
+    when `_free_port` closed it); any other failure fails the phase.
+    Every failed attempt's error is emitted."""
+    script = os.path.abspath(__file__)
+    for attempt in range(2):
+        port = str(_free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, script, "--dp-rank", str(r), port],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(script)) for r in range(2)]
+        results, err = [], ""
+        for p in procs:
+            try:
+                o, e = p.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                o, e = p.communicate()
+            if p.returncode:
+                err += f"rank exit {p.returncode}: {e[-1500:]}"
+            else:
+                results.append(json.loads(o.strip().splitlines()[-1]))
+        if not err:
+            break
+        emit({"phase": "parallel_gloo_dp_step", "attempt": attempt,
+              "port": port, "error": err})
+        if "EADDRINUSE" not in err and "address already in use" not in err:
+            break
+    if err or len(results) != 2:
+        fail(f"gloo data-parallel step on one card: {err}")
+    r0, r1 = sorted(results, key=lambda r: r["rank"])
+    emit({"phase": "parallel_gloo_dp_step", "ranks": [r0, r1],
+          "rtol": DP_GLOO["rtol"], "atol": DP_GLOO["atol"]})
+    for key in ("plain", "stacked"):
+        what = f"gloo data-parallel step ({key}) on one card"
+        if r0[key]["losses"] != r1[key]["losses"] \
+                or r0[key]["checksum"] != r1[key]["checksum"]:
+            fail(f"{what}: the ranks differ")
+        if r0[key]["losses_max_rel_err"] > DP_GLOO["rtol"] \
+                or r0[key]["params_over_tol"]:
+            fail(f"{what}: against the single-device step, losses "
+                 f"{r0[key]['losses_max_rel_err']} (rel), "
+                 f"{r0[key]['params_over_tol']} parameters past the "
+                 f"tolerance")
+
+
+def phase_parallel(workdir: str, dev, videos, queries) -> tuple:
+    """Multi-GPU on one card (parallel/): the corpus-sharded eval on a
+    mesh of two shards on `dev` (and over every GPU when there are
+    several) on each route, against the single-device eval; the one-branch
+    twin sharded; train.main as an NCCL world of one; the data-parallel
+    step of two gloo ranks sharing the card against the single-device
+    step. First each kernel of the sharded evals against its plain
+    version at that path's shapes (`_parallel_shape_checks`). Returns
+    (each path's launch counts, those checks by name)."""
+    import torch
+
+    from dldkd_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    launches = {}
+    mesh = make_mesh(devices=[dev] * PARALLEL["shards"])
+    checks = _parallel_shape_checks(dev, videos, queries, mesh)
+    _sharded_evals(mesh, f"{mesh.size} shards on {dev}", videos, queries,
+                   dev, launches)
+    if torch.cuda.device_count() > 1:
+        every = make_mesh()
+        _sharded_evals(every, f"{every.size} GPUs", videos, queries, dev,
+                       launches)
+    _one_branch_sharded(mesh, videos, queries, dev, launches)
+    _train_world_of_one(workdir, dev, launches)
+    _gloo_dp_on_one_card()   # plain autograd: launches no kernel
+    emit({"phase": "parallel", "seconds": time.perf_counter() - t0})
+    return launches, checks
+
+
 # -------------------------------------------------- slice 12: the benches
 
 # the kernels each in-process bench path must launch: stage_bench's
@@ -3663,16 +4334,33 @@ def _bench_launches(bench_launches, counter: str) -> dict:
 # a check record's keys that the kernels line carries
 BRIEF_KEYS = ("shape", "max_abs_err", "tol", "kernel_ms", "device_ms",
               "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
-              "vs_plain_towers_max_levels")
+              "vs_plain_towers_max_levels", "shapes_of")
+# each kernel's check at the sharded evals' shapes (_parallel_shape_checks)
+PARALLEL_CHECKS = {"sim_max": "sim_max_bfloat16",
+                   "sim_max_f32": "sim_max_float32",
+                   "sim_max_int8": "sim_max_int8",
+                   "query_tower": "query_tower_bfloat16",
+                   "context_tower": "context_tower_bfloat16",
+                   "query_tower_f32": "query_tower_float32",
+                   "context_tower_f32": "context_tower_float32",
+                   "context_tower_q8": "context_tower_q8",
+                   "query_tower_1br": "query_tower_1br",
+                   "context_tower_1br": "context_tower_1br"}
 
 
 def _brief(rec) -> dict:
     return {k: rec[k] for k in BRIEF_KEYS if k in rec}
 
 
+def _parallel_launches(parallel_launches, counter: str) -> dict:
+    """A kernel's launches on each path of phase_parallel that ran it."""
+    return {path: c[counter] for path, c in parallel_launches.items()
+            if c.get(counter)}
+
+
 def kernels_line(checks, launches, int8_launches, serve_launches,
                  train_launches, stream, q8t_checks, artifact_launches,
-                 bench):
+                 bench, parallel):
     """Every ported kernel: its source, the TPU kernel it replaces, its
     launches on its main path and its phase-3 numbers; beside them, its
     launches in the train phase (train.main: three validations and the
@@ -3688,8 +4376,13 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
     launches (`query_tower_1br`, `context_tower_1br`: the Pallas
     `fused_query_tower` and `fused_context_tower`) have their own entries,
     on stage_bench's one-branch rows, with the check at stage_bench's
-    shapes (11,264 queries, 2,304 videos) and phase 3's beside it."""
+    shapes (11,264 queries, 2,304 videos) and phase 3's beside it. Every
+    entry of a kernel that `phase_parallel` ran carries its launches on
+    each of that phase's paths (`parallel_launches`: the sharded evals,
+    the one-branch twin, the NCCL world of one) and its check at the
+    shapes the sharded evals give it (`parallel_check`)."""
     bench_launches, bench_checks = bench
+    parallel_launches, parallel_checks = parallel
     # (launch counter, source, TPU kernel replaced, check record, path whose
     # launches count)
     mma = "dldkd_tpu_torch/csrc/sim_max_mma.cu"
@@ -3757,12 +4450,17 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
             kernels[-1]["device_ms"] = rec["device_ms"]
         kernels[-1]["bench_launches"] = _bench_launches(bench_launches,
                                                         counter)
+        kernels[-1]["parallel_launches"] = _parallel_launches(
+            parallel_launches, counter)
         at_bench = {"query_tower": "query_tower_dual",
                     "context_tower": "context_tower_dual",
                     "sim_max_int8": "sim_max_int8",
                     "context_tower_q8": "context_tower_q8"}.get(name)
         if at_bench:
             kernels[-1]["bench_check"] = _brief(bench_checks[at_bench])
+        if name in PARALLEL_CHECKS:
+            kernels[-1]["parallel_check"] = _brief(
+                parallel_checks[PARALLEL_CHECKS[name]])
         kernels[-1]["streaming_check"] = stream_checks[STREAM_CHECKS[name]]
         kernels[-1]["streaming_launches"] = {
             p: c[counter] for p, c in stream_launches.items()
@@ -3792,6 +4490,8 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
             "launches": bench_launches["stage_bench"][name],
             "launches_path": "stage_bench (1-branch rows)",
             "bench_launches": _bench_launches(bench_launches, name),
+            "parallel_launches": _parallel_launches(parallel_launches,
+                                                    name),
             "max_abs_err": rec["max_abs_err"], "ms": rec["kernel_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
@@ -3800,7 +4500,8 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
                               "dldkd_tpu_torch/csrc/tower.cu"],
             "check_shape": rec["shape"],
             "phase3_check": _brief(checks[(f"{kind}_tower", "bfloat16",
-                                           1)])})
+                                           1)]),
+            "parallel_check": _brief(parallel_checks[PARALLEL_CHECKS[name]])})
     # the epilogue's transposed write (q8_transposed): on the path of the
     # artifact phase's transposed emission of the corpus; its numbers from
     # the check at 2,048 videos (bf16, the serving dtype)
@@ -3855,6 +4556,9 @@ def main() -> None:
         int8_launches = phase_int8_eval(dev, videos, queries)
         serve_launches = phase_serving(dev, videos, queries)
         artifact_launches = phase_artifacts(dev, videos, queries)
+        with tempfile.TemporaryDirectory(
+                prefix="chip_smoke_parallel_") as workdir:
+            parallel = phase_parallel(workdir, dev, videos, queries)
         del videos, queries
         bench = phase_benches(dev, card)
         with tempfile.TemporaryDirectory(
@@ -3866,7 +4570,8 @@ def main() -> None:
 
     kernels = kernels_line(checks, launches, int8_launches,
                            serve_launches, train_launches, stream,
-                           q8t_checks, artifact_launches, bench)
+                           q8t_checks, artifact_launches, bench,
+                           parallel)
     check_no_jax()
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
@@ -3875,4 +4580,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        _gloo_dp_rank(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -36,12 +36,16 @@ What is ported so far:
 - the benches (`tools/`): the JAX package's stage, search, stream and
   cold-start benches on the port's kernels, and `python -m
   dldkd_tpu_torch.tools.bench`, one JSON line with the root bench.py's
-  keys, their shapes from `tools/workload.py`.
+  keys, their shapes from `tools/workload.py`;
+- several GPUs (`parallel/`): data-parallel training with the global
+  batch's losses under torchrun, and the corpus-sharded eval (resident,
+  streaming, int8) in the validation and `infer`.
 Every TPU kernel of the JAX package has a hand-written CUDA counterpart for
 Hopper (`csrc/`: masked-cosine, int8 and exact-rescore scoring; the query
 and video towers with the int8 epilogue and its transposed write), each
 with a plain PyTorch version and a launch counter beside it
-(`ops/kernels/`). Not ported yet: multi-GPU (ROADMAP queue A).
+(`ops/kernels/`). Not ported yet: serving on a device mesh (ROADMAP
+A14 b).
 
 Entry points take an explicit `device` and run on "cuda" unless the caller
 asks for "cpu"; on the CPU every kernel wrapper uses its plain version.

@@ -35,22 +35,27 @@ class TrainLoader:
 
     epoch_order: optional per-epoch video-ID sequences replayed verbatim
     instead of the seeded shuffle (trajectory tests against another
-    stack's recorded sampler order). Every batch is kept, the short last
-    one too: the JAX package drops it only on a data-parallel mesh
-    (multi-GPU is ROADMAP A14)."""
+    stack's recorded sampler order). drop_last: skip the short last batch,
+    as a data-parallel run does (its video axis would not divide the
+    processes; the per-epoch permutation still visits every video across
+    epochs); otherwise every batch is kept."""
 
     def __init__(self, data: TrainData, bsz: int, seed: int = 9527,
-                 query_pad_multiple: int = 64, epoch_order=None):
+                 query_pad_multiple: int = 64, drop_last: bool = False,
+                 epoch_order=None):
         self.data = data
         self.bsz = bsz
         self.seed = seed
         self.qpm = query_pad_multiple
+        self.drop_last = drop_last
         self.n_videos = len(data.videos)
         self.epoch_order = epoch_order
         if epoch_order is not None:
             self._id_to_idx = {v: i for i, v in enumerate(data.videos.ids)}
 
     def steps_per_epoch(self) -> int:
+        if self.drop_last:
+            return self.n_videos // self.bsz
         return (self.n_videos + self.bsz - 1) // self.bsz
 
     def epoch(self, epoch_idx: int) -> Iterator[Dict[str, np.ndarray]]:
@@ -62,7 +67,10 @@ class TrainLoader:
             rng = np.random.RandomState(self.seed + epoch_idx)
             perm = rng.permutation(self.n_videos)
         for start in range(0, self.n_videos, self.bsz):
-            yield self._build_batch(perm[start:start + self.bsz])
+            vid_idx = perm[start:start + self.bsz]
+            if len(vid_idx) < self.bsz and self.drop_last:
+                break
+            yield self._build_batch(vid_idx)
 
     def _build_batch(self, vid_idx: np.ndarray) -> Dict[str, np.ndarray]:
         d = self.data

@@ -21,9 +21,9 @@ Two engines, one metric tail (`_metrics_from_score_matrices`):
   blocks' copies are double-buffered (`_blocks_on_device`).
 
 `eval_retrieval(corpus_stream_bsz=None)` picks the engine by the device's
-free memory (`auto_stream_block`), as the JAX package does. The
-corpus-sharded (mesh) engine is not ported yet (ROADMAP A14): asking for
-it raises NotImplementedError.
+free memory (`auto_stream_block`), as the JAX package does. On a mesh
+(`parallel/`), `run_retrieval_eval` routes to the corpus-sharded engines
+(`parallel/eval_shard.py`), which reuse this module's pieces per shard.
 """
 
 from __future__ import annotations
@@ -118,18 +118,41 @@ def embed_corpus_q8(model, videos: PackedVideos, context_bsz: int = 200,
     return rows_i, rows_e, bias
 
 
+def _query_batches(model, queries: Optional[PackedQueries], query_bsz: int,
+                   dev, weights: dict, plain: bool,
+                   encoded: Optional[Pair]):
+    """(start, inheritance batch, exploration batch or None) over the
+    queries: encoded per batch of query_bsz (the last zero-padded), or
+    sliced from `encoded`, the pooled query vectors already on `dev`."""
+    if encoded is not None:
+        q_i, q_e = encoded
+        for start in range(0, q_i.shape[0], query_bsz):
+            b = slice(start, start + query_bsz)
+            yield start, q_i[b], (q_e[b] if q_e is not None else None)
+        return
+    for start in range(0, len(queries), query_bsz):
+        feats = _chunk(queries.feats, start, query_bsz, dev)
+        mask = _chunk(queries.mask, start, query_bsz, dev)
+        yield (start,) + tuple(encode_query_best(model, feats, mask, weights,
+                                                 plain))
+
+
 @torch.no_grad()
-def score_all_queries(model, queries: PackedQueries, ctx_inher: torch.Tensor,
+def score_all_queries(model, queries: Optional[PackedQueries],
+                      ctx_inher: torch.Tensor,
                       ctx_explore: Optional[torch.Tensor],
                       ctx_mask: torch.Tensor, query_bsz: int = 50,
-                      weights: Optional[dict] = None, plain: bool = False
-                      ) -> Pair:
+                      weights: Optional[dict] = None, plain: bool = False,
+                      encoded: Optional[Pair] = None) -> Pair:
     """(Nq, Nv) f32 score matrices for both branches, on the corpus'
     device. The frames are L2-normalized once here, not once per query
-    batch (the same values: the normalization is per frame)."""
+    batch (the same values: the normalization is per frame). `encoded`:
+    the queries' pooled vectors on the corpus' device
+    (`encode_all_queries`), scored in batches of query_bsz in place of
+    `queries` (the sharded engine encodes them once for every shard)."""
     dev = ctx_inher.device
     weights = weights or tower_weights(model, dev)
-    n = len(queries)
+    n = len(queries) if encoded is None else encoded[0].shape[0]
     n_pad = -(-n // query_bsz) * query_bsz
     nv = ctx_inher.shape[0]
     cn_i = l2_normalize(ctx_inher)
@@ -137,11 +160,9 @@ def score_all_queries(model, queries: PackedQueries, ctx_inher: torch.Tensor,
     inher = torch.empty((n_pad, nv), dtype=torch.float32, device=dev)
     explore = (torch.empty((n_pad, nv), dtype=torch.float32, device=dev)
                if cn_e is not None else None)
-    for start in range(0, n, query_bsz):
-        feats = _chunk(queries.feats, start, query_bsz, dev)
-        mask = _chunk(queries.mask, start, query_bsz, dev)
-        q_i, q_e = encode_query_best(model, feats, mask, weights, plain)
-        rows = slice(start, start + query_bsz)
+    for start, q_i, q_e in _query_batches(model, queries, query_bsz, dev,
+                                          weights, plain, encoded):
+        rows = slice(start, start + q_i.shape[0])
         inher[rows] = clip_scores_maxpool(q_i, cn_i, ctx_mask,
                                           ctx_normalized=True, plain=plain)
         if cn_e is not None:
@@ -152,27 +173,26 @@ def score_all_queries(model, queries: PackedQueries, ctx_inher: torch.Tensor,
 
 
 @torch.no_grad()
-def score_all_queries_q8(model, queries: PackedQueries, q8_i: torch.Tensor,
-                         q8_e: Optional[torch.Tensor], bias: torch.Tensor,
-                         query_bsz: int = 50, weights: Optional[dict] = None,
-                         plain: bool = False) -> Pair:
+def score_all_queries_q8(model, queries: Optional[PackedQueries],
+                         q8_i: torch.Tensor, q8_e: Optional[torch.Tensor],
+                         bias: torch.Tensor, query_bsz: int = 50,
+                         weights: Optional[dict] = None, plain: bool = False,
+                         encoded: Optional[Pair] = None) -> Pair:
     """(Nq, Np) f32 score matrices against the prebuilt int8 index. Valid
     videos score bitwise as clip_scores_maxpool(quantized=True) on the same
     quantized components; padded ones sit at the dequantized mask bias
-    (~-6.7e4), below any real score."""
+    (~-6.7e4), below any real score. `encoded` as in score_all_queries."""
     dev = q8_i.device
     weights = weights or tower_weights(model, dev)
-    n = len(queries)
+    n = len(queries) if encoded is None else encoded[0].shape[0]
     n_pad = -(-n // query_bsz) * query_bsz
     nv = q8_i.shape[0]
     inher = torch.empty((n_pad, nv), dtype=torch.float32, device=dev)
     explore = (torch.empty((n_pad, nv), dtype=torch.float32, device=dev)
                if q8_e is not None else None)
-    for start in range(0, n, query_bsz):
-        feats = _chunk(queries.feats, start, query_bsz, dev)
-        mask = _chunk(queries.mask, start, query_bsz, dev)
-        q_i, q_e = encode_query_best(model, feats, mask, weights, plain)
-        rows = slice(start, start + query_bsz)
+    for start, q_i, q_e in _query_batches(model, queries, query_bsz, dev,
+                                          weights, plain, encoded):
+        rows = slice(start, start + q_i.shape[0])
         inher[rows] = clip_scores_maxpool_pre8(q_i, q8_i, bias, plain)
         if q8_e is not None:
             explore[rows] = clip_scores_maxpool_pre8(q_e, q8_e, bias, plain)
@@ -467,24 +487,41 @@ def run_retrieval_eval(model, videos: PackedVideos, queries: PackedQueries,
                        ) -> Dict[str, Dict[str, float]]:
     """The drivers' entry point: routes by the config's corpus_stream_bsz
     (0 = auto by the memory budget, -1 = resident, > 0 = stream with that
-    block, at query batches of at least 64) and the mesh, as
-    dldkd_tpu.evaluate.run_retrieval_eval does; a mesh (ROADMAP A14) is not
-    ported. A module in training mode (the per-epoch validation) is
-    evaluated in eval mode and handed back in training mode."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "corpus-sharded (multi-GPU) eval is ROADMAP A14, not ported")
-    dev = resolve_device(device)
+    block, at query batches of at least 64) and the mesh
+    (`parallel.Mesh`: the sharded engines, at query batches of at least
+    64, each device holding 1/size of the corpus in the budget; the
+    resident one encodes each shard in context batches of
+    eval_context_bsz, as the single-device engine does), as
+    dldkd_tpu.evaluate.run_retrieval_eval does. `device` is ignored on a
+    mesh: its devices hold the shards. A module in training mode (the
+    per-epoch validation) is evaluated in eval mode and handed back in
+    training mode."""
+    dev = resolve_device(mesh.devices[0] if mesh is not None else device)
     stream = eval_cfg.corpus_stream_bsz
     if stream == 0:
-        stream = auto_stream_block(len(videos), len(queries), model.config,
-                                   score_quant=eval_cfg.score_quant,
-                                   device=dev)
+        stream = auto_stream_block(
+            len(videos), len(queries), model.config,
+            n_devices=mesh.size if mesh is not None else 1,
+            score_quant=eval_cfg.score_quant, device=dev)
     elif stream < 0:
         stream = 0
     was_training = model.training
     model.eval()
     try:
+        if mesh is not None:
+            from dldkd_tpu_torch.parallel import (
+                eval_retrieval_sharded, eval_retrieval_sharded_streaming)
+
+            if stream:
+                return eval_retrieval_sharded_streaming(
+                    model, videos, queries, mesh, corpus_block=stream,
+                    query_bsz=max(eval_cfg.eval_query_bsz, 64),
+                    score_quant=eval_cfg.score_quant)
+            return eval_retrieval_sharded(
+                model, videos, queries, mesh,
+                query_bsz=max(eval_cfg.eval_query_bsz, 64),
+                score_quant=eval_cfg.score_quant,
+                context_bsz=eval_cfg.eval_context_bsz)
         if stream:
             return eval_retrieval_streaming(
                 model, videos, queries, corpus_block=stream,

@@ -3,7 +3,10 @@
 Reference method/eval.py start_inference (eval.py:285-322): restore the
 run's opt.json, rebuild the model from the saved model_cfg.json, load the
 weights of ckpt/model.ckpt (the JAX package's format, read without JAX),
-encode the test corpus and report retrieval metrics.
+encode the test corpus and report retrieval metrics. With several GPUs
+the corpus is sharded (parallel/eval_shard.py): over every visible GPU in
+one process, or over the processes under torchrun (one GPU each; only
+process 0 writes eval.log.txt).
 
 Run: python -m dldkd_tpu_torch.infer --model_dir <results_dir> \
         --root_path $root --collection tvr --visual_feature i3d_resnet \
@@ -26,6 +29,10 @@ from dldkd_tpu_torch.data import (BigFile, pack_query_set, pack_video_corpus,
 from dldkd_tpu_torch.data.ingest import dataset_paths, read_video_ids
 from dldkd_tpu_torch.evaluate import run_retrieval_eval
 from dldkd_tpu_torch.models import DLDKD
+from dldkd_tpu_torch.parallel import make_mesh
+from dldkd_tpu_torch.parallel.multihost import (maybe_initialize_distributed,
+                                                process_device,
+                                                process_group)
 
 logger = logging.getLogger("dldkd_tpu_torch")
 
@@ -52,9 +59,17 @@ def _inference(cfg: Config, split: str, dev: torch.device):
 
     videos, queries = pack_split(cfg, split, mcfg)
 
+    # the corpus sharded over the processes of a group, or over every
+    # visible GPU of this process (dldkd_tpu/infer.py:60-68)
+    group = process_group()
+    mesh = None
+    if group is not None:
+        mesh = make_mesh(devices=[process_device(dev)], group=group)
+    elif dev.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh = make_mesh()
     with torch.no_grad():
         metrics = run_retrieval_eval(model, videos, queries, cfg.eval,
-                                     device=dev)
+                                     mesh=mesh, device=dev)
     lines = []
     for branch, m in metrics.items():
         line = ("{} {}: r_1_5_10_100 [{:.1f}, {:.1f}, {:.1f}, {:.1f}] | "
@@ -64,9 +79,10 @@ def _inference(cfg: Config, split: str, dev: torch.device):
         logger.info("%s", line)
         lines.append(line)
     # append-only eval log in the run dir, as the JAX package keeps it
-    with open(f"{model_dir}/eval.log.txt", "a") as f:
-        f.write(time.strftime("%Y_%m_%d_%H_%M_%S") + "\n"
-                + "\n".join(lines) + "\n")
+    if mesh is None or mesh.rank == 0:
+        with open(f"{model_dir}/eval.log.txt", "a") as f:
+            f.write(time.strftime("%Y_%m_%d_%H_%M_%S") + "\n"
+                    + "\n".join(lines) + "\n")
     return metrics
 
 
@@ -93,6 +109,7 @@ def pack_split(cfg: Config, split: str, mcfg):
 
 def main(argv=None):
     cfg = parse_args(argv, test=True, finalize=False)
+    maybe_initialize_distributed(cfg.torch_device)  # no-op without torchrun
     return start_inference(cfg)
 
 

@@ -48,14 +48,27 @@ each op rounds where the flax module with `dtype=jnp.bfloat16` rounds
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
-Generator = Optional[torch.Generator]
+class BatchShard(NamedTuple):
+    """A generator for one shard of a data-parallel batch
+    (parallel/train_dp.py): each dropout mask is drawn at the global
+    batch's shape, `count` times this shard's rows on the batch axis, and
+    the shard keeps its rows [index * n, (index + 1) * n). Every process
+    draws the same numbers, so the masks are the single-device step's and
+    the generators stay in lockstep."""
+
+    generator: torch.Generator
+    index: int
+    count: int
+
+
+Generator = Optional[Union[torch.Generator, BatchShard]]
 Dtype = Optional[torch.dtype]
 
 
@@ -103,15 +116,24 @@ def _ln(norm: nn.LayerNorm, x: torch.Tensor, dtype: Dtype) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Generator) -> torch.Tensor:
+            generator: Generator, batch_axis: int = 0) -> torch.Tensor:
     """Inverted dropout with the mask drawn from `generator` (uniform f32
-    draws of x's shape, kept where >= p)."""
+    draws of x's shape, kept where >= p). A `BatchShard` draws at the
+    global batch's shape on `batch_axis` and keeps this shard's rows."""
     if not training or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training mode needs a generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=torch.float32) >= p
+    shape = list(x.shape)
+    if isinstance(generator, BatchShard):
+        shape[batch_axis] *= generator.count
+        keep = torch.rand(shape, generator=generator.generator,
+                          device=x.device, dtype=torch.float32).narrow(
+            batch_axis, generator.index * x.shape[batch_axis],
+            x.shape[batch_axis]) >= p
+    else:
+        keep = torch.rand(shape, generator=generator, device=x.device,
+                          dtype=torch.float32) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 

@@ -50,7 +50,7 @@ def check_trainable(mcfg: ModelConfig, tcfg: TrainConfig) -> None:
 
 def compute_losses(model, batch: Dict[str, torch.Tensor],
                    generator: torch.Generator, mcfg: ModelConfig,
-                   tcfg: TrainConfig, scalars: LossScalars
+                   tcfg: TrainConfig, scalars: LossScalars, group=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full training loss for one batch, with the dropout masks (in
     training mode) and the negatives drawn from `generator`.
@@ -62,17 +62,33 @@ def compute_losses(model, batch: Dict[str, torch.Tensor],
       text_labels (Q,) int with -1 padding.
     mcfg is the epoch's model config (hard negatives flip per epoch), not
     necessarily model.config.
+
+    group: a data-parallel process group (parallel/train_dp.py). Then
+    student_videos and student_text hold this rank's rows
+    (`shard_batch_multihost`), the rest the whole batch: the towers run
+    on this rank's rows and their outputs are gathered from every rank
+    before the whole batch's losses.
     """
-    args = (batch["student_videos"], batch["student_videos_mask"],
-            batch["student_text"], batch["student_text_mask"])
+    own_vmask, own_tmask, draws = (batch["student_videos_mask"],
+                                   batch["student_text_mask"], generator)
+    if group is not None:
+        from dldkd_tpu_torch.parallel import train_dp
+
+        own_vmask = train_dp.local_rows(own_vmask, group)
+        own_tmask = train_dp.local_rows(own_tmask, group)
+        draws = train_dp.batch_shard(generator, group)
+    args = (batch["student_videos"], own_vmask, batch["student_text"],
+            own_tmask)
     if tcfg.stacked_towers:
-        outs = encode_stacked(model, *args, generator=generator)
+        outs = encode_stacked(model, *args, generator=draws)
     else:
-        outs = model(*args, generator=generator)
+        outs = model(*args, generator=draws)
     # bf16 towers: every loss in f32 (params and optimizer are f32 too)
-    (inher_ctx, explore_ctx), (inher_q, explore_q) = (
-        tuple(t.float() if t is not None and t.dtype == torch.bfloat16
-              else t for t in pair) for pair in outs)
+    outs = tuple(tuple(t.float() if t is not None and t.dtype ==
+                       torch.bfloat16 else t for t in pair) for pair in outs)
+    if group is not None:
+        outs = train_dp.gather_outputs(outs, group)
+    (inher_ctx, explore_ctx), (inher_q, explore_q) = outs
 
     vmask = batch["student_videos_mask"]
     labels = batch["text_labels"].long()

@@ -84,7 +84,8 @@ class _Stack:
         return [br.get_submodule(path) for br in self.brs]
 
     def drop(self, x: torch.Tensor, p: float) -> torch.Tensor:
-        return dropout(x, p, self.training, self.generator)
+        # the branch axis comes first: the batch is axis 1
+        return dropout(x, p, self.training, self.generator, batch_axis=1)
 
     def input_proj(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """LinearInputProj: the shared input normalized once, then each

@@ -46,7 +46,8 @@ writes one JSON line per query: {"cap_id", "topk": [[video_id, score], ...]};
 (with .npz or .hdf5 queries no dataset flags), --prewarm LQ:K[,...],
 --aot_cache_dir DIR, --warm_start.
 
-Not ported: a device mesh (raises naming ROADMAP A14).
+Not ported: a device mesh (the sharded stores; raises naming ROADMAP
+A14 b).
 """
 
 from __future__ import annotations
@@ -273,7 +274,7 @@ class Retriever:
         at one directory, and the offline index build fills it."""
         if mesh is not None:
             raise _not_ported("a device mesh (corpus-sharded serving)",
-                              "A14")
+                              "A14 b")
         if index_store not in (None, "auto", "encoded", "raw"):
             raise ValueError(f"index_store: {index_store!r}")
         if aot_cache_dir:

@@ -32,7 +32,7 @@ depend on feature values), for one policy:
 
 The process start is read from /proc/self/stat (the interpreter's start,
 before torch's import), or this module's import time where /proc is
-absent. `--mesh` raises NotImplementedError naming ROADMAP A14, as
+absent. `--mesh` raises NotImplementedError naming ROADMAP A14 b, as
 `Retriever(mesh=...)` does. Runs on the card unless `--torch_device cpu`.
 Prints one JSON line.
 """
@@ -193,13 +193,14 @@ def main(argv=None):
     p.add_argument("--replicas", type=int, default=4,
                    help="fleet mode: number of fresh replica processes")
     p.add_argument("--mesh", action="store_true",
-                   help="a device mesh: not ported (ROADMAP A14), raises")
+                   help="a device mesh: not ported (ROADMAP A14 b), raises")
     p.add_argument("--torch_device", default="cuda", choices=("cuda", "cpu"))
     args = p.parse_args(argv)
     if args.mesh:
         from dldkd_tpu_torch.serving import _not_ported
 
-        raise _not_ported("a device mesh (corpus-sharded serving)", "A14")
+        raise _not_ported("a device mesh (corpus-sharded serving)",
+                          "A14 b")
 
     if args.policy == "fleet":
         # one build process saves the prewarmed artifact and fills the

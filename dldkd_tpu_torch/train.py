@@ -18,17 +18,30 @@ from one `torch.Generator` on the device, seeded from seed + 1 and saved in
 every checkpoint, so `--resume` continues a run exactly. Checkpoints are
 in the JAX package's format (`checkpoint.py`), in both directions.
 
-One GPU: the JAX package's data-parallel mesh (train.py:221-262) is
-ROADMAP A14, so every batch is kept (no drop_last). The compile cache has
-no counterpart; `--rng_impl` is accepted and means nothing here.
+Several GPUs: one process per GPU under torchrun (`main` joins the
+process group, parallel/multihost.py). The run is then data-parallel with
+the global batch's losses (parallel/train_dp.py) over d processes, d the
+largest count up to the world size that divides --bsz and
+--query_pad_multiple (`dp_mesh_size`, dldkd_tpu/train.py:221-231); the
+short last batch is dropped, the processes agree on a stop every
+PREEMPT_SYNC_STEPS steps and at each epoch's end, the validation runs
+sharded over the processes (parallel/eval_shard.py), and only process 0
+writes the run's files (checkpoints, train.log.txt, metrics.jsonl,
+code.zip, the --profile_dir trace). Unlike the JAX trainer, which leaves
+the devices past d idle, a world larger than d raises before training:
+idle processes would hang in the collectives. The compile cache has no
+counterpart; `--rng_impl` is accepted and means nothing here.
 
 Run: python -m dldkd_tpu_torch.train --collection tvr --root_path $root \
         --visual_feature i3d_resnet ... [--torch_device cuda|cpu]
+     torchrun --nproc_per_node N -m dldkd_tpu_torch.train ...
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import os
 import sys
 import time
@@ -36,6 +49,7 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from dldkd_tpu_torch import checkpoint as ckpt_lib
@@ -54,6 +68,14 @@ from dldkd_tpu_torch.models import DLDKD
 from dldkd_tpu_torch.models.objective import (LossScalars, check_trainable,
                                               compute_losses)
 from dldkd_tpu_torch.optim import BertAdam, default_wd_mask, schedules
+from dldkd_tpu_torch.parallel import make_dp_train_step, make_mesh
+from dldkd_tpu_torch.parallel.multihost import (broadcast_object,
+                                                maybe_initialize_distributed,
+                                                process_device,
+                                                process_group,
+                                                replicate_multihost,
+                                                shard_batch_multihost)
+from dldkd_tpu_torch.parallel.train_dp import average_gradients
 from dldkd_tpu_torch.utils import (AverageMeter, MetricsWriter,
                                    PreemptionGuard, make_code_zip,
                                    setup_logging)
@@ -61,6 +83,10 @@ from dldkd_tpu_torch.utils.preemption import agree_should_stop
 
 LOSS_KEYS = ("loss_overall", "inher_trip", "inher_nce", "explore_trip",
              "explore_nce", "kl", "kl_intra")
+# a data-parallel run's processes agree on a stop every this many steps
+# (and at each epoch's end): the host sync is amortized over the steps,
+# and preemption grace windows are tens of seconds
+PREEMPT_SYNC_STEPS = 32
 
 
 def clip_grads(grads, grad_clip: float):
@@ -75,23 +101,43 @@ def clip_grads(grads, grad_clip: float):
 
 def train_step(model: DLDKD, mcfg: ModelConfig, tcfg, optimizer: BertAdam,
                batch: Dict[str, torch.Tensor], generator: torch.Generator,
-               scalars: LossScalars) -> Dict[str, torch.Tensor]:
+               scalars: LossScalars, group=None) -> Dict[str, torch.Tensor]:
     """One optimization step in place (train.py:57-80); returns the loss
     dict, detached, on the device. Its parts are the profiler ranges
-    train_step/forward_losses, train_step/backward (the global clip
-    included) and train_step/optimizer."""
+    train_step/forward_losses, train_step/backward (the gradient
+    all-reduce and the global clip included) and train_step/optimizer.
+    group: the data-parallel step (parallel/train_dp.py) on `batch` from
+    `shard_batch_multihost`: the gradients are averaged over the
+    processes before the clip."""
     model.train()
     with record_function("train_step/forward_losses"):
         loss, loss_dict = compute_losses(model, batch, generator, mcfg, tcfg,
-                                         scalars)
+                                         scalars, group=group)
     with record_function("train_step/backward"):
         params = list(optimizer.params.values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = clip_grads([torch.zeros_like(p) if g is None else g
-                            for g, p in zip(grads, params)], tcfg.grad_clip)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, params)]
+        if group is not None:
+            grads = average_gradients(grads, group)
+        grads = clip_grads(grads, tcfg.grad_clip)
     with record_function("train_step/optimizer"):
         optimizer.step(grads)
     return {k: v.detach() for k, v in loss_dict.items()}
+
+
+def dp_mesh_size(n_train: int, bsz: int, query_pad_multiple: int,
+                 world: int) -> int:
+    """The data-parallel mesh size (dldkd_tpu/train.py:221-231): the
+    largest d <= world dividing bsz and query_pad_multiple; 1 when the
+    train split holds less than one batch (dropping the short batch would
+    leave no step)."""
+    if n_train < bsz:
+        return 1
+    for d in range(min(world, math.gcd(bsz, query_pad_multiple)), 0, -1):
+        if bsz % d == 0 and query_pad_multiple % d == 0:
+            return d
+    return 1
 
 
 def build_model_and_data(cfg: Config):
@@ -228,8 +274,15 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
         logger.info("--rng_impl %s has no PyTorch counterpart: every "
                     "training stream comes from one torch.Generator",
                     cfg.train.rng_impl)
-    make_code_zip(os.path.dirname(os.path.abspath(__file__)),
-                  os.path.join(cfg.results_dir, "code.zip"))
+    group = process_group()
+    n_proc = 1 if group is None else dist.get_world_size(group)
+    # one writer of the run's files in a data-parallel run
+    writes = group is None or dist.get_rank(group) == 0
+    if group is not None:
+        dev = process_device(dev)
+    if writes:
+        make_code_zip(os.path.dirname(os.path.abspath(__file__)),
+                      os.path.join(cfg.results_dir, "code.zip"))
 
     t0 = time.time()
     mcfg, train_data, val_videos, val_queries, _ = build_model_and_data(cfg)
@@ -247,9 +300,29 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
     n_params = sum(p.numel() for p in named.values())
     logger.info("model parameters: %.2fM on %s", n_params / 1e6, dev)
 
+    # a process group: data-parallel over every process, each on its GPU
+    mesh = None
+    n_mesh = 1
+    if group is not None:
+        n_mesh = dp_mesh_size(len(train_data.videos), cfg.train.bsz,
+                              cfg.data.query_pad_multiple, n_proc)
+        if n_mesh < n_proc:
+            raise ValueError(
+                f"data-parallel training over {n_proc} processes needs a "
+                f"train split of at least one batch and --bsz and "
+                f"--query_pad_multiple divisible by the process count; "
+                f"this run divides over {n_mesh}: launch {n_mesh} "
+                f"processes")
+        mesh = make_mesh(devices=[dev], group=group)
+        replicate_multihost(model, group)
+        logger.info("data-parallel: %d of %d devices / %d processes",
+                    n_mesh, n_proc, n_proc)
+
+    # data-parallel runs drop the short trailing batch: its video axis
+    # would not divide the processes
     loader = TrainLoader(train_data, cfg.train.bsz, seed=cfg.train.seed,
                          query_pad_multiple=cfg.data.query_pad_multiple,
-                         epoch_order=epoch_order)
+                         drop_last=n_mesh > 1, epoch_order=epoch_order)
     t_total = loader.steps_per_epoch() * cfg.train.n_epoch
     lr_sched = schedules.make_lr_schedule(
         "warmup_linear", cfg.train.lr_warmup_proportion, float(t_total))
@@ -257,7 +330,7 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
                          weight_decay=cfg.train.wd,
                          wd_mask=default_wd_mask(named))
 
-    writer = MetricsWriter(cfg.tensorboard_log_dir)
+    writer = MetricsWriter(cfg.tensorboard_log_dir) if writes else None
     rng_seed = cfg.train.seed + 1
     generator = torch.Generator(device=dev).manual_seed(rng_seed)
     best_score, es_cnt = 0.0, 0
@@ -279,8 +352,14 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
                     cfg.resume, start_epoch, best_score)
 
     def save(ckpt_dir, epoch):
-        ckpt_lib.save_checkpoint(ckpt_dir, _state(
-            model, optimizer, epoch, best_score, generator), mcfg)
+        if writes:
+            ckpt_lib.save_checkpoint(ckpt_dir, _state(
+                model, optimizer, epoch, best_score, generator), mcfg)
+
+    def log_line(text):
+        if writes:
+            with open(cfg.train_log_filepath, "a") as f:
+                f.write(text)
 
     try:
         for epoch in range(start_epoch, cfg.train.n_epoch):
@@ -299,11 +378,20 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
                 data_t, step_t = AverageMeter(), AverageMeter()
                 prof = None
                 pending = []
+                batches = loader.epoch(epoch)
+                step = functools.partial(train_step, model, run_cfg,
+                                         cfg.train, optimizer)
+                if mesh is not None:
+                    batches = (shard_batch_multihost(b, group)
+                               for b in batches)
+                    step = make_dp_train_step(model, run_cfg, cfg.train,
+                                              optimizer, mesh)
                 t_fetch = time.time()
                 for batch_idx, batch in enumerate(
-                        device_prefetch(loader.epoch(epoch), dev)):
+                        device_prefetch(batches, dev)):
                     data_t.update(time.time() - t_fetch)
-                    if cfg.profile_dir and epoch == max(start_epoch, 0):
+                    if cfg.profile_dir and writes \
+                            and epoch == max(start_epoch, 0):
                         # steps [1, 1 + profile_steps): step 0 warms up
                         if batch_idx == 1:
                             prof = _start_profile(dev)
@@ -311,16 +399,19 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
                             _stop_profile(prof, cfg.profile_dir, logger)
                             prof = None
                     t_step = time.time()
-                    loss_dict = train_step(model, run_cfg, cfg.train,
-                                           optimizer, batch, generator,
-                                           scalars)
+                    loss_dict = step(batch, generator, scalars)
                     # loss scalars stay on the device until the epoch ends:
                     # fetching them here would sync the host every step
                     pending.append((global_step, loss_dict))
                     step_t.update(time.time() - t_step)
                     global_step += 1
                     t_fetch = time.time()
-                    if preempt.should_stop:
+                    if n_proc == 1:
+                        if preempt.should_stop:
+                            break
+                    elif (batch_idx + 1) % PREEMPT_SYNC_STEPS == 0 and \
+                            agree_should_stop(preempt.should_stop, group):
+                        preempt.trigger()
                         break
                     if cfg.debug and batch_idx == 3:
                         break
@@ -333,21 +424,19 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
                     for (step_i, _), row in zip(pending, vals):
                         for k, v in zip(LOSS_KEYS, row):
                             meters[k].update(v)
-                        writer.scalars({f"Train/{k}": v
-                                        for k, v in zip(LOSS_KEYS, row)},
-                                       step_i)
+                        if writer:
+                            writer.scalars({f"Train/{k}": v for k, v in
+                                            zip(LOSS_KEYS, row)}, step_i)
                 loss_str = " ".join(f"{k} {m.avg:.4f}"
                                     for k, m in meters.items())
-                line = (f"{time.strftime('%Y_%m_%d_%H_%M_%S')} [Epoch] "
-                        f"{epoch:03d} [Loss] {loss_str}\n")
-                with open(cfg.train_log_filepath, "a") as f:
-                    f.write(line)
+                log_line(f"{time.strftime('%Y_%m_%d_%H_%M_%S')} [Epoch] "
+                         f"{epoch:03d} [Loss] {loss_str}\n")
                 logger.info("epoch %d: %s | data %.3fs/step step %.3fs/step",
                             epoch, loss_str, data_t.avg, step_t.avg)
                 # preemption exit after the loss flush; the interrupted
                 # epoch is recorded as not yet done: --resume replays it
                 # from its start with the mid-epoch parameters
-                if agree_should_stop(preempt.should_stop):
+                if agree_should_stop(preempt.should_stop, group):
                     preempt.trigger()
                     preempt_dir = cfg.ckpt_dir + "_preempt"
                     save(preempt_dir, epoch - 1)
@@ -358,15 +447,18 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
                     break
 
             # this epoch's weights, packed anew by the engine; eval mode
-            # and no autograd inside, training mode again after
+            # and no autograd inside, training mode again after; sharded
+            # over the processes of a data-parallel run
             metrics = run_retrieval_eval(model, val_videos, val_queries,
-                                         cfg.eval, device=dev)
+                                         cfg.eval, mesh=mesh, device=dev)
             for branch, m in metrics.items():
                 logger.info("val %s: r1/5/10/100 %.1f/%.1f/%.1f/%.1f sumr "
                             "%.1f map %.4f", branch, m["r1"], m["r5"],
                             m["r10"], m["r100"], m["sumr"], m["map"])
-            writer.scalars({f"Val/{b}_sumr": m["sumr"]
-                            for b, m in metrics.items()}, max(global_step, 0))
+            if writer:
+                writer.scalars({f"Val/{b}_sumr": m["sumr"]
+                                for b, m in metrics.items()},
+                               max(global_step, 0))
             score = metrics["fused"]["sumr"]
 
             if score > best_score:
@@ -376,13 +468,12 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
             else:
                 es_cnt += 1
                 if cfg.train.max_es_cnt != -1 and es_cnt > cfg.train.max_es_cnt:
-                    with open(cfg.train_log_filepath, "a") as f:
-                        f.write(f"Early Stop at epoch {epoch}")
+                    log_line(f"Early Stop at epoch {epoch}")
                     logger.info("early stop at epoch %d", epoch)
                     break
             # a SIGTERM during the validation: this epoch is done (eval and
             # best checkpoint above), so --resume continues at epoch + 1
-            if agree_should_stop(preempt.should_stop):
+            if agree_should_stop(preempt.should_stop, group):
                 preempt.trigger()
                 preempt_dir = cfg.ckpt_dir + "_preempt"
                 save(preempt_dir, epoch)
@@ -394,11 +485,15 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
             if cfg.debug:
                 break
     finally:
-        writer.close()
+        if writer:
+            writer.close()
         if own_guard:
             # restore the previous SIGTERM disposition even when an
             # exception escapes training
             preempt.__exit__(None, None, None)
+    if group is not None:
+        # process 0's checkpoints are on disk before any process reads them
+        dist.barrier(group)
     if preempt.should_stop:
         logger.info("training preempted; best val sumr so far %.1f",
                     best_score)
@@ -412,8 +507,11 @@ def main(argv=None):
     test-split inference on the best checkpoint (reference
     train.py:335-344); returns its metric dicts."""
     cfg = parse_args(argv)
+    maybe_initialize_distributed(cfg.torch_device)  # no-op without torchrun
     with PreemptionGuard() as guard:
-        results_dir = start_training(cfg, preempt_guard=guard)
+        # every process evaluates the run dir process 0 wrote
+        results_dir = broadcast_object(
+            start_training(cfg, preempt_guard=guard), process_group())
         preempted = guard.should_stop
     # handlers restored here: a SIGTERM during post-train inference
     # terminates the process normally (nothing would poll the guard)

@@ -8,8 +8,9 @@ records the interrupted epoch as not yet done, so `--resume` replays that
 epoch from its start with the mid-epoch parameters: bounded duplicate
 work (< 1 epoch), never lost work.
 
-`agree_should_stop` is the single-process case; agreeing across processes
-belongs to multi-GPU training (ROADMAP A14).
+In a data-parallel run (`torchrun`, parallel/) `agree_should_stop` makes
+every process take the same stop decision at the same step: a process that
+left the step loop alone would strand the others in the next collective.
 """
 
 from __future__ import annotations
@@ -19,10 +20,24 @@ import threading
 from typing import Optional
 
 
-def agree_should_stop(local_flag: bool) -> bool:
-    """The stop decision every process shares; with one process, the
-    local flag."""
-    return bool(local_flag)
+def agree_should_stop(local_flag: bool, group=None) -> bool:
+    """The stop decision every process of `group` shares: an all-reduce
+    MAX of the local flags (any process flagged -> every process stops),
+    as dldkd_tpu/utils/preemption.py:22-38 agrees over an allgather.
+    Without a group, or in a group of one, the local flag."""
+    if group is None:
+        return bool(local_flag)
+    import torch
+    import torch.distributed as dist
+
+    if dist.get_world_size(group) == 1:
+        return bool(local_flag)
+    from dldkd_tpu_torch.parallel.multihost import collective_device
+
+    flag = torch.tensor([int(bool(local_flag))], dtype=torch.int32,
+                        device=collective_device(group))
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag.item())
 
 
 class PreemptionGuard:

@@ -881,3 +881,37 @@ def test_one_branch_launch_moves_the_1br_counters(dev, dtype):
             == (towers[0] + 1, towers[1] + 1)
         assert {n: qt.LAUNCHES[n] - before[n] for n in names} \
             == {n: moved for n in names}
+
+
+@pytest.mark.parametrize("score_quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("block", [0, 35], ids=["resident", "streaming"])
+def test_sharded_eval_on_card_matches_single_device(dev, score_quant,
+                                                    block):
+    """The corpus-sharded eval on a mesh of two shards on one card
+    (parallel/eval_shard.py) against the single-device resident engine:
+    the same scores bitwise (each tower row and each (query, video) score
+    is computed alike at any batch, as for streaming above) and the same
+    metrics, through run_retrieval_eval."""
+    import dataclasses
+
+    from dldkd_tpu_torch import evaluate
+    from dldkd_tpu_torch.config import EvalConfig
+    from dldkd_tpu_torch.parallel import eval_shard, make_mesh
+
+    model, videos, queries = _stream_fixture(np.random.RandomState(12))
+    nv = len(videos)
+    mesh = make_mesh(devices=[dev, dev])
+    r_i, r_e = evaluate.score_matrices(model, videos, queries, 16, 50, dev,
+                                       score_quant=score_quant)
+    s_i, s_e = eval_shard.sharded_score_matrices(
+        model, videos, queries, mesh, query_bsz=64, score_quant=score_quant,
+        corpus_block=block)
+    assert torch.equal(s_i, r_i[:, :nv]) and torch.equal(s_e, r_e[:, :nv])
+    cfg = EvalConfig(eval_query_bsz=50, eval_context_bsz=16,
+                     score_quant=score_quant,
+                     corpus_stream_bsz=block or -1)
+    assert evaluate.run_retrieval_eval(model, videos, queries, cfg,
+                                       mesh=mesh) == \
+        evaluate.run_retrieval_eval(
+            model, videos, queries,
+            dataclasses.replace(cfg, corpus_stream_bsz=-1), device=dev)

@@ -228,18 +228,28 @@ def test_int8_eval_matches_jax(dataset, double):
 
 
 def test_unported_routes_raise(dataset):
-    """score_quant and streaming are ported now (test_int8_eval_matches_jax,
-    tests/test_torch_streaming.py); the mesh still raises, naming its
-    ROADMAP item, on every engine route."""
+    """Every route is ported now: score_quant and streaming
+    (test_int8_eval_matches_jax, tests/test_torch_streaming.py) and the
+    mesh (tests/test_torch_parallel.py). On each engine route
+    run_retrieval_eval on a mesh of three CPU shards gives the
+    single-device metrics, and raises nothing."""
+    from dldkd_tpu_torch.parallel import make_mesh
+
     _, _, videos, queries = dataset
     _, _, model = _models(True)
     eval_cfg = JaxConfig().eval
     for stream in (0, -1, 8):
-        with pytest.raises(NotImplementedError, match="A14"):
-            evaluate.run_retrieval_eval(
-                model, videos, queries,
-                dataclasses.replace(eval_cfg, corpus_stream_bsz=stream),
-                mesh=object(), device="cpu")
+        cfg = dataclasses.replace(eval_cfg, corpus_stream_bsz=stream)
+        want = evaluate.run_retrieval_eval(model, videos, queries, cfg,
+                                           device="cpu")
+        got = evaluate.run_retrieval_eval(
+            model, videos, queries, cfg,
+            mesh=make_mesh(devices=["cpu"] * 3), device="cpu")
+        assert got.keys() == want.keys()
+        for branch in want:
+            for k, v in want[branch].items():
+                assert got[branch][k] == pytest.approx(v, abs=1e-9), \
+                    (stream, branch, k)
 
 
 def test_entry_points_default_to_cuda(dataset):

@@ -67,7 +67,10 @@ def test_port_imports_no_jax():
                                     "dldkd_tpu_torch.tools.search_bench",
                                     "dldkd_tpu_torch.tools.stream_bench",
                                     "dldkd_tpu_torch.tools.coldstart_bench",
-                                    "dldkd_tpu_torch.tools.bench"])
+                                    "dldkd_tpu_torch.tools.bench",
+                                    "dldkd_tpu_torch.parallel",
+                                    "dldkd_tpu_torch.parallel.eval_shard",
+                                    "dldkd_tpu_torch.parallel.train_dp"])
 def test_entry_points_import_no_jax(module):
     """The serving CLI, the eval CLI and the training CLI, the index
     artifacts, native packer and pack cache modules (whose JAX originals
@@ -75,7 +78,9 @@ def test_entry_points_import_no_jax(module):
     helpers, the train bench, the teacher extraction with its tokenizer,
     preprocessing and CLIP, and the benches with their workload (whose JAX
     originals read the root bench.py), each imported alone, load no JAX,
-    Flax, JAX package, transformers or regex module."""
+    Flax, JAX package, transformers or regex module; so does the
+    multi-GPU package (`parallel/`), whose JAX original is built on
+    jax.sharding."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dldkd_tpu', 'transformers', "
