@@ -105,8 +105,23 @@ package. Phases, in order; any failure exits non-zero without the final
    refuses two ranks on one device): their data-parallel step at the
    train phase's widths, plain and stacked, against the single-device
    step (losses within rtol 2e-4, parameters within rtol 2e-4 + 1e-6,
-   the ranks equal); then the benches
-   (`phase_benches`, `dldkd_tpu_torch/tools/`): in this process
+   the ranks equal); then corpus-sharded serving (`phase_serving_mesh`,
+   `Retriever(mesh=...)`) on a mesh of two shards on cuda:0 and on
+   `make_mesh()` (every GPU; a mesh of one on one GPU), the bf16 serving
+   model at TVR scale, batch 256, k 10: encoded exact, two-stage with
+   DLDKD_DENSE_RESCORE pinned to always and to never, int8-only, and the
+   raw store at block 2,048 exact, two-stage (dense) and int8-only, each
+   against the single-device Retriever on the same route in turns (ids
+   equal, scores within 1e-5 and whether bitwise, wall, queries/s, peak
+   memory, the route's kernels launched with no plain version run,
+   launches per search: scorers = batches (raw: blocks) x live shards x
+   branches, query towers = batches), then against the same mesh with
+   plain=True on 512 queries (within the bf16 scores' 3e-2); the one-branch
+   twin on each mesh (one scorer launch per shard and batch); index
+   artifacts of the exact, int8-only and raw stores built on the mesh and
+   loaded on one device and the reverse (ids and scores bitwise); then
+   the benches (`phase_benches`, `dldkd_tpu_torch/tools/`): in this
+   process
    stage_bench (3 reps a stage; its one-branch rows launch the one-branch
    towers) and the port bench's whole line (`tools.bench.main`: the int8
    and exact evals at TVR scale, the three train keys, the replica fleet
@@ -191,8 +206,9 @@ videos. Each kernel also carries its launches on each in-process path of
 one-branch tower launches (`query_tower_1br`, `context_tower_1br`) have
 entries of their own, their launches those of stage_bench's one-branch
 rows and their times phase 3's one-branch bf16 checks. Each kernel that
-`phase_parallel` ran also carries its launches on each of that phase's
-paths (`parallel_launches`).
+`phase_parallel` or `phase_serving_mesh` ran also carries its launches
+on each of those phases' paths (`parallel_launches`; the serving paths
+named "serving <route>, <mesh>").
 """
 
 from __future__ import annotations
@@ -2885,6 +2901,259 @@ def phase_parallel(workdir: str, dev, videos, queries) -> tuple:
     return launches, checks
 
 
+# ------------------------------------------- slice 14: serving on a mesh
+
+# each route of the mesh serving phase: (name, Retriever keywords,
+# DLDKD_DENSE_RESCORE pinned on both sides, kernels of the path, scorer
+# counters with their launches per branch and per batch and shard (raw:
+# per block) in one search)
+SERVE_MESH_BLOCK = 2048
+SERVE_MESH_ROUTES = (
+    ("exact", {}, None, ("sim_max_bf16", "query_tower", "context_tower"),
+     {"sim_max_bf16": 1}),
+    ("two_stage_dense", {"score_quant": True}, "always",
+     ("sim_max_int8", "sim_max_exact", "query_tower", "context_tower",
+      "context_tower_q8"), {"sim_max_int8": 1, "sim_max_exact": 1}),
+    ("two_stage_gather", {"score_quant": True}, "never",
+     ("sim_max_int8", "query_tower", "context_tower", "context_tower_q8"),
+     {"sim_max_int8": 1, "sim_max_exact": 0}),
+    ("int8_only", {"score_quant": True, "rescore": False}, None,
+     INT8_EVAL_KERNELS, {"sim_max_int8": 1}),
+    (f"raw {SERVE_MESH_BLOCK} exact", {"index_store": "raw"}, None,
+     ("sim_max_bf16", "query_tower", "context_tower"), {"sim_max_bf16": 1}),
+    (f"raw {SERVE_MESH_BLOCK} two_stage",
+     {"index_store": "raw", "score_quant": True}, "always",
+     ("sim_max_int8", "sim_max_exact", "query_tower", "context_tower"),
+     {"sim_max_int8": 1, "sim_max_exact": 1}),
+    (f"raw {SERVE_MESH_BLOCK} int8_only",
+     {"index_store": "raw", "score_quant": True, "rescore": False}, None,
+     ("sim_max_int8", "query_tower", "context_tower"), {"sim_max_int8": 1}),
+)
+
+
+def _pin_dense_rescore(mode) -> None:
+    if mode is None:
+        os.environ.pop("DLDKD_DENSE_RESCORE", None)
+    else:
+        os.environ["DLDKD_DENSE_RESCORE"] = mode
+
+
+def _served(model, videos, queries, dev, mesh, kw, plain=False,
+            n_queries=None) -> dict:
+    """A Retriever on `dev` (mesh None) or on `mesh`: index, one warm-up
+    batch, then one timed search of the queries; the results, walls,
+    queries/s, peak memory, the launches of the whole path (counts set to
+    0 before the index) and of the timed search alone."""
+    import torch
+
+    from dldkd_tpu_torch.serving import Retriever
+
+    bsz, k = SERVE["query_bsz"], SERVE["k"]
+    qf, qm = queries.feats[:n_queries], queries.mask[:n_queries]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    r = Retriever(model, query_bsz=bsz, device=dev, mesh=mesh, plain=plain,
+                  stream_block=SERVE_MESH_BLOCK, **kw)
+    r.index(videos, context_bsz=TVR["context_bsz"])
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    at_index = _counts()
+    r.search(qf[:bsz], qm[:bsz], k)                       # warm-up
+    before = _counts()
+    t0 = time.perf_counter()
+    scores, idx = r.search(qf, qm, k)
+    search_s = time.perf_counter() - t0
+    counts = _counts()
+    out = {"scores": scores, "ids": idx, "index_s": index_s,
+           "search_s": search_s, "queries_per_s": len(qf) / search_s,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": counts, "index_launches": at_index,
+           "search_launches": {c: counts[c] - before[c] for c in counts},
+           "live_shards": len(r._live()) if mesh is not None else 1,
+           "blocks": (sum(-(-sh.real // SERVE_MESH_BLOCK)
+                          for sh in r._live()) if mesh is not None
+                      else -(-len(videos) // SERVE_MESH_BLOCK))}
+    del r
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_route(model, name, kw, mode, kernels, scorers, mesh, mesh_name,
+                single, videos, queries, dev, launches) -> None:
+    """One route on `mesh` against the single-device run `single` of the
+    same route: ids equal and scores within TOL["dense_vs_gather"], the
+    path's kernels launched with no plain version run, the launches per
+    search as the layout implies, then the mesh's kernel path against its
+    plain path on SERVE["plain_queries"] queries."""
+    import numpy as np
+
+    what = f"serving {name}, {mesh_name}"
+    with _PlainCalls() as plain_calls:
+        got = _served(model, videos, queries, dev, mesh, kw)
+    _check_launched(got["launches"], kernels, what)
+    if plain_calls.calls:
+        fail(f"{what}: plain versions ran: {plain_calls.calls}")
+    batches = -(-len(queries) // SERVE["query_bsz"])
+    units = got["blocks"] if "index_store" in kw else \
+        batches * got["live_shards"]
+    want = {c: 2 * per * units for c, per in scorers.items()}
+    # the queries once per batch; the video towers only on raw blocks
+    want["query_tower"] = batches
+    want["context_tower"] = got["blocks"] if "index_store" in kw else 0
+    search = got["search_launches"]
+    tie_tol = TOL[("dense_vs_gather", "scores")]
+    same = bool(np.array_equal(got["ids"], single["ids"]))
+    err = float(np.abs(got["scores"] - single["scores"]).max())
+    npl = SERVE["plain_queries"]
+    ref = _served(model, videos, queries, dev, mesh, kw, plain=True,
+                  n_queries=npl)
+    plain_err = float(np.abs(got["scores"][:npl] - ref["scores"]).max())
+    flips = ~np.all(got["ids"][:npl] == ref["ids"], axis=1)
+    emit({"phase": "serving_mesh", "route": name, "mesh": mesh_name,
+          "shards": mesh.size, "live_shards": got["live_shards"],
+          "dense_rescore_mode": mode or "auto",
+          "stage2": ("dense" if search.get("sim_max_exact") else "gather")
+          if kw.get("score_quant") and kw.get("rescore", True) else None,
+          "videos": len(videos), "queries": len(queries),
+          **{f"single_{k}": single[k] for k in (
+              "index_s", "search_s", "queries_per_s", "peak_mem_bytes")},
+          **{f"mesh_{k}": got[k] for k in (
+              "index_s", "search_s", "queries_per_s", "peak_mem_bytes")},
+          "mesh_vs_single_search_wall": got["search_s"] / single["search_s"],
+          "same_ids": same, "scores_max_abs_err": err,
+          "scores_bitwise": bool(np.array_equal(got["scores"],
+                                                single["scores"])),
+          "tol": tie_tol, "index_launches": got["index_launches"],
+          "single_index_launches": single["index_launches"],
+          "search_launches": search, "search_launches_want": want,
+          "plain_queries": npl, "plain_scores_max_abs_err": plain_err,
+          "plain_rows_same_ids": float(1 - flips.mean()),
+          "plain_tol": TOL[("scores", "bfloat16")]})
+    if not same or not err <= tie_tol:
+        fail(f"{what}: ids or scores (max abs err {err}) differ from the "
+             f"single-device retriever's")
+    bad = {c: (search.get(c), n) for c, n in want.items()
+           if search.get(c) != n}
+    if bad:
+        fail(f"{what}: launches per search (got, want): {bad}")
+    if not plain_err <= TOL[("scores", "bfloat16")]:
+        fail(f"{what}: kernel path vs plain path: max abs score error "
+             f"{plain_err}")
+    launches[what] = got["launches"]
+
+
+def _mesh_one_branch(mesh, mesh_name, videos, queries, dev,
+                     launches) -> None:
+    """The one-branch twin on the mesh, exact route: the one-branch towers
+    launch and each shard is scored once per batch; ids equal the
+    single-device twin's."""
+    import numpy as np
+
+    from dldkd_tpu_torch.tools import workload
+
+    twin = workload.serving_model(one_branch_of=_serving_model("bfloat16",
+                                                               seed=6))
+    single = _served(twin, videos, queries, dev, None, {})
+    got = _served(twin, videos, queries, dev, mesh, {})
+    what = f"serving exact one-branch, {mesh_name}"
+    _check_launched(got["launches"], ("query_tower_1br", "context_tower_1br",
+                                      "sim_max_bf16"), what)
+    batches = -(-len(queries) // SERVE["query_bsz"])
+    want = batches * got["live_shards"]
+    emit({"phase": "serving_mesh_1br", "mesh": mesh_name,
+          "search_launches": got["search_launches"],
+          "scorer_launches_want": want,
+          "same_ids": bool(np.array_equal(got["ids"], single["ids"])),
+          "scores_max_abs_err": float(np.abs(got["scores"]
+                                             - single["scores"]).max())})
+    if got["search_launches"]["sim_max"] != want:
+        fail(f"{what}: {got['search_launches']['sim_max']} scorer launches "
+             f"per search, want {want} (one per shard and batch)")
+    if not np.array_equal(got["ids"], single["ids"]):
+        fail(f"{what}: ids differ from the single-device twin's")
+    launches[what] = got["launches"]
+
+
+def _mesh_artifacts(model, mesh, mesh_name, videos, queries, dev) -> None:
+    """Index artifacts across topologies: built on `mesh`, loaded on one
+    device, and built on one device, loaded on `mesh`, for the exact,
+    int8-only and raw stores; the loading retriever's ids and scores
+    bitwise those of the one that built the index."""
+    import numpy as np
+
+    from dldkd_tpu_torch.serving import Retriever
+
+    bsz, k = SERVE["query_bsz"], SERVE["k"]
+    qf, qm = queries.feats, queries.mask
+    for name, kw in (("exact", {}),
+                     ("int8_only", {"score_quant": True, "rescore": False}),
+                     ("raw", {"index_store": "raw"})):
+        rec = {"check": "serving_mesh_artifacts", "store": name,
+               "mesh": mesh_name}
+        for built_on, loaded_on in ((mesh, None), (None, mesh)):
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_idx_") as d:
+                r = Retriever(model, query_bsz=bsz, device=dev, mesh=built_on,
+                              stream_block=SERVE_MESH_BLOCK, **kw)
+                r.index(videos, context_bsz=TVR["context_bsz"])
+                want = r.search(qf, qm, k)
+                r.save_index(os.path.join(d, "idx"))
+                del r
+                r = Retriever(model, query_bsz=bsz, device=dev,
+                              mesh=loaded_on, stream_block=SERVE_MESH_BLOCK,
+                              **kw)
+                r.load_index(os.path.join(d, "idx"),
+                             context_bsz=TVR["context_bsz"])
+                got = r.search(qf, qm, k)
+                del r
+            tag = "mesh_to_single" if built_on is mesh else "single_to_mesh"
+            rec[tag] = {
+                "same_ids": bool(np.array_equal(got[1], want[1])),
+                "scores_bitwise": bool(np.array_equal(got[0], want[0]))}
+            if not all(rec[tag].values()):
+                fail(f"serving artifacts {name}, {mesh_name}, {tag}: "
+                     f"{rec[tag]}")
+        emit(rec)
+
+
+def phase_serving_mesh(dev, videos, queries) -> dict:
+    """Corpus-sharded serving at TVR scale (`Retriever(mesh=...)`, bf16
+    serving model, query batch 256, k 10) on a mesh of two shards on `dev`
+    and on `make_mesh()` (every GPU; a mesh of one on one GPU), each route
+    against the single-device Retriever on the same route, run in turns;
+    the one-branch twin; index artifacts across topologies. Returns each
+    path's launch counts."""
+    import torch
+
+    from dldkd_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    model = _serving_model("bfloat16", seed=6)
+    meshes = ((make_mesh(devices=[dev] * 2), f"2 shards on {dev}"),
+              (make_mesh(), f"{torch.cuda.device_count()} GPUs"))
+    launches = {}
+    saved_mode = os.environ.get("DLDKD_DENSE_RESCORE")
+    try:
+        for name, kw, mode, kernels, scorers in SERVE_MESH_ROUTES:
+            _pin_dense_rescore(mode)
+            single = _served(model, videos, queries, dev, None, kw)
+            for mesh, mesh_name in meshes:
+                _mesh_route(model, name, kw, mode, kernels, scorers, mesh,
+                            mesh_name, single, videos, queries, dev,
+                            launches)
+            del single
+    finally:
+        _pin_dense_rescore(saved_mode)
+    for mesh, mesh_name in meshes:
+        _mesh_one_branch(mesh, mesh_name, videos, queries, dev, launches)
+        _mesh_artifacts(model, mesh, mesh_name, videos, queries, dev)
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "serving_mesh", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 # -------------------------------------------------- slice 12: the benches
 
 # the kernels each in-process bench path must launch: stage_bench's
@@ -4377,8 +4646,9 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
     `fused_query_tower` and `fused_context_tower`) have their own entries,
     on stage_bench's one-branch rows, with the check at stage_bench's
     shapes (11,264 queries, 2,304 videos) and phase 3's beside it. Every
-    entry of a kernel that `phase_parallel` ran carries its launches on
-    each of that phase's paths (`parallel_launches`: the sharded evals,
+    entry of a kernel that `phase_parallel` or `phase_serving_mesh` ran
+    carries its launches on each of those paths (`parallel_launches`: the
+    sharded serving routes and their one-branch twin, the sharded evals,
     the one-branch twin, the NCCL world of one) and its check at the
     shapes the sharded evals give it (`parallel_check`)."""
     bench_launches, bench_checks = bench
@@ -4559,6 +4829,7 @@ def main() -> None:
         with tempfile.TemporaryDirectory(
                 prefix="chip_smoke_parallel_") as workdir:
             parallel = phase_parallel(workdir, dev, videos, queries)
+        parallel[0].update(phase_serving_mesh(dev, videos, queries))
         del videos, queries
         bench = phase_benches(dev, card)
         with tempfile.TemporaryDirectory(

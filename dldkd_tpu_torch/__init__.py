@@ -21,7 +21,7 @@ What is ported so far:
   and its int8 form (`--score_quant`: the video towers emit an int8 index,
   int8 scoring);
 - the corpus-streaming eval (`evaluate.eval_retrieval_streaming`);
-- serving on one GPU (`serving.Retriever`, `python -m
+- serving (`serving.Retriever`, `python -m
   dldkd_tpu_torch.serving`): exact search, two-stage search (int8
   shortlist, then exact rescoring by candidate gather or by a dense exact
   kernel) and int8-only search, on the encoded or the raw store, and index
@@ -38,14 +38,15 @@ What is ported so far:
   dldkd_tpu_torch.tools.bench`, one JSON line with the root bench.py's
   keys, their shapes from `tools/workload.py`;
 - several GPUs (`parallel/`): data-parallel training with the global
-  batch's losses under torchrun, and the corpus-sharded eval (resident,
-  streaming, int8) in the validation and `infer`.
-Every TPU kernel of the JAX package has a hand-written CUDA counterpart for
-Hopper (`csrc/`: masked-cosine, int8 and exact-rescore scoring; the query
-and video towers with the int8 epilogue and its transposed write), each
-with a plain PyTorch version and a launch counter beside it
-(`ops/kernels/`). Not ported yet: serving on a device mesh (ROADMAP
-A14 b).
+  batch's losses under torchrun, the corpus-sharded eval (resident,
+  streaming, int8) in the validation and `infer`, and corpus-sharded
+  serving (`Retriever(mesh=...)`) on every store and route, in one
+  process or under torchrun.
+Every module and every TPU kernel of the JAX package has a counterpart
+here; each kernel is hand-written CUDA for Hopper (`csrc/`: masked-cosine,
+int8 and exact-rescore scoring; the query and video towers with the int8
+epilogue and its transposed write), with a plain PyTorch version and a
+launch counter beside it (`ops/kernels/`).
 
 Entry points take an explicit `device` and run on "cuda" unless the caller
 asks for "cpu"; on the CPU every kernel wrapper uses its plain version.

@@ -29,10 +29,8 @@ from dldkd_tpu_torch.data import (BigFile, pack_query_set, pack_video_corpus,
 from dldkd_tpu_torch.data.ingest import dataset_paths, read_video_ids
 from dldkd_tpu_torch.evaluate import run_retrieval_eval
 from dldkd_tpu_torch.models import DLDKD
-from dldkd_tpu_torch.parallel import make_mesh
-from dldkd_tpu_torch.parallel.multihost import (maybe_initialize_distributed,
-                                                process_device,
-                                                process_group)
+from dldkd_tpu_torch.parallel.multihost import (default_mesh,
+                                                maybe_initialize_distributed)
 
 logger = logging.getLogger("dldkd_tpu_torch")
 
@@ -61,12 +59,7 @@ def _inference(cfg: Config, split: str, dev: torch.device):
 
     # the corpus sharded over the processes of a group, or over every
     # visible GPU of this process (dldkd_tpu/infer.py:60-68)
-    group = process_group()
-    mesh = None
-    if group is not None:
-        mesh = make_mesh(devices=[process_device(dev)], group=group)
-    elif dev.type == "cuda" and torch.cuda.device_count() > 1:
-        mesh = make_mesh()
+    mesh = default_mesh(dev)
     with torch.no_grad():
         metrics = run_retrieval_eval(model, videos, queries, cfg.eval,
                                      mesh=mesh, device=dev)

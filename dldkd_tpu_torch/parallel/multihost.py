@@ -71,6 +71,21 @@ def process_device(device) -> torch.device:
     return dev
 
 
+def default_mesh(device):
+    """The mesh an entry point shards its corpus over on `device`
+    (dldkd_tpu/infer.py:60-68): this process's device in the joined
+    process group, else every GPU when there are several, else None."""
+    from dldkd_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(device)
+    group = process_group()
+    if group is not None:
+        return make_mesh(devices=[process_device(dev)], group=group)
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        return make_mesh()
+    return None
+
+
 def collective_device(group) -> torch.device:
     """Where a collective's tensors live: this process's GPU under NCCL,
     the CPU otherwise."""

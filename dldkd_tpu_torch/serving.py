@@ -1,5 +1,5 @@
-"""Online retrieval serving on one GPU: device-resident top-k search (port
-of dldkd_tpu/serving.py, single device).
+"""Online retrieval serving: device-resident top-k search on one GPU or on
+a device mesh (port of dldkd_tpu/serving.py).
 
 Two index stores. 'encoded' (the default when it fits the device): the
 corpus is encoded once into a device-resident index; each query batch is
@@ -46,8 +46,20 @@ writes one JSON line per query: {"cap_id", "topk": [[video_id, score], ...]};
 (with .npz or .hdf5 queries no dataset flags), --prewarm LQ:K[,...],
 --aot_cache_dir DIR, --warm_start.
 
-Not ported: a device mesh (the sharded stores; raises naming ROADMAP
-A14 b).
+Corpus-sharded serving (`Retriever(mesh=parallel.Mesh)`, the JAX package's
+mesh route; built on its own over every GPU when the caller names no GPU
+and several are visible): the corpus rows are split into one contiguous
+range per shard (`_mesh_place`), each shard's store is built on its device
+as the single-device store is, each query batch is encoded once on the
+mesh's first device and copied to the others, each shard keeps its own top
+k, and the candidates merge on the first device in global row order, so
+equal scores keep the lower video index, as on one device. Over a process
+group (torchrun, one GPU a process) each rank builds its own shards and the
+ranks' candidates are all-gathered and merged in rank order. Artifacts hold
+canonical rows, so they cross between topologies.
+
+  mesh = make_mesh(devices=["cpu"] * 4)        # make_mesh(): every GPU
+  Retriever(model, mesh=mesh, device="cpu").index(videos)
 """
 
 from __future__ import annotations
@@ -62,6 +74,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from dldkd_tpu_torch import checkpoint as ckpt_lib
 from dldkd_tpu_torch import resolve_device
@@ -81,6 +95,11 @@ from dldkd_tpu_torch.ops.similarity import (clip_scores_maxpool,
                                             dense_rescore_wins,
                                             exact_clip_scores,
                                             rescore_shortlist)
+from dldkd_tpu_torch.parallel.mesh import Mesh, make_mesh
+from dldkd_tpu_torch.parallel.multihost import (collective_device,
+                                                default_mesh,
+                                                maybe_initialize_distributed,
+                                                process_device)
 from dldkd_tpu_torch.utils import index_io
 
 SHORTLIST_FACTOR = 4  # default stage-1 candidates per result (k' = 4k)
@@ -183,40 +202,173 @@ def _merge_block_topk(pairs, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return top, torch.gather(idx, 1, pos)
 
 
-def _search_q8(model, weights, q_feats, q_mask, q8_i, q8_e, q8_bias, k,
-               frames_i, frames_e, vmask, fusion, rescore=True,
-               shortlist_factor=SHORTLIST_FACTOR, plain=False):
-    """score_quant search of one query batch against the prebuilt int8
-    index: stage 1 straight on the index, then (rescore) stage 2 on the
-    stored frames, or the raw int8 top k."""
-    inher_q, explore_q = encode_query_best(model, q_feats, q_mask, weights,
-                                           plain)
+def _q8_topk(inher_q, explore_q, q8_i, q8_e, q8_bias, frames_i, frames_e,
+             vmask, fusion, k, k_out, rescore, shortlist_factor,
+             plain=False):
+    """Top k_out of encoded queries against a prebuilt int8 index: stage
+    1 straight on the index, then (rescore) stage 2 on the stored frames,
+    or the raw int8 top k_out."""
     s8 = _fuse(fusion, clip_scores_maxpool_pre8(inher_q, q8_i, q8_bias, plain),
                None if explore_q is None else clip_scores_maxpool_pre8(
                    explore_q, q8_e, q8_bias, plain))
     if rescore:
         return _rescore_stage2(s8, inher_q, explore_q, frames_i,
                                frames_e if explore_q is not None else None,
-                               vmask, fusion, k, k, shortlist_factor, plain)
-    return topk_lowest_index(s8, k)
+                               vmask, fusion, k, k_out, shortlist_factor,
+                               plain)
+    return topk_lowest_index(s8, k_out)
 
 
-def _search(model, weights, q_feats, q_mask, cn_inher, cn_explore, k, vmask,
-            fusion, plain=False):
-    """Exact search of one query batch against L2-normalized frames."""
-    inher_q, explore_q = encode_query_best(model, q_feats, q_mask, weights,
-                                           plain)
+def _exact_topk(inher_q, explore_q, cn_inher, cn_explore, vmask, fusion,
+                k_out, plain=False):
+    """Top k_out of encoded queries against L2-normalized frames."""
     scores = _fuse(fusion,
                    clip_scores_maxpool(inher_q, cn_inher, vmask,
                                        ctx_normalized=True, plain=plain),
                    None if explore_q is None else clip_scores_maxpool(
                        explore_q, cn_explore, vmask, ctx_normalized=True,
                        plain=plain))
-    return topk_lowest_index(scores, k)
+    return topk_lowest_index(scores, k_out)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is ROADMAP {item}, not ported")
+def _search_q8(model, weights, q_feats, q_mask, q8_i, q8_e, q8_bias, k,
+               frames_i, frames_e, vmask, fusion, rescore=True,
+               shortlist_factor=SHORTLIST_FACTOR, plain=False):
+    """score_quant search of one query batch against the prebuilt int8
+    index of one device."""
+    inher_q, explore_q = encode_query_best(model, q_feats, q_mask, weights,
+                                           plain)
+    return _q8_topk(inher_q, explore_q, q8_i, q8_e, q8_bias, frames_i,
+                    frames_e, vmask, fusion, k, k, rescore, shortlist_factor,
+                    plain)
+
+
+def _search(model, weights, q_feats, q_mask, cn_inher, cn_explore, k, vmask,
+            fusion, plain=False):
+    """Exact search of one query batch against L2-normalized frames of one
+    device."""
+    inher_q, explore_q = encode_query_best(model, q_feats, q_mask, weights,
+                                           plain)
+    return _exact_topk(inher_q, explore_q, cn_inher, cn_explore, vmask,
+                       fusion, k, plain)
+
+
+class _Shard:
+    """Shard `index` of a mesh store, on `device`: the corpus rows [lo, lo
+    + real), the real ones of its range (real 0: padding alone, no
+    arrays), and its arrays under the single-device store's names, local
+    row order. The raw store's rows are padded to whole stream blocks;
+    the encoded and int8 stores hold the real rows alone, so every
+    candidate is a real video."""
+
+    def __init__(self, index: int, device: torch.device, lo: int,
+                 real: int):
+        self.index, self.device, self.lo, self.real = index, device, lo, real
+        self.ctx_inher = self.ctx_explore = self.vmask = None
+        self.q8_inher = self.q8_explore = self.q8_bias = None
+        self.raw_feats = self.raw_mask = None
+
+
+def _build_q8(store, plain: bool) -> None:
+    """The stage-1 int8 index of a store's frames, built once
+    (`store`: the Retriever or a mesh shard)."""
+    store.q8_inher, store.q8_bias = build_q8_index(
+        quantize_frames_q8(store.ctx_inher, plain), store.vmask)
+    if store.ctx_explore is not None:
+        store.q8_explore = build_q8_index(
+            quantize_frames_q8(store.ctx_explore, plain), store.vmask)[0]
+
+
+def _build_q8_sharded(shards, plain: bool) -> None:
+    """Each shard's own int8 index from its frames, on its device (JAX
+    `_build_q8_sharded_jit`)."""
+    for sh in shards:
+        _build_q8(sh, plain)
+
+
+def _merge_shards(pairs, k: int, dev0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top k on dev0 of the shards' (scores, global indices) pairs,
+    given in global row order (shard, then block): equal scores keep the
+    lower video index, as one device breaks them."""
+    return _merge_block_topk([(v.to(dev0), i.to(dev0)) for v, i in pairs],
+                             k)
+
+
+def _search_sharded(queries, shards, k: int, fusion, dev0, plain=False):
+    """Exact search of one encoded query batch on the live shards of a
+    mesh store (JAX `_search_sharded_jit`): each shard's top min(k, rows)
+    of its L2-normalized frames, offset by its first row, merged on dev0.
+    `queries`: {device: (inher, explore or None)} on each shard device."""
+    pairs = []
+    for sh in shards:
+        vals, idx = _exact_topk(*queries[sh.device], sh.ctx_inher,
+                                sh.ctx_explore, sh.vmask, fusion,
+                                min(k, sh.real), plain)
+        pairs.append((vals, idx + sh.lo))
+    return _merge_shards(pairs, k, dev0)
+
+
+def _search_q8_sharded(queries, shards, k: int, fusion, dev0, rescore,
+                       shortlist_factor, plain=False):
+    """score_quant search of one encoded query batch on the live shards
+    (JAX `_search_q8_sharded_jit`): stage 1 on each shard's own int8
+    index, then (rescore) stage 2 on its frames, keeping min(k, rows)
+    candidates a shard; merged on dev0. The global top k is a subset of
+    the union of the shards' top k."""
+    pairs = []
+    for sh in shards:
+        vals, idx = _q8_topk(*queries[sh.device], sh.q8_inher,
+                             sh.q8_explore, sh.q8_bias, sh.ctx_inher,
+                             sh.ctx_explore, sh.vmask, fusion, k,
+                             min(k, sh.real), rescore, shortlist_factor,
+                             plain)
+        pairs.append((vals, idx + sh.lo))
+    return _merge_shards(pairs, k, dev0)
+
+
+def _encoded_block_topk_sharded(model, weights, queries, sh: _Shard, start,
+                                block: int, k: int, fusion, quantized,
+                                rescore, shortlist_factor, plain=False):
+    """Top min(k, rows) of rows [start, start + block) of a raw mesh
+    shard (JAX `_encoded_block_topk_sharded_jit`): the block through the
+    video towers on the shard's device, then `_block_topk_core` on its
+    real rows alone; indices global (the shard's first row + start +
+    local)."""
+    bm = sh.raw_mask[start:start + block]
+    ctx_i, ctx_e = encode_context_best(
+        model, sh.raw_feats[start:start + block].float(), bm, weights,
+        plain)
+    real = min(block, sh.real - start)
+    k_loc = min(k, real)
+    vals, idx = _block_topk_core(
+        *queries[sh.device], ctx_i[:real],
+        None if ctx_e is None else ctx_e[:real], bm[:real], fusion, k_loc,
+        k_loc, quantized, rescore, shortlist_factor, plain)
+    return vals, idx + sh.lo + start
+
+
+def _gather_ranks(t: torch.Tensor, group) -> torch.Tensor:
+    """Every rank's t (equal shapes) concatenated on the leading axis in
+    rank order, on t's device; sent as bytes, so any dtype crosses gloo
+    and NCCL alike."""
+    x = t.contiguous().view(torch.uint8).to(collective_device(group))
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts).view(t.dtype).to(t.device)
+
+
+def _merge_ranks(scores: torch.Tensor, idx: torch.Tensor, k: int, group
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global top k from each rank's (Nq, <= k) merged candidates:
+    padded to k columns that always lose, all-gathered, merged in rank
+    order (rank r holds the shards after rank r - 1's)."""
+    pad = k - scores.shape[1]
+    scores = F.pad(scores, (0, pad), value=-float("inf"))
+    idx = F.pad(idx, (0, pad))
+    nq, world = scores.shape[0], dist.get_world_size(group)
+    vals = _gather_ranks(scores, group).view(world, nq, k)
+    ids = _gather_ranks(idx, group).view(world, nq, k)
+    return _merge_block_topk(list(zip(vals, ids)), k)
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -235,7 +387,8 @@ def parse_prewarm(spec: str) -> List[Tuple[int, int]]:
 
 
 class Retriever:
-    """Device-resident corpus index and batched top-k search on one GPU."""
+    """Device-resident corpus index and batched top-k search, on one GPU or
+    sharded over a mesh."""
 
     def __init__(self, model: DLDKD, query_bsz: int = 256,
                  fusion: Tuple[float, float] = (0.7, 0.3),
@@ -259,6 +412,12 @@ class Retriever:
         or None / 'auto' (encoded when it fits the device, else raw).
         device: where the index lives and search runs ("cuda" unless told
         otherwise).
+        mesh: a `parallel.Mesh` to shard the corpus over (its first device
+        encodes the queries and merges the shards' candidates; a device=
+        other than that one raises). None: on a CUDA device given no index
+        with several GPUs visible, `make_mesh()` over all of them (the JAX
+        package's default); else one device. A mesh of one shard takes the
+        sharded route too, as in the JAX package.
         plain=True runs every kernel's plain PyTorch version instead, on
         any device: the reference side of a kernel check.
 
@@ -272,19 +431,38 @@ class Retriever:
         into and loaded from (`ops/kernels/build.set_build_dir`; default
         dldkd_tpu_torch/csrc/_build): a replica fleet points every replica
         at one directory, and the offline index build fills it."""
-        if mesh is not None:
-            raise _not_ported("a device mesh (corpus-sharded serving)",
-                              "A14 b")
         if index_store not in (None, "auto", "encoded", "raw"):
             raise ValueError(f"index_store: {index_store!r}")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh: want a parallel.Mesh, got "
+                            f"{type(mesh).__name__}")
+        if mesh is None:
+            dev = resolve_device(device)
+            if (dev.type == "cuda" and dev.index is None
+                    and torch.cuda.device_count() > 1):
+                mesh = make_mesh()
+                dev = mesh.devices[0]
+        else:
+            dev = process_device(resolve_device(mesh.devices[0]))
+            asked = torch.device(device if device is not None else dev)
+            if asked.type != dev.type or asked.index not in (None,
+                                                             dev.index):
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {dev}")
         if aot_cache_dir:
             from dldkd_tpu_torch.ops.kernels import build
 
             build.set_build_dir(aot_cache_dir)
-        self.device = resolve_device(device)
+        self.device = dev
+        self.mesh = mesh
         self.model = model.eval()
         self.plain = bool(plain)
-        self.weights = tower_weights(model, self.device)
+        # the towers' weights packed once per distinct device
+        self.device_weights = {
+            d: tower_weights(model, d) for d in dict.fromkeys(
+                [dev] if mesh is None
+                else [process_device(d) for d in mesh.devices])}
+        self.weights = self.device_weights[dev]
         self.query_bsz = int(query_bsz)
         self.score_quant = bool(score_quant)
         self.rescore = bool(rescore)
@@ -314,26 +492,66 @@ class Retriever:
         self.raw_feats = self.raw_mask = None
         # the stored frames are L2-normalized (the exact route's store)
         self.frames_normalized = False
+        # the int8 index alone, no frames (int8-only index or artifact)
+        self.q8_only = False
         self.video_ids: List[str] = []
+        # a mesh store: this process's shards, and the raw store's rows
+        # per shard
+        self.shards: List[_Shard] = []
+        self.raw_per_dev = 0
 
-    def auto_index_store(self, n_videos: int) -> str:
-        """'encoded' when the encoded index (frames in the tower dtype,
-        plus the int8 index beside them when rescoring, or the int8 index
-        alone without rescore) and its build transients fit the device's
-        free memory, else 'raw'. A device that reports no budget (the
-        CPU) keeps 'encoded'."""
-        budget = device_memory_budget(self.device)
-        if budget is None:
-            return "encoded"
+    def _mesh_place(self, n: int, per: int) -> List[_Shard]:
+        """This process's shards of an n-row corpus, shard s holding the
+        rows [s * per, (s + 1) * per) (JAX `_mesh_place`: the corpus
+        padded to per * mesh size rows, one contiguous range a shard;
+        `parallel.shard_rows` for per = ceil(n / size))."""
+        return [_Shard(s, process_device(d), s * per,
+                       max(0, min(per, n - s * per)))
+                for s, d in self.mesh.local_shards()]
+
+    def _live(self) -> List[_Shard]:
+        """The shards that hold real rows."""
+        return [sh for sh in self.shards if sh.real]
+
+    def _index_bytes(self, n_rows: int) -> int:
+        """Device bytes of an encoded index of n_rows videos (frames in
+        the tower dtype, plus the int8 index beside them when rescoring,
+        or the int8 index alone without rescore) and its build
+        transients."""
         mcfg = self.model.config
         itemsize = torch.tensor([], dtype=tower_dtype(mcfg)).element_size()
         if self.score_quant:
             itemsize = itemsize + 1 if self.rescore else 1
         hiddens = [mcfg.inheritance_hidden] + (
             [mcfg.exploration_hidden] if mcfg.double_branch else [])
-        ctx = sum(n_videos * mcfg.max_ctx_l * h * itemsize for h in hiddens)
-        need = 2 * ctx + 256 * 1024 * 1024
-        return "encoded" if need <= budget else "raw"
+        ctx = sum(n_rows * mcfg.max_ctx_l * h * itemsize for h in hiddens)
+        return 2 * ctx + 256 * 1024 * 1024
+
+    def auto_index_store(self, n_videos: int) -> str:
+        """'encoded' when the encoded index fits the free memory of every
+        device that holds it, else 'raw'. On a mesh each device holds
+        ceil(n / size) rows for each shard it carries (JAX
+        dldkd_tpu/serving.py:564-575, shards sharing a device counted
+        together), and the ranks of a process group agree on the store.
+        A device that reports no budget (the CPU) keeps 'encoded'."""
+        rows = {self.device: n_videos}
+        if self.mesh is not None:
+            per = -(-n_videos // self.mesh.size)
+            rows = {}
+            for _, d in self.mesh.local_shards():
+                d = process_device(d)
+                rows[d] = rows.get(d, 0) + per
+        raw = False
+        for d, r in rows.items():
+            budget = device_memory_budget(d)
+            raw |= budget is not None and self._index_bytes(r) > budget
+        if self.mesh is not None and self.mesh.group is not None:
+            flag = torch.tensor([int(raw)],
+                                device=collective_device(self.mesh.group))
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                            group=self.mesh.group)
+            raw = bool(flag.item())
+        return "raw" if raw else "encoded"
 
     @torch.no_grad()
     def index(self, videos: PackedVideos, context_bsz: int = 200) -> None:
@@ -347,37 +565,100 @@ class Retriever:
         self._reset_index()
         store = self.index_store or self.auto_index_store(len(videos))
         self.index_store = store
+        self.video_ids = list(videos.ids)
         if store == "raw":
             self._place_raw(videos.feats, videos.mask)
-            self.video_ids = list(videos.ids)
             return
-        args = (self.model, videos, context_bsz, self.device, self.weights,
-                self.plain)
-        if self.score_quant and not self.rescore:
-            self.q8_inher, self.q8_explore, self.q8_bias = \
-                embed_corpus_q8(*args)
+        self.q8_only = self.score_quant and not self.rescore
+        if self.mesh is not None:
+            self._index_sharded(videos, context_bsz)
         else:
-            ctx_i, ctx_e, self.vmask = embed_corpus(*args)
-            self._set_frames(ctx_i, ctx_e, normalized=False)
-        self.video_ids = list(videos.ids)
+            args = (self.model, videos, context_bsz, self.device,
+                    self.weights, self.plain)
+            if self.q8_only:
+                self.q8_inher, self.q8_explore, self.q8_bias = \
+                    embed_corpus_q8(*args)
+            else:
+                ctx_i, ctx_e, self.vmask = embed_corpus(*args)
+                self._set_frames(ctx_i, ctx_e, normalized=False)
+
+    def _index_sharded(self, videos: PackedVideos, context_bsz: int) -> None:
+        """The encoded mesh store (JAX dldkd_tpu/serving.py:640-672): each
+        shard's rows through the single-device build on its device, in
+        context_bsz batches, cut to the real rows: the int8 index alone
+        from the towers' epilogue (score_quant without rescore), or the
+        frames, then `_set_shard_frames`. Padding-only shards are
+        skipped."""
+        n = len(videos)
+        self.shards = self._mesh_place(n, -(-n // self.mesh.size))
+        frames = []
+        for sh in self._live():
+            part = PackedVideos(videos.feats[sh.lo:sh.lo + sh.real],
+                                videos.mask[sh.lo:sh.lo + sh.real],
+                                videos.ids[sh.lo:sh.lo + sh.real])
+            args = (self.model, part, context_bsz, sh.device,
+                    self.device_weights[sh.device], self.plain)
+            if self.q8_only:
+                rows_i, rows_e, bias = embed_corpus_q8(*args)
+                sh.q8_inher, sh.q8_bias = rows_i[:sh.real], bias[:sh.real]
+                sh.q8_explore = None if rows_e is None else rows_e[:sh.real]
+            else:
+                ctx_i, ctx_e, vmask = embed_corpus(*args)
+                frames.append((ctx_i[:sh.real], None if ctx_e is None
+                               else ctx_e[:sh.real], vmask[:sh.real]))
+        if frames:
+            self._set_shard_frames(frames, normalized=False)
+
+    def _set_shard_frames(self, frames, normalized: bool) -> None:
+        """Each live shard's encoded store from its (frames inher, frames
+        explore or None, mask) on its device, as `_set_frames` builds the
+        single-device one; two-stage then builds each shard's int8 index
+        (`_build_q8_sharded`)."""
+        for sh, (ctx_i, ctx_e, vmask) in zip(self._live(), frames):
+            sh.vmask = vmask
+            norm = ((lambda t: t) if normalized or self.score_quant
+                    else l2_normalize)
+            sh.ctx_inher = norm(ctx_i)
+            sh.ctx_explore = None if ctx_e is None else norm(ctx_e)
+        self.frames_normalized = normalized or not self.score_quant
+        if self.score_quant:
+            _build_q8_sharded(self._live(), self.plain)
 
     def _place_raw(self, feats, mask) -> None:
         """The raw store from (N, L, D) frame features (numpy, or a tensor
         in any float dtype) and their (N, L) mask: features in the model's
         compute dtype, padded with zero rows to a whole number of stream
-        blocks (dldkd_tpu/serving.py:589-612, one device), copied a block
-        at a time (no corpus-sized f32 copy on the device)."""
+        blocks (dldkd_tpu/serving.py:589-639), copied a block at a time
+        (no corpus-sized f32 copy on the device). On a mesh each shard
+        owns raw_per_dev rows, ceil(N / size) rounded up to whole blocks,
+        and holds its real ones, padded to whole blocks, on its device."""
+        n, sb = feats.shape[0], self.stream_block
+        if self.mesh is None:
+            self.raw_feats, self.raw_mask = self._raw_rows(feats, mask,
+                                                           self.device)
+            return
+        self.raw_per_dev = -(-(-(-n // self.mesh.size)) // sb) * sb
+        self.shards = self._mesh_place(n, self.raw_per_dev)
+        for sh in self._live():
+            rows = slice(sh.lo, sh.lo + sh.real)
+            sh.raw_feats, sh.raw_mask = self._raw_rows(feats[rows],
+                                                       mask[rows], sh.device)
+
+    def _raw_rows(self, feats, mask, device):
+        """(features in the compute dtype, f32 mask) of the rows on
+        `device`, zero rows appended up to whole stream blocks."""
         n, sb = feats.shape[0], self.stream_block
         n_pad = -(-n // sb) * sb
-        self.raw_feats = torch.zeros(
-            (n_pad,) + tuple(feats.shape[1:]),
-            dtype=tower_dtype(self.model.config), device=self.device)
-        self.raw_mask = torch.zeros((n_pad,) + tuple(mask.shape[1:]),
-                                    dtype=torch.float32, device=self.device)
+        raw_feats = torch.zeros((n_pad,) + tuple(feats.shape[1:]),
+                                dtype=tower_dtype(self.model.config),
+                                device=device)
+        raw_mask = torch.zeros((n_pad,) + tuple(mask.shape[1:]),
+                               dtype=torch.float32, device=device)
         for s in range(0, n, sb):
             block = _as_tensor(feats[s:s + sb])
-            self.raw_feats[s:s + block.shape[0]].copy_(block)
-        self.raw_mask[:n] = _as_tensor(mask).float()
+            raw_feats[s:s + block.shape[0]].copy_(block)
+        raw_mask[:n] = _as_tensor(mask).float()
+        return raw_feats, raw_mask
 
     def _set_frames(self, ctx_i, ctx_e, normalized: bool) -> None:
         """The encoded store from stored frames (Np, L, H) on the device
@@ -388,11 +669,7 @@ class Retriever:
         if self.score_quant:
             self.ctx_inher, self.ctx_explore = ctx_i, ctx_e
             self.frames_normalized = normalized
-            self.q8_inher, self.q8_bias = build_q8_index(
-                quantize_frames_q8(ctx_i, self.plain), self.vmask)
-            if ctx_e is not None:
-                self.q8_explore = build_q8_index(
-                    quantize_frames_q8(ctx_e, self.plain), self.vmask)[0]
+            _build_q8(self, self.plain)
         else:
             norm = (lambda t: t) if normalized else l2_normalize
             self.ctx_inher = norm(ctx_i)
@@ -436,6 +713,10 @@ class Retriever:
           q8_mask (Nv, L) uint8, canonical rows: the port's index is already
           in that layout.
         - 'raw': raw_feats in the compute dtype and raw_mask.
+        A mesh store writes the same canonical rows (`_q8_canonical_rows`,
+        `_raw_canonical_rows`), so an artifact does not depend on the
+        topology that built it; over a process group the ranks' rows are
+        gathered and rank 0 writes.
 
         prewarm: (lq, k) search signatures at this retriever's query_bsz,
         each run once now through this retriever's route (which builds the
@@ -446,55 +727,91 @@ class Retriever:
         package."""
         if not self.video_ids:
             raise RuntimeError("call index()/index_corpus() first")
-        if prewarm and self.q8_inher is None:
+        if prewarm and not self._has_q8_index():
             # before writing: the corpus arrays are the artifact's bulk
             raise ValueError("prewarm needs the prebuilt int8 index "
                              "(score_quant=True)")
-        stage = f"{path}.staging.{os.getpid()}"
-        shutil.rmtree(stage, ignore_errors=True)
-        os.makedirs(stage)
-        try:
-            self._write_index_stage(stage, prewarm)
-        except BaseException:
+        mode, arrays, meta = self._index_payload()
+        if prewarm:
+            meta["prewarm_signatures"] = self._prewarm(prewarm)
+        group = None if self.mesh is None else self.mesh.group
+        if group is None or dist.get_rank(group) == 0:
+            stage = f"{path}.staging.{os.getpid()}"
             shutil.rmtree(stage, ignore_errors=True)
-            raise
-        index_io.publish_dir(stage, path)
-
-    def _write_index_stage(self, stage: str,
-                           prewarm: Optional[List[Tuple[int, int]]]) -> None:
-        n = len(self.video_ids)
-        manifest: dict = {}
-        meta: dict = {}
-
-        def save(name, t):
-            index_io.save_array(stage, name, t[:n], manifest)
-
-        if self.index_store == "raw":
-            save("raw_feats", self.raw_feats)
-            save("raw_mask", self.raw_mask)
-            mode = "raw"
-        elif self.ctx_inher is None:   # int8-only
-            save("q8_rows_inher", self.q8_inher)
-            if self.q8_explore is not None:
-                save("q8_rows_explore", self.q8_explore)
-            save("q8_mask", (self.q8_bias == 0).to(torch.uint8))
-            mode = "q8"
-        else:
-            save("ctx_inher", self.ctx_inher)
-            if self.ctx_explore is not None:
-                save("ctx_explore", self.ctx_explore)
-            save("vmask", self.vmask)
-            mode = "encoded"
-            if self.frames_normalized:
-                meta["frames_normalized"] = True
-        meta.update(mode=mode, arrays=manifest, n_videos=n,
+            os.makedirs(stage)
+            try:
+                manifest: dict = {}
+                for name, t in arrays.items():
+                    index_io.save_array(stage, name, t, manifest)
+                index_io.write_meta(stage, dict(
+                    mode=mode, arrays=manifest, n_videos=len(self.video_ids),
                     video_ids=list(self.video_ids),
                     model_config=repr(self.model.config),
                     params_fingerprint=index_io.params_fingerprint(
-                        self.model))
-        if prewarm:
-            meta["prewarm_signatures"] = self._prewarm(prewarm)
-        index_io.write_meta(stage, meta)
+                        self.model), **meta))
+            except BaseException:
+                shutil.rmtree(stage, ignore_errors=True)
+                raise
+            index_io.publish_dir(stage, path)
+        if group is not None:
+            dist.barrier(group)
+
+    def _has_q8_index(self) -> bool:
+        """The store holds a prebuilt int8 index (score_quant, encoded)."""
+        return self.score_quant and self.index_store == "encoded"
+
+    def _index_payload(self):
+        """(mode, {array name: canonical rows}, meta.json extras) of the
+        built store."""
+        if self.index_store == "raw":
+            feats, mask = self._raw_canonical_rows()
+            return "raw", {"raw_feats": feats, "raw_mask": mask}, {}
+        if self.q8_only:
+            rows_i, rows_e, mask = self._q8_canonical_rows()
+            arrays = {"q8_rows_inher": rows_i, "q8_rows_explore": rows_e,
+                      "q8_mask": mask}
+            return "q8", {k: v for k, v in arrays.items()
+                          if v is not None}, {}
+        arrays = {name: self._canonical_rows(name)
+                  for name in ("ctx_inher", "ctx_explore", "vmask")}
+        return ("encoded", {k: v for k, v in arrays.items() if v is not None},
+                {"frames_normalized": True} if self.frames_normalized else {})
+
+    def _canonical_rows(self, name: str) -> Optional[torch.Tensor]:
+        """The store's array `name` as real rows in corpus order (None
+        where the store has none): one device's first n rows; on a mesh
+        the live shards' real rows concatenated in shard order on the CPU,
+        over a process group every rank's, gathered in rank order."""
+        if self.mesh is None:
+            t = getattr(self, name)
+            return None if t is None else t[:len(self.video_ids)]
+        parts = [getattr(sh, name) for sh in self._live()]
+        local = None if not parts or parts[0] is None else torch.cat(
+            [t[:sh.real].cpu() for t, sh in zip(parts, self._live())])
+        if self.mesh.group is None:
+            return local
+        every = [None] * self.mesh.n_processes
+        dist.all_gather_object(every, local, group=self.mesh.group)
+        every = [t for t in every if t is not None]
+        return torch.cat(every) if every else None
+
+    def _q8_canonical_rows(self):
+        """(rows inher (Nv, L, H) int8, rows explore or None, mask (Nv, L)
+        uint8) of the int8-only store, real rows in corpus order (JAX
+        `_q8_canonical_rows`): the device-count-independent artifact
+        payload; the mask comes back from the bias (0: a valid frame)."""
+        bias = self._canonical_rows("q8_bias")
+        return (self._canonical_rows("q8_inher"),
+                self._canonical_rows("q8_explore"),
+                (bias == 0).to(torch.uint8))
+
+    def _raw_canonical_rows(self):
+        """(features (Nv, L, D) in the compute dtype, mask (Nv, L) f32) of
+        the raw store in corpus order (JAX `_raw_canonical_rows`): a mesh
+        store's shards hold consecutive row ranges, so their real rows
+        concatenated are the corpus."""
+        return (self._canonical_rows("raw_feats"),
+                self._canonical_rows("raw_mask"))
 
     def _warm(self, lq: int, k: int) -> None:
         """One search of query_bsz zero queries of lq tokens at k."""
@@ -504,7 +821,7 @@ class Retriever:
 
     def _prewarm(self, signatures: List[Tuple[int, int]]) -> list:
         """Run each (lq, k) signature once; the manifest rows."""
-        if self.q8_inher is None:
+        if not self._has_q8_index():
             raise ValueError("prewarm needs the prebuilt int8 index "
                              "(score_quant=True)")
         rows = []
@@ -531,7 +848,7 @@ class Retriever:
     def load_index(self, path: str, strict: bool = True,
                    context_bsz: int = 200) -> None:
         """Restore a save_index artifact of either package instead of
-        encoding the corpus (dldkd_tpu/serving.py:958-1063, one device).
+        encoding the corpus (dldkd_tpu/serving.py:930-1063).
         strict=True refuses an artifact whose params fingerprint or model
         config differs from this retriever's (it would serve wrong
         results); strict=False loads it with a warning. Loading replaces
@@ -547,7 +864,12 @@ class Retriever:
         the epilogue kernel, as index() builds them. An int8-only artifact
         serves only score_quant=True, rescore=False: it has no frames;
         its rows are trimmed to the model's max_ctx_l frames where the
-        JAX package padded them to its frame tile with masked frames."""
+        JAX package padded them to its frame tile with masked frames.
+        On a mesh the rows are laid out again per shard, whatever topology
+        wrote them: each shard takes its real rows alone (the raw store:
+        padded to whole blocks), the exact frames are normalized and the
+        int8 indexes built per shard; over a process group each rank keeps
+        its own shards' rows."""
         meta = index_io.read_meta(path)
         if (meta["params_fingerprint"]
                 != index_io.params_fingerprint(self.model)
@@ -572,6 +894,7 @@ class Retriever:
             self._place_raw(arrays["raw_feats"], arrays["raw_mask"])
         elif mode == "q8":
             self.index_store = "encoded"
+            self.q8_only = True
             rows_i, mask = arrays["q8_rows_inher"], arrays["q8_mask"]
             rows_e = arrays.get("q8_rows_explore")
             l_model = self.model.config.max_ctx_l
@@ -579,12 +902,28 @@ class Retriever:
                 # the JAX index's frame-tile padding: masked frames only
                 rows_i, mask = rows_i[:, :l_model], mask[:, :l_model]
                 rows_e = None if rows_e is None else rows_e[:, :l_model]
+            if self.mesh is not None:
+                self._load_q8_sharded(rows_i, rows_e, mask)
+                self.video_ids = list(meta["video_ids"])
+                self._adopt_prewarm(meta)
+                return
             self.q8_inher = self._rows_on_device(rows_i.contiguous(), n_ctx)
             if rows_e is not None:
                 self.q8_explore = self._rows_on_device(rows_e.contiguous(),
                                                        n_ctx)
             self.q8_bias = q8_index_bias(
                 self._rows_on_device(mask.float(), n_ctx)).contiguous()
+        elif self.mesh is not None:
+            self.index_store = "encoded"
+            self.shards = self._mesh_place(n, -(-n // self.mesh.size))
+            ctx_e = arrays.get("ctx_explore")
+            self._set_shard_frames(
+                [(arrays["ctx_inher"][sh.lo:sh.lo + sh.real].to(sh.device),
+                  None if ctx_e is None
+                  else ctx_e[sh.lo:sh.lo + sh.real].to(sh.device),
+                  arrays["vmask"][sh.lo:sh.lo + sh.real].float()
+                  .to(sh.device)) for sh in self._live()],
+                normalized=bool(meta.get("frames_normalized", False)))
         else:
             self.index_store = "encoded"
             self.vmask = self._rows_on_device(arrays["vmask"].float(), n_ctx)
@@ -597,16 +936,57 @@ class Retriever:
         self.video_ids = list(meta["video_ids"])
         self._adopt_prewarm(meta)
 
+    def _load_q8_sharded(self, rows_i, rows_e, mask) -> None:
+        """Each live shard's int8 index from canonical int8 rows and their
+        mask: its real rows on its device, the bias rebuilt (no
+        quantization: the rows are the stored int8 values)."""
+        n = rows_i.shape[0]
+        self.shards = self._mesh_place(n, -(-n // self.mesh.size))
+        for sh in self._live():
+            rows = slice(sh.lo, sh.lo + sh.real)
+            sh.q8_inher = rows_i[rows].contiguous().to(sh.device)
+            sh.q8_explore = (None if rows_e is None
+                             else rows_e[rows].contiguous().to(sh.device))
+            sh.q8_bias = q8_index_bias(
+                mask[rows].float().to(sh.device)).contiguous()
+
     def _search_batch(self, f: torch.Tensor, m: torch.Tensor, k: int):
-        if self.q8_inher is not None:
-            return _search_q8(self.model, self.weights, f, m, self.q8_inher,
-                              self.q8_explore, self.q8_bias, k,
-                              self.ctx_inher, self.ctx_explore, self.vmask,
-                              self.fusion, self.rescore,
-                              self.shortlist_factor, self.plain)
-        return _search(self.model, self.weights, f, m, self.ctx_inher,
-                       self.ctx_explore, k, self.vmask, self.fusion,
-                       self.plain)
+        """The top k of one query batch: encoded once on self.device, then
+        scored on the single-device store or on every live shard."""
+        if self.mesh is None:
+            if self.q8_inher is not None:
+                return _search_q8(self.model, self.weights, f, m,
+                                  self.q8_inher, self.q8_explore,
+                                  self.q8_bias, k, self.ctx_inher,
+                                  self.ctx_explore, self.vmask, self.fusion,
+                                  self.rescore, self.shortlist_factor,
+                                  self.plain)
+            return _search(self.model, self.weights, f, m, self.ctx_inher,
+                           self.ctx_explore, k, self.vmask, self.fusion,
+                           self.plain)
+        q_i, q_e = encode_query_best(self.model, f, m, self.weights,
+                                     self.plain)
+        live = self._live()
+        if not live:
+            return self._no_candidates(f.shape[0])
+        queries = self._queries_on_shards(q_i, q_e)
+        if self.score_quant:
+            return _search_q8_sharded(queries, live, k, self.fusion,
+                                      self.device, self.rescore,
+                                      self.shortlist_factor, self.plain)
+        return _search_sharded(queries, live, k, self.fusion, self.device,
+                               self.plain)
+
+    def _queries_on_shards(self, q_i, q_e) -> dict:
+        """{shard device: (inher, explore or None)}: the encoded queries
+        copied once to each distinct device of this process's shards."""
+        return {d: (q_i.to(d), None if q_e is None else q_e.to(d))
+                for d in dict.fromkeys(sh.device for sh in self.shards)}
+
+    def _no_candidates(self, nq: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The (Nq, 0) result of a process whose shards are all padding."""
+        return (torch.empty((nq, 0), device=self.device),
+                torch.empty((nq, 0), dtype=torch.long, device=self.device))
 
     def _query_batches(self, q_feats: np.ndarray, q_mask: np.ndarray):
         """The queries in serving batches on the device, each padded to
@@ -626,13 +1006,14 @@ class Retriever:
 
     def _search_streaming(self, q_feats: np.ndarray, q_mask: np.ndarray,
                           k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Raw-store search (dldkd_tpu/serving.py:1065-1131, one device):
-        encode all queries first, in serving batches with the same
-        backpressure as the encoded store's search; then stream each raw
-        corpus block once through the video towers (a bf16 block widened
-        to f32, as the Pallas tower widens its input) and
-        `_block_topk_core` against every query; merge the blocks' top k.
-        One corpus pass per call, whatever the query count."""
+        """Raw-store search (dldkd_tpu/serving.py:1065-1131): encode all
+        queries first, in serving batches with the same backpressure as
+        the encoded store's search; then stream each raw corpus block once
+        through the video towers (a bf16 block widened to f32, as the
+        Pallas tower widens its input) and `_block_topk_core` against
+        every query; merge the blocks' top k. One corpus pass per call,
+        whatever the query count. On a mesh the blocks are each shard's
+        (`_sharded_raw_block_topks`)."""
         rows_i, rows_e, done = [], [], []
         for f, m in self._query_batches(q_feats, q_mask):
             # at most _SEARCH_INFLIGHT_BATCHES encodes pending: wait for
@@ -649,6 +1030,12 @@ class Retriever:
                 done[-1].record(torch.cuda.current_stream(self.device))
         inher_q = torch.cat(rows_i)
         explore_q = torch.cat(rows_e) if rows_e else None
+        if self.mesh is not None:
+            if not self._live():
+                return self._no_candidates(inher_q.shape[0])
+            return _merge_shards(self._sharded_raw_block_topks(
+                self._queries_on_shards(inher_q, explore_q), k), k,
+                self.device)
         sb = self.stream_block
         k_blk = min(k, sb)
         pairs = []
@@ -665,30 +1052,54 @@ class Retriever:
             del ctx_i, ctx_e   # one encoded block alive at a time
         return _merge_block_topk(pairs, k)
 
+    def _sharded_raw_block_topks(self, queries, k: int) -> list:
+        """Raw+mesh search (JAX `_sharded_raw_block_topks`): block j of
+        every live shard in turn through `_encoded_block_topk_sharded`;
+        the (scores, global indices) pairs in global row order (shard,
+        then block), so the merge breaks ties as one device does. (The
+        JAX package merges in (block, device) order, which can put a
+        higher video id first on an exact int8 tie.)"""
+        sb, live = self.stream_block, self._live()
+        pairs = {sh.index: [] for sh in live}
+        for start in range(0, max(sh.real for sh in live), sb):
+            for sh in live:
+                if start < sh.real:
+                    pairs[sh.index].append(_encoded_block_topk_sharded(
+                        self.model, self.device_weights[sh.device], queries,
+                        sh, start, sb, k, self.fusion, self.score_quant,
+                        self.rescore, self.shortlist_factor, self.plain))
+        return [p for sh in live for p in pairs[sh.index]]
+
     @torch.no_grad()
     def search(self, q_feats: np.ndarray, q_mask: np.ndarray, k: int = 10
                ) -> Tuple[np.ndarray, np.ndarray]:
         """(scores (Nq, k) f32, indices (Nq, k)) over the indexed corpus.
-        Queries are padded to the serving batch size internally."""
+        Queries are padded to the serving batch size internally. Over a
+        process group every rank calls it with the same queries and
+        returns the same result."""
         if not self.video_ids:
             raise RuntimeError("call index()/index_corpus() first")
         k = min(k, len(self.video_ids))
         n = q_feats.shape[0]
         if self.index_store == "raw":
-            scores, idx = self._search_streaming(q_feats, q_mask, k)
-            return scores.cpu().numpy()[:n], idx.cpu().numpy()[:n]
-        out: list = []
-        for f, m in self._query_batches(q_feats, q_mask):
-            # backpressure before this batch uploads: forcing the oldest
-            # un-fetched result drains its batch, so at most
-            # _SEARCH_INFLIGHT_BATCHES batches are pending on the device
-            if len(out) >= _SEARCH_INFLIGHT_BATCHES:
-                w = len(out) - _SEARCH_INFLIGHT_BATCHES
-                out[w] = tuple(t.cpu() for t in out[w])
-            out.append(self._search_batch(f, m, k))
-        scores = torch.cat([s.cpu() for s, _ in out]).numpy()[:n]
-        idx = torch.cat([i.cpu() for _, i in out]).numpy()[:n]
-        return scores, idx
+            scores, idx = (t.cpu() for t in self._search_streaming(
+                q_feats, q_mask, k))
+        else:
+            out: list = []
+            for f, m in self._query_batches(q_feats, q_mask):
+                # backpressure before this batch uploads: forcing the
+                # oldest un-fetched result drains its batch, so at most
+                # _SEARCH_INFLIGHT_BATCHES batches are pending on the
+                # device
+                if len(out) >= _SEARCH_INFLIGHT_BATCHES:
+                    w = len(out) - _SEARCH_INFLIGHT_BATCHES
+                    out[w] = tuple(t.cpu() for t in out[w])
+                out.append(self._search_batch(f, m, k))
+            scores = torch.cat([s.cpu() for s, _ in out])
+            idx = torch.cat([i.cpu() for _, i in out])
+        if self.mesh is not None and self.mesh.group is not None:
+            scores, idx = _merge_ranks(scores, idx, k, self.mesh.group)
+        return scores.numpy()[:n], idx.numpy()[:n]
 
     def search_ids(self, q_feats, q_mask, k: int = 10
                    ) -> List[List[Tuple[str, float]]]:
@@ -803,6 +1214,10 @@ def main(argv=None):
             p.error(f"--prewarm {args.prewarm!r}: expected LQ:K[,LQ:K...] "
                     "with integer fields")
 
+    # the corpus sharded over the processes of a group (torchrun), or over
+    # every visible GPU of this process (as infer.main shards its eval)
+    maybe_initialize_distributed(args.torch_device)  # no-op without torchrun
+    mesh = default_mesh(resolve_device(args.torch_device))
     r = Retriever.from_checkpoint(args.model_dir,
                                   score_quant=args.score_quant,
                                   rescore=not args.no_rescore,
@@ -811,7 +1226,7 @@ def main(argv=None):
                                   stream_block=args.stream_block,
                                   warm_start=args.warm_start,
                                   aot_cache_dir=args.aot_cache_dir or None,
-                                  device=args.torch_device)
+                                  mesh=mesh, device=args.torch_device)
     if args.load_index:
         r.load_index(args.load_index)
     else:
@@ -834,6 +1249,8 @@ def main(argv=None):
         cap_ids, feats, mask = q.cap_ids, q.feats, q.mask
 
     results = r.search_ids(feats, mask, args.k)
+    if mesh is not None and mesh.rank != 0:
+        return   # every rank holds the same results; rank 0 writes them
     out = sys.stdout if args.out == "-" else open(args.out, "w")
     for cap_id, topk in zip(cap_ids, results):
         out.write(json.dumps({"cap_id": cap_id, "topk": topk}) + "\n")

@@ -32,8 +32,11 @@ depend on feature values), for one policy:
 
 The process start is read from /proc/self/stat (the interpreter's start,
 before torch's import), or this module's import time where /proc is
-absent. `--mesh` raises NotImplementedError naming ROADMAP A14 b, as
-`Retriever(mesh=...)` does. Runs on the card unless `--torch_device cpu`.
+absent. `--mesh` runs the retriever on `make_mesh()` over every visible GPU
+(a mesh of one on a one-GPU machine, which still takes the sharded route;
+with `--torch_device cpu` a one-shard CPU mesh), as the JAX tool's
+`--mesh` does; the subprocess policies pass it on. Runs on the card unless
+`--torch_device cpu`.
 Prints one JSON line.
 """
 
@@ -89,7 +92,7 @@ def _filler_videos(n_videos: int):
 
 
 def _measure(policy: str, n_videos: int, n_queries: int,
-             device: str = "cuda") -> dict:
+             device: str = "cuda", use_mesh: bool = False) -> dict:
     t0 = _process_start()
 
     def mark(what):
@@ -99,6 +102,7 @@ def _measure(policy: str, n_videos: int, n_queries: int,
     import numpy as np
 
     from dldkd_tpu_torch.ops.kernels import build
+    from dldkd_tpu_torch.parallel import make_mesh
     from dldkd_tpu_torch.serving import Retriever
     from dldkd_tpu_torch.tools import workload as wl
     from dldkd_tpu_torch.utils import index_io
@@ -130,9 +134,13 @@ def _measure(policy: str, n_videos: int, n_queries: int,
     kernel_dir = (os.path.expanduser(KERNEL_DIR)
                   if policy in ("aot", "artifact") else cold_dir)
     try:
+        # the timed route is the sharded one, the default on a host with
+        # several GPUs
+        mesh = (None if not use_mesh else make_mesh() if device == "cuda"
+                else make_mesh(devices=[device]))
         r = Retriever(model, query_bsz=256, score_quant=True, rescore=True,
                       warm_start=(policy == "warm"),
-                      aot_cache_dir=kernel_dir, device=device)
+                      aot_cache_dir=kernel_dir, mesh=mesh, device=device)
         t_index0 = time.time()
         if have_artifact:
             r.load_index(artifact_dir)
@@ -168,7 +176,8 @@ def _command(policy: str, args) -> list:
     return [sys.executable, "-m", "dldkd_tpu_torch.tools.coldstart_bench",
             "--policy", policy, "--n_videos", str(args.n_videos),
             "--n_queries", str(args.n_queries),
-            "--torch_device", args.torch_device]
+            "--torch_device", args.torch_device] + (
+                ["--mesh"] if args.mesh else [])
 
 
 def main(argv=None):
@@ -193,14 +202,11 @@ def main(argv=None):
     p.add_argument("--replicas", type=int, default=4,
                    help="fleet mode: number of fresh replica processes")
     p.add_argument("--mesh", action="store_true",
-                   help="a device mesh: not ported (ROADMAP A14 b), raises")
+                   help="run on a mesh over every visible GPU (a mesh of "
+                        "one on a one-GPU machine), so the timed route is "
+                        "the sharded one")
     p.add_argument("--torch_device", default="cuda", choices=("cuda", "cpu"))
     args = p.parse_args(argv)
-    if args.mesh:
-        from dldkd_tpu_torch.serving import _not_ported
-
-        raise _not_ported("a device mesh (corpus-sharded serving)",
-                          "A14 b")
 
     if args.policy == "fleet":
         # one build process saves the prewarmed artifact and fills the
@@ -273,7 +279,7 @@ def main(argv=None):
         return results
 
     out = _measure(args.policy, args.n_videos, args.n_queries,
-                   args.torch_device)
+                   args.torch_device, args.mesh)
     print(json.dumps(out))
     return out
 

@@ -915,3 +915,41 @@ def test_sharded_eval_on_card_matches_single_device(dev, score_quant,
         evaluate.run_retrieval_eval(
             model, videos, queries,
             dataclasses.replace(cfg, corpus_stream_bsz=-1), device=dev)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(score_quant=True), dict(score_quant=True, rescore=False),
+    dict(index_store="raw"), dict(index_store="raw", score_quant=True),
+    dict(index_store="raw", score_quant=True, rescore=False)],
+    ids=["exact", "two_stage", "int8", "raw_exact", "raw_two_stage",
+         "raw_int8"])
+def test_sharded_serving_on_card_matches_single_device(dev, kw,
+                                                       monkeypatch):
+    """A mesh of two shards on the card against the single-device
+    Retriever on each route (stage 2 pinned to the dense kernel): ids
+    equal, scores within 1e-5."""
+    from dldkd_tpu_torch.parallel import make_mesh
+
+    monkeypatch.setenv("DLDKD_DENSE_RESCORE", "always")
+    cfg = ModelConfig(visual_input_size=48, query_input_size=32,
+                      inheritance_hidden=64, exploration_hidden=64,
+                      max_ctx_l=16, max_desc_l=8, n_heads=4,
+                      double_branch=True, dtype="bfloat16")
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(17))
+    rng = np.random.RandomState(18)
+    mask = (np.arange(16)[None] < rng.randint(3, 17, 45)[:, None]
+            ).astype(np.float32)
+    videos = PackedVideos(feats=rng.randn(45, 16, 48).astype(np.float32),
+                          mask=mask, ids=[f"v{i}" for i in range(45)])
+    qf = rng.randn(30, 8, 32).astype(np.float32)
+    qm = np.ones((30, 8), np.float32)
+    kw = dict(kw, query_bsz=16, stream_block=8)
+    single = serving.Retriever(model, device="cuda", **kw)
+    single.index(videos, context_bsz=16)
+    want = single.search(qf, qm, k=7)
+    r = serving.Retriever(model, device="cuda", **kw,
+                          mesh=make_mesh(devices=[dev, dev]))
+    r.index(videos, context_bsz=16)
+    got = r.search(qf, qm, k=7)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=0)

@@ -1,7 +1,7 @@
 """Worker of tests/test_torch_parallel.py's gloo worlds; it holds no test.
 
 Usage: python tests/test_torch_parallel_worker.py <world> <rank> <port> \
-           step <dir> | cycle <data_root> <results_root>
+           step <dir> | cycle <data_root> <results_root> | serve <dir>
 
 With world > 1 each process joins a gloo group on localhost:<port>
 through `maybe_initialize_distributed` (torchrun's variables set here);
@@ -18,6 +18,12 @@ Modes:
   cycle  the whole training run (`train.start_training`) on a dataset:
          2 epochs with per-epoch validation, then a run whose preemption
          guard is latched on rank 0 only.
+  serve  corpus-sharded serving over the group, two shards a process
+         (tests/test_torch_serving_mesh.py): for each route of
+         <dir>/spec.json, the model <dir>/model.pt indexes the corpus of
+         <dir>/data.npz and searches its queries, saves the index to
+         <dir>/group_<route>, then loads <dir>/single_<route> and searches
+         again.
 """
 
 import functools
@@ -131,6 +137,47 @@ def _group_eval(d, spec, group):
     return out
 
 
+def _serve_mode(d):
+    """{route: {"built" | "loaded": {"ids", "scores"}}} of the group's
+    Retriever on each route."""
+    import numpy as np
+    import torch
+
+    from dldkd_tpu_torch.config import ModelConfig
+    from dldkd_tpu_torch.data.ingest import PackedVideos
+    from dldkd_tpu_torch.models import DLDKD
+    from dldkd_tpu_torch.parallel import make_mesh
+    from dldkd_tpu_torch.parallel.multihost import process_group
+    from dldkd_tpu_torch.serving import Retriever
+
+    with open(os.path.join(d, "spec.json")) as f:
+        spec = json.load(f)
+    data = np.load(os.path.join(d, "data.npz"))
+    videos = PackedVideos(feats=data["feats"], mask=data["mask"],
+                          ids=[f"v{i}" for i in range(len(data["feats"]))])
+    model = DLDKD(ModelConfig(**spec["model"]))
+    model.load_state_dict(torch.load(os.path.join(d, "model.pt")))
+    mesh = make_mesh(devices=["cpu", "cpu"], group=process_group())
+    out = {}
+    for route, kw in spec["routes"].items():
+        mode = spec["modes"][route]
+        if mode is None:
+            os.environ.pop("DLDKD_DENSE_RESCORE", None)
+        else:
+            os.environ["DLDKD_DENSE_RESCORE"] = mode
+        r = Retriever(model.eval(), mesh=mesh, device="cpu", **kw)
+        out[route] = {}
+        r.index(videos)
+        for what in ("built", "loaded"):
+            scores, ids = r.search(data["qf"], data["qm"], spec["k"])
+            out[route][what] = {"ids": ids.tolist(),
+                                "scores": scores.tolist()}
+            if what == "built":
+                r.save_index(os.path.join(d, f"group_{route}"))
+                r.load_index(os.path.join(d, f"single_{route}"))
+    return out
+
+
 class _Messages(logging.Handler):
     def __init__(self):
         super().__init__(logging.INFO)
@@ -218,6 +265,8 @@ def main():
     group = process_group()
     if mode == "step":
         out = _step_mode(rank, group, sys.argv[5])
+    elif mode == "serve":
+        out = _serve_mode(sys.argv[5])
     else:
         out = _cycle_mode(rank, sys.argv[5], sys.argv[6])
     out["rank"] = rank

@@ -203,17 +203,24 @@ def test_rescore_stage2_and_two_stage_topk_match_jax(clustered, monkeypatch):
 
 
 def test_unported_serving_routes_raise(clustered):
-    """The raw store (tests/test_torch_streaming.py), index artifacts,
-    prewarm, warm start and the kernel-library directory
-    (tests/test_torch_index_artifacts.py) are ported; a mesh (A14) still
-    raises, on either store. The CLI still refuses, at argparse time, a
-    run with no queries and no --save_index, and one with no dataset to
-    index."""
+    """Every route is ported: the raw store (tests/test_torch_streaming.py),
+    index artifacts, prewarm, warm start and the kernel-library directory
+    (tests/test_torch_index_artifacts.py), a mesh
+    (tests/test_torch_serving_mesh.py). A mesh that is not a
+    `parallel.Mesh`, or a device other than the mesh's first, is refused
+    on either store. The CLI still refuses, at argparse time, a run with
+    no queries and no --save_index, and one with no dataset to index."""
+    from dldkd_tpu_torch.parallel import make_mesh
+
     _, _, _, model, _, _, _ = clustered
     for kw in (dict(mesh=object()), dict(index_store="raw", mesh=object()),
                dict(mesh=object(), warm_start=True, score_quant=True)):
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             serving.Retriever(model, device="cpu", **kw)
+    for kw in (dict(), dict(index_store="raw")):
+        with pytest.raises(ValueError, match="first device"):
+            serving.Retriever(model, device="cuda", **kw,
+                              mesh=make_mesh(devices=["cpu"] * 2))
     with pytest.raises(ValueError, match="index_store"):
         serving.Retriever(model, device="cpu", index_store="bogus")
     base = ["--model_dir", "/nonexistent", "--root_path", "/nonexistent",

@@ -6,7 +6,7 @@
   errors, all green, a replica timeout) and `--policy both`: the port's
   `coldstart_bench.main` and the JAX tool's, with the same stubbed
   subprocess results, print the same JSON (their command lines differ by
-  the module); `--mesh` raises naming ROADMAP A14.
+  the module); `--mesh` runs on a one-shard CPU mesh.
 - Each tool's `main` at a tiny count (a few videos and queries, the
   published widths) with `--torch_device cpu`: one JSON line with the JAX
   tool's keys or rows.
@@ -207,10 +207,26 @@ def test_fleet_and_both_equal_the_jax_tool(scenario, monkeypatch, tmp_path,
         assert p[3:9] == j[3:9]   # the policy and the corpus size
 
 
-def test_mesh_raises_naming_a14():
-    with pytest.raises(NotImplementedError, match="A14"):
-        coldstart_bench.main(["--policy", "cold", "--mesh",
-                              "--torch_device", "cpu"])
+def test_mesh_raises_naming_a14(capsys, monkeypatch, tmp_path):
+    """--mesh runs the retriever on a one-shard CPU mesh (the sharded
+    route) and prints the policy's JSON line."""
+    monkeypatch.setenv("HOME", str(tmp_path))
+    built = []
+    real = coldstart_bench._measure
+
+    def measure(*args):
+        built.append(args[-1])
+        return real(*args)
+
+    monkeypatch.setattr(coldstart_bench, "_measure", measure)
+    out = coldstart_bench.main(["--policy", "cold", "--mesh", "--n_videos",
+                                "12", "--n_queries", "3", "--torch_device",
+                                "cpu"])
+    assert built == [True]
+    assert json.loads(capsys.readouterr().out.strip()) == out
+    assert set(out) == {"policy", "first_result_s", "index_s",
+                        "first_search_s"}
+    assert out["first_result_s"] >= out["first_search_s"] > 0
 
 
 # -------------------------------------------------- each tool, tiny, CPU
