@@ -39,7 +39,14 @@ package. Phases, in order; any failure exits non-zero without the final
    (torch.profiler), without the host's time between launches; then the
    towers at the shapes the kernels once refused (sequences of 136 and 300
    rows, an input width of 44 with hidden 36 in 4 heads, one 256-dim head),
-   both kinds, both dtypes, against their plain versions; then the int8
+   both kinds, both dtypes, against their plain versions (the query tower
+   also on 136 tokens at the serving width, through `_tower_check`); then
+   the towers' LayerNorms and pooling in the whole-row products'
+   epilogues (`phase_epilogues`, `tools/tower_epilogues.py`): each fused
+   product against the same product without them, its rows against the
+   plain LayerNorm and pooling of that product's rows, and
+   `torch.nn.functional.layer_norm` on the same rows as the LayerNorm's
+   yardstick (`library_ms`, never called by the port); then the int8
    epilogue's transposed write (`q8_transposed`, the rows padded into the
    TPU scoring layout (L_p, Nv_p, H)) at 2,048 videos in both dtypes,
    bitwise against its plain version, through the towers and alone, with
@@ -58,7 +65,10 @@ package. Phases, in order; any failure exits non-zero without the final
    wall time, peak memory and launch counts; one more pass of each under
    torch.profiler (device time by kernel, device idle share); then the
    kernel path's score matrices and fused SumR against the plain path's
-   (f32: SumR equal, and no SIMT product (`gemm_kernel`) in the profile);
+   (f32: SumR equal, and no SIMT product (`gemm_kernel`) in the profile;
+   every profiled eval fails on a separate LayerNorm or pooling kernel,
+   or on tower kernels other than 5 per query-tower launch, 6 per
+   video-tower launch and 1 per int8 epilogue);
    then corpus streaming at the same scale (`phase_streaming`): each
    kernel at the streaming shapes against its plain version (the four
    scorers with all 10,895 queries against a 512-video block, timed also
@@ -392,7 +402,7 @@ def phase_build():
           "libraries": {k: str(v) for k, v in libs.items()}})
 
 
-def _serving_model(dtype: str, seed: int):
+def _serving_model(dtype: str, seed: int, tokens: int = TVR["tokens"]):
     import torch
 
     from dldkd_tpu_torch.config import ModelConfig
@@ -402,7 +412,7 @@ def _serving_model(dtype: str, seed: int):
                       query_input_size=TVR["d_query"],
                       inheritance_hidden=TVR["hidden"],
                       exploration_hidden=TVR["hidden"],
-                      max_ctx_l=TVR["frames"], max_desc_l=TVR["tokens"],
+                      max_ctx_l=TVR["frames"], max_desc_l=tokens,
                       n_heads=TVR["heads"], double_branch=True, dtype=dtype)
     model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(seed))
     return model.eval()
@@ -447,11 +457,16 @@ def _tower_products(n, l, d, h, branches, kind, dtype, gen, dev):
     return run
 
 
-def _mma_smem(l: int, h: int, heads: int, dtype: str) -> dict:
+def _mma_smem(l: int, h: int, heads: int, dtype: str,
+              kind: str = "context") -> dict:
     """Dynamic shared memory per block of csrc/tower_mma.cu's kernels at a
     launch's shapes (their launchers' formulas): the GEMM's 1 KB of
-    alignment slack and 3 stages of (64 or 128 rows + 128 columns) x 128
-    bytes, plus for f32 one more such tile for a stage's small TF32 parts;
+    alignment slack and a ring of (64 or 128 rows + 128 columns) x 128
+    bytes a tile, 3 stages in bf16, 2 stages and a tile for a stage's small
+    TF32 parts in f32; the whole-row products' blocks add their rows'
+    statistics (8 bytes a row), pooling (query) the block's logits (its
+    rows or L floats) and a warp's staging row of the branch's padded
+    width where it does not fit the ring beside the row tile;
     attention's query tile (32 rows up to L = 32, else 128, or 64 above 128
     dims per head) and K and V key tiles (bf16 as the query tile, f32 32
     rows), each at most L rounded to 16 rows of the head's depth (bf16:
@@ -461,14 +476,23 @@ def _mma_smem(l: int, h: int, heads: int, dtype: str) -> dict:
         return -(-v // m) * m
 
     f32 = dtype == "float32"
-    elem, tiles = (4, 4) if f32 else (2, 3)
+    elem, tiles = (4, 3) if f32 else (2, 3)
     dh = r(h // heads, 8)
     depth = dh if f32 else r(dh, 16)
     tile = 32 if l <= 32 else (64 if depth > 128 else 128)
     keys = 32 if f32 else tile
     ld = (depth + 16 // elem) * elem
+    def rows(bm):  # csrc/tower_mma.cu, rows_smem
+        ring = tiles * (bm + 128) * 128
+        stage = bm // 16 * r(h, 8) * elem
+        fits = stage <= ring - bm * 136 * elem
+        return (1024 + ring + 8 * bm
+                + (4 * r(max(bm, l), 4) if kind == "query" else 0)
+                + (0 if fits else stage))
+
     return {"gemm_64_rows": 1024 + tiles * (64 + 128) * 128,
             "gemm_128_rows": 1024 + tiles * (128 + 128) * 128,
+            "gemm_rows_64_rows": rows(64), "gemm_rows_128_rows": rows(128),
             "attention": (min(tile, r(l, 16)) + 2 * min(keys, r(l, 16))) * ld
             + keys * 4}
 
@@ -532,7 +556,7 @@ def _tower_check(kind, dtype, branches, shape, lp, packed, run, plain,
            "kernel_ms": cuda_ms(chain), "device_ms": device_ms(chain),
            "wrapper_ms": cuda_ms(run), "plain_ms": cuda_ms(plain, n=n_plain),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, **extra,
-           "mma_smem_bytes": _mma_smem(lp, h, TVR["heads"], dtype)}
+           "mma_smem_bytes": _mma_smem(lp, h, TVR["heads"], dtype, kind)}
     if f32:  # the replaced SIMT chain's rule
         rec["bound_ms_f32_fma"] = bound(n_bytes, flops, "float32")[0]
     emit(rec)
@@ -607,19 +631,24 @@ def phase_kernels(dev):
         del cn
 
         # ---- kernels 2 and 3: the towers, both branches and one branch;
-        # in bf16 the query tower also at serving's 256 queries
+        # in bf16 the query tower also at serving's 256 queries; then the
+        # query tower on 136 tokens (a model with that positional table),
+        # whose pooling walks three 64-row tiles of each query
         model = _serving_model(dtype, seed=2)
         ws = tower_weights(model, dev)
-        cases = [("query", nq, TVR["tokens"], TVR["d_query"]),
-                 ("context", TVR["context_bsz"], lf, TVR["d_video"])]
+        ws136 = tower_weights(_serving_model(dtype, seed=2, tokens=136), dev)
+        cases = [("query", nq, TVR["tokens"], TVR["d_query"], ws, (2, 1)),
+                 ("context", TVR["context_bsz"], lf, TVR["d_video"], ws,
+                  (2, 1)),
+                 ("query", nq, 136, TVR["d_query"], ws136, (2,))]
         if dtype == "bfloat16":
             cases.insert(1, ("query", SERVE["query_bsz"], TVR["tokens"],
-                             TVR["d_query"]))
-        for kind, n, l, d in cases:
+                             TVR["d_query"], ws, (2, 1)))
+        for kind, n, l, d, ws, branch_counts in cases:
             x = torch.randn(n, l, d, generator=gen)
             x = (x / x.norm(dim=-1, keepdim=True)).to(dev)
             xm = _ragged_mask(n, l, 3, gen, dev)
-            for branches in (2, 1):
+            for branches in branch_counts:
                 w = ws[kind][:branches]
                 packed = qt.pack_weights(w, tdt, TVR["heads"], dev)
                 if kind == "query":
@@ -627,10 +656,10 @@ def phase_kernels(dev):
                     xp = torch.nn.functional.pad(x, (0, 0, 0, lp - l))
                     mp = torch.nn.functional.pad(xm, (0, lp - l))
                     run = (lambda: qt.query_towers(
-                        x, xm, w, TVR["heads"], tdt, TVR["tokens"], "check",
+                        x, xm, w, TVR["heads"], tdt, l, "check",
                         packed=packed))
                     plain = (lambda: qt.query_towers(
-                        x, xm, w, TVR["heads"], tdt, TVR["tokens"], "check",
+                        x, xm, w, TVR["heads"], tdt, l, "check",
                         plain=True))
                 else:
                     lp, xp, mp = l, x, xm
@@ -647,10 +676,13 @@ def phase_kernels(dev):
                     # yardstick only: the products alone, torch.matmul
                     product_ms=cuda_ms(_tower_products(
                         n, lp, d, h, branches, kind, tdt, gen, dev)))
-                results[(rec["check"], dtype, branches)
-                        if n != SERVE["query_bsz"]
-                        else (rec["check"], dtype, branches, n)] = rec
-        del model, ws
+                key = (rec["check"], dtype, branches)
+                if n == SERVE["query_bsz"]:
+                    key += (n,)
+                elif l == 136:
+                    key += ("L136",)
+                results[key] = rec
+        del model, ws, ws136
         torch.cuda.empty_cache()
     return results
 
@@ -715,6 +747,52 @@ def phase_tower_shapes(dev):
                          f"{err} (tol {tol}), finite {finite}")
             del model, tw
     torch.cuda.empty_cache()
+
+
+def phase_epilogues(dev) -> dict:
+    """The towers' LayerNorms and pooling in the whole-row products'
+    epilogues (`tools/tower_epilogues.py`), per launch at the eval's and
+    serving's shapes in both dtypes: each fused product (`tower_gemm_ln`)
+    timed against the same product without them (`tower_gemm_mma`), their
+    difference the epilogue's cost; its rows against the plain LayerNorm
+    and pooling of the plain product's rows (every value within one
+    rounding of the tower dtype: `tower_epilogues.ROUNDING`); one
+    `torch.nn.functional.layer_norm` on the same rows as the LayerNorm's
+    yardstick and the bytes bound of a separate LayerNorm pass. Returns
+    {(kind, n, dtype): records}."""
+    import torch
+
+    from dldkd_tpu_torch.tools import tower_epilogues as te
+
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        packed = te._packed(dtype, dev)
+        for kind, n, l, d in te.SHAPES:
+            recs = te.case_records(kind, n, l, d, dtype, packed[kind])
+            for rec in recs:
+                emit({"check": "tower_epilogue", **rec})
+                if "vs_plain" in rec \
+                        and not rec["vs_plain"]["within_one_rounding"]:
+                    fail(f"tower epilogue {rec['what']} {kind} {n} {dtype}: "
+                         f"{rec['vs_plain']} against the plain version")
+            out[(kind, n, dtype)] = recs
+        del packed
+    torch.cuda.empty_cache()
+    return out
+
+
+def _epilogue_brief(recs) -> dict:
+    """The step-1 rows of one tower launch for the kernels line: per fused
+    product its time with and without the epilogue (CUDA events and device
+    time), and the LayerNorm's yardstick and bound."""
+    proj, outp, ln = recs[:3]
+    keep = ("gemm_mma", "gemm_ln", "epilogue_ms", "epilogue_device_ms",
+            "vs_plain")
+    return {"projection_layernorm": {k: proj[k] for k in keep},
+            "output_layernorm" + ("_pool" if proj["kind"] == "query"
+                                  else ""): {k: outp[k] for k in keep},
+            "layernorm_library_ms": ln["library_ms"],
+            "layernorm_pass_bound_ms": ln["bound_ms"]}
 
 
 def _write_run(run_dir: str, root: str, dtype: str, seed: int) -> None:
@@ -861,10 +939,12 @@ def _short_kernel_name(name: str) -> str:
             if inst in name:
                 return short
         return "sim_max_kernel"
-    # gemm_kernel: a SIMT product, which the f32 profile must not show
-    for k in ("gemm_mma_kernel", "attention_mma_kernel", "normalize_kernel",
-              "gemm_kernel", "layernorm_kernel", "pool_kernel",
-              "quantize_q8_kernel"):
+    # gemm_kernel: a SIMT product, which the f32 profile must not show;
+    # layernorm_kernel, pool_kernel: separate LayerNorm and pooling passes,
+    # which no profile may show (UNFUSED_EPILOGUES)
+    for k in ("gemm_mma_kernel", "gemm_rows_kernel", "attention_mma_kernel",
+              "normalize_kernel", "gemm_kernel", "layernorm_kernel",
+              "pool_kernel", "quantize_q8_kernel"):
         if k in name:
             return k
     if name.startswith("Memcpy") or name.startswith("Memset"):
@@ -872,9 +952,18 @@ def _short_kernel_name(name: str) -> str:
     return "other: " + name[:60]
 
 
-# the towers' kernels as _short_kernel_name names them
-TOWER_KERNELS = ("normalize_kernel", "gemm_mma_kernel", "attention_mma_kernel",
-                 "layernorm_kernel", "pool_kernel", "quantize_q8_kernel")
+# the towers' kernels as _short_kernel_name names them: a query-tower
+# launch runs 5 (normalize, gemm_rows for the projection and its
+# LayerNorm, gemm_mma for Q|K|V, attention, gemm_rows for the output
+# product, its LayerNorm and the pooling), a video-tower launch 6 (the
+# second gemm_rows without pooling, then gemm_mma for out_mapping), and
+# each int8 epilogue (tower or standalone) one quantize_q8
+TOWER_KERNELS = ("normalize_kernel", "gemm_mma_kernel", "gemm_rows_kernel",
+                 "attention_mma_kernel", "quantize_q8_kernel")
+KERNELS_PER_LAUNCH = {"query_tower": 5, "context_tower": 6,
+                      "context_tower_q8": 1, "context_tower_q8_t": 1}
+# the LayerNorm and pooling passes that the products' epilogues replaced
+UNFUSED_EPILOGUES = ("layernorm_kernel", "pool_kernel")
 
 
 def profile_eval(model, videos, queries, dev, score_quant=False,
@@ -884,7 +973,9 @@ def profile_eval(model, videos, queries, dev, score_quant=False,
     per query-tower launch): device time by kernel, the towers' and the
     scorers', the host-to-device copies' and how much of it ran while a
     kernel ran, and the share of the wall time in which no kernel or copy
-    ran."""
+    ran. Fails if a separate LayerNorm or pooling kernel ran, or if the
+    towers' kernels are not KERNELS_PER_LAUNCH of the tower launches the
+    eval counted (5 a query tower, 6 a video tower, 1 an int8 epilogue)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -892,6 +983,7 @@ def profile_eval(model, videos, queries, dev, score_quant=False,
     from dldkd_tpu_torch.evaluate import eval_retrieval
     from dldkd_tpu_torch.tools.train_bench import span_union
 
+    before = _counts()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -916,6 +1008,18 @@ def profile_eval(model, videos, queries, dev, score_quant=False,
             kernels.append((start, end))
         t, c = by_name.get(key, (0.0, 0))
         by_name[key] = (t + (end - start), c + 1)
+    what = f"profiled eval ({'streaming' if stream else 'resident'}, " \
+        f"score_quant={score_quant})"
+    unfused = {k: by_name[k][1] for k in UNFUSED_EPILOGUES if k in by_name}
+    if unfused:
+        fail(f"{what}: separate LayerNorm or pooling kernels ran: {unfused}")
+    counts = _counts()
+    tower_launches = {k: counts[k] - before[k] for k in KERNELS_PER_LAUNCH}
+    tower_kernels = sum(by_name.get(k, (0.0, 0))[1] for k in TOWER_KERNELS)
+    want = sum(KERNELS_PER_LAUNCH[k] * n for k, n in tower_launches.items())
+    if tower_kernels != want:
+        fail(f"{what}: {tower_kernels} tower kernels for the launches "
+             f"{tower_launches} (want {want})")
     busy = span_union(spans)
     copy_busy, kernel_busy = span_union(copies), span_union(kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
@@ -933,6 +1037,8 @@ def profile_eval(model, videos, queries, dev, score_quant=False,
             "copies_h2d_overlapped_ms": (copy_busy + kernel_busy
                                          - span_union(copies + kernels)) / 1e3,
             "simt_products": by_name.get("gemm_kernel", (0.0, 0))[1],
+            "tower_launches": tower_launches,
+            "tower_kernels": tower_kernels,
             "device_idle_share": (1.0 - busy / wall_us) if wall_us else None,
             "device_events": len(spans),
             "device_ms_by_kernel": {k: {"ms": t / 1e3, "count": c}
@@ -4629,7 +4735,7 @@ def _parallel_launches(parallel_launches, counter: str) -> dict:
 
 def kernels_line(checks, launches, int8_launches, serve_launches,
                  train_launches, stream, q8t_checks, artifact_launches,
-                 bench, parallel):
+                 bench, parallel, epilogues):
     """Every ported kernel: its source, the TPU kernel it replaces, its
     launches on its main path and its phase-3 numbers; beside them, its
     launches in the train phase (train.main: three validations and the
@@ -4650,7 +4756,12 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
     carries its launches on each of those paths (`parallel_launches`: the
     sharded serving routes and their one-branch twin, the sharded evals,
     the one-branch twin, the NCCL world of one) and its check at the
-    shapes the sharded evals give it (`parallel_check`)."""
+    shapes the sharded evals give it (`parallel_check`). The two-branch
+    tower entries carry their launch's fused epilogues (`epilogues`: the
+    LayerNorms, and the query tower's pooling, in the whole-row products,
+    timed against the products alone, with `torch.nn.functional.layer_norm`
+    as the LayerNorm's yardstick) and the query towers their check on 136
+    tokens (`check_l136`)."""
     bench_launches, bench_checks = bench
     parallel_launches, parallel_checks = parallel
     # (launch counter, source, TPU kernel replaced, check record, path whose
@@ -4738,9 +4849,18 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
         if name.startswith(("query_tower", "context_tower")) \
                 and name != "context_tower_q8":
             # the chain (both dtypes): tower_mma.cu's normalization,
-            # products and attention, tower.cu's LayerNorm and pooling
-            kernels[-1]["chain_sources"] = [
-                src, "dldkd_tpu_torch/csrc/tower.cu"]
+            # products (LayerNorms and pooling in their epilogues) and
+            # attention; tower.cu's int8 epilogue after the video tower's
+            kind, dtype = key[0].split("_")[0], key[1]
+            n = TVR["query_bsz"] if kind == "query" else TVR["context_bsz"]
+            kernels[-1]["chain_sources"] = [src] + (
+                ["dldkd_tpu_torch/csrc/tower.cu"] if kind == "context"
+                else [])
+            kernels[-1]["epilogues"] = _epilogue_brief(
+                epilogues[(kind, n, dtype)])
+            if kind == "query":
+                kernels[-1]["check_l136"] = _brief(
+                    checks[("query_tower", dtype, 2, "L136")])
         if name == "context_tower_q8":
             # the in-place epilogue at the streaming block (2,048 videos)
             kernels[-1]["streaming_check"]["kernel_ms_2048"] = \
@@ -4766,8 +4886,9 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": None,
             "device_ms": rec["device_ms"],
-            "chain_sources": ["dldkd_tpu_torch/csrc/tower_mma.cu",
-                              "dldkd_tpu_torch/csrc/tower.cu"],
+            "chain_sources": ["dldkd_tpu_torch/csrc/tower_mma.cu"] + (
+                ["dldkd_tpu_torch/csrc/tower.cu"] if kind == "context"
+                else []),
             "check_shape": rec["shape"],
             "phase3_check": _brief(checks[(f"{kind}_tower", "bfloat16",
                                            1)]),
@@ -4813,6 +4934,7 @@ def main() -> None:
     phase_build()
     checks = phase_kernels(dev)
     phase_tower_shapes(dev)
+    epilogues = phase_epilogues(dev)
     checks.update(phase_kernels_slice2(dev))
     q8t_checks = _q8t_kernel_check(dev)
     # the drivers' packed-dataset cache lives and dies with this run
@@ -4842,7 +4964,7 @@ def main() -> None:
     kernels = kernels_line(checks, launches, int8_launches,
                            serve_launches, train_launches, stream,
                            q8t_checks, artifact_launches, bench,
-                           parallel)
+                           parallel, epilogues)
     check_no_jax()
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

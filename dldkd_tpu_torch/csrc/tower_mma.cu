@@ -1,7 +1,7 @@
 // The encoder towers on Hopper's tensor cores, in bf16 and in f32: the
-// input normalization, every matrix product and the attention of the chain
-// described in csrc/tower.cu, whose LayerNorm, pooling and int8 epilogue
-// both dtypes keep.
+// input normalization, every matrix product with the LayerNorms and the
+// query tower's pooling in their epilogues, and the attention of the chain
+// described in csrc/tower.cu, whose int8 epilogue both dtypes keep.
 //
 // Replaces, with those, dldkd_tpu/ops/pallas/query_tower.py:
 //   _dual_query_tower_kernel (:211), _query_tower_kernel (:196)
@@ -39,30 +39,39 @@
 //                     input rounded to bf16) written out once in the tower
 //                     dtype at the padded width (zeros past D). One warp
 //                     per row; bytes-bound.
-//   2/4/6/8. gemm_mma C = epilogue(A (M x K) W^T (N x K)^T), both operands
+//   2/3/5/6. products C = epilogue(A (M x K) W^T (N x K)^T), both operands
 //                     K-major (the packer stores W transposed once per
-//                     eval), batched over branches (blockIdx.z). A block
-//                     owns 64 or 128 rows (one warpgroup per 64) x 128
-//                     columns; depth streams through a ring of stages of
-//                     128 bytes per row (64 bf16 or 32 f32 values) filled
-//                     by 16-byte cp.async copies in the 128-byte swizzle;
-//                     each warpgroup runs wgmma from shared memory into 64
-//                     f32 accumulators per thread. bf16: 3 stages, 128-row
-//                     blocks when they still give two blocks per SM. f32:
-//                     128-row blocks and 2 stages, each split once it lands
-//                     (big in place, small into a scratch tile of the same
-//                     layout) and then taken by three wgmma per 8 values of
-//                     depth; 97 KB, two blocks per SM, so one block's split
-//                     overlaps the other's products. Split planes stored
-//                     by the chain would double what each stage copies,
-//                     and the copies from L2 bound these products. Depth
-//                     past K and rows past M or N
-//                     are zero-filled, not read. Epilogue in registers and
-//                     through shared memory at the rounding points of
-//                     tower.cu (identity in f32): + bias, ReLU, round;
-//                     + pos[m % period] (rows below pos_rows), round;
-//                     + residual, round; written in 16-byte rows.
-//   5. attention_mma  one block per (head, query tile, sequence, branch),
+//                     eval), batched over branches (blockIdx.z). A ring of
+//                     stages of 128 bytes per row (64 bf16 or 32 f32 values)
+//                     filled by 16-byte cp.async copies in the 128-byte
+//                     swizzle streams the depth (mma_tile); each warpgroup
+//                     runs wgmma m64n128 from shared memory into 64 f32
+//                     accumulators per thread. bf16: 3 stages. f32: 2
+//                     stages, each split once it lands (big in place, small
+//                     into a scratch tile of the same layout) and then taken
+//                     by three wgmma per 8 values of depth. Split planes
+//                     stored by the chain would double what each stage
+//                     copies, and the copies from L2 bound these products.
+//                     Depth past K and rows past M or N are zero-filled, not
+//                     read. Epilogue in registers and through shared memory
+//                     at the Pallas kernel's rounding points (identity in
+//                     f32): + bias, ReLU, round; + pos[m % period] (rows
+//                     below pos_rows), round; + residual, round.
+//     3, 6 gemm_mma   a block of 64 or 128 rows (one warpgroup per 64) x
+//                     128 columns; bf16 128-row blocks when they still give
+//                     two blocks per SM; f32 128-row blocks, 97 KB, two
+//                     blocks per SM, so one block's split overlaps the
+//                     other's products; written in 16-byte rows.
+//     2, 5 gemm_rows  the same blocks, as a thread block cluster over all
+//                     128-column tiles of one branch: the epilogue goes on
+//                     to the LayerNorm of the cluster's rows, read across
+//                     the cluster's row tiles in shared memory (in L2 above
+//                     8 x 128 columns), and writes each value once; in the
+//                     query tower step 5 also pools the cluster's whole
+//                     sequences (two or four queries of 32 tokens in 64 or
+//                     128 rows; a longer sequence's row tiles in turn) and
+//                     writes only the pooled vectors.
+//   4. attention_mma  one block per (head, query tile, sequence, branch),
 //                     one warp per 16 query rows of the tile (32 rows up to
 //                     L = 32, else 128, or 64 above 128 dims per head). The
 //                     tile's Q stays in shared memory; K and V stream
@@ -86,8 +95,8 @@
 // operands and the chain's buffers), so every row copy is whole 16-byte
 // units.
 // What it leaves unused: TMA, warp specialisation, a wgmma kept in flight
-// across stages, and fusing the chain; intermediates go through device
-// memory (L2 for the query tower).
+// across stages, and one kernel for the whole chain; the intermediates
+// between launches go through device memory (L2 for the query tower).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,13 +104,18 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "wgmma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 constexpr float NEG_BIG = -10000.0f;  // additive attention key mask
+constexpr float NEG_INF = -1e10f;     // pooling mask (mask_logits)
 constexpr float LN_EPS = 1e-5f;
 
 __device__ __forceinline__ float rt(float x) {
@@ -122,6 +136,13 @@ template <> __device__ __forceinline__ bf16 narrow<bf16>(float x) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -210,19 +231,33 @@ __global__ void normalize_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// 2/4/6/8. C[b] = epilogue(A[b] (M x K) @ W[b]^T), W[b] stored (N x K), all
+// 2/3/5/6. C[b] = epilogue(A[b] (M x K) @ W[b]^T), W[b] stored (N x K), all
 // in the tower dtype. Epilogue, in order: + bias[n] (f32); ReLU; round;
 // + pos[m % pos_period][n] (f32 holding tower-dtype values) where
 // m % pos_period < pos_rows, round; + res[m][n], round. Strides in
 // elements; per-batch strides sa .. sr.
+//
+// Whole-row mode (gemm_rows_kernel, steps 2 and 5): the columns fall in
+// groups of gs (one branch's padded hidden width; the projection's N holds
+// every branch's group, the output product's one per batch), and after that
+// epilogue each row of each group is layer-normalized over its first H
+// columns: y = round((x - mu) * rstd * gamma[n] + beta[n]), gamma and beta
+// f32 at gamma + b sg + n (zeros past H). With L > 0 (the query tower's
+// step 5) the rows are Nseq = M / L sequences of L rows, and the LayerNorm's
+// rows are pooled instead of stored: logits = y . wm (wm f32 at wm + b sg),
+// -1e10 where mask[seq][l] == 0, softmax over the sequence, pooled[b][seq]
+// = sum over l of y * p, f32 (batch, Nseq, H).
 // ---------------------------------------------------------------------------
 struct MmaArgs {
   const void* a; const void* w; const float* bias; void* c;
   const float* pos; const void* res;
+  const float* gamma; const float* beta;           // whole-row mode
+  const float* wm; const float* mask; float* pooled;  // ... with pooling
   int M, N, K;
   int lda, ldw, ldc, ldp, ldr;
-  int sa, sw, sb, sc, sr;
+  int sa, sw, sb, sc, sr, sg;
   int relu, pos_period, pos_rows;
+  int gs, H, L;
 };
 
 constexpr int BN = 128;  // columns per block: wgmma's N
@@ -230,36 +265,41 @@ constexpr int KSTEPS = ROW_BYTES / 32;  // one wgmma takes 32 bytes of depth
 constexpr int TLD = BN + 8;  // epilogue tile row: a row's 8 lanes (bf16x2)
                              // or a half-warp's 16 (f32x2) hit distinct banks
 
-// the ring's stages, and for Tf32 the scratch tile of one stage's small
-// parts
+// the ring's stages of 64 WG rows of A and 128 rows of W, and for Tf32 the
+// scratch tile of one stage's small parts
 template <typename P, int WG>
-constexpr int gemm_smem() {
-  return 1024 + (P::STAGES + (P::SPLIT ? 1 : 0)) * (64 * WG + BN) *
-                    ROW_BYTES;
+__host__ __device__ constexpr int ring_bytes() {
+  return (P::STAGES + (P::SPLIT ? 1 : 0)) * (64 * WG + BN) * ROW_BYTES;
 }
 
 template <typename P, int WG>
-__global__ void __launch_bounds__(WG * 128)
-gemm_mma_kernel(MmaArgs g) {
+constexpr int gemm_smem() {
+  return 1024 + ring_bytes<P, WG>();
+}
+
+// acc (the calling warpgroup's 64 x 128 accumulators) = A rows [m0, m0 +
+// 64 WG) times W rows [n0, n0 + 128) over depth K, through the ring at
+// shared address `ring` (ring_p: its generic address); warpgroup wg takes
+// rows 64 wg. A rows at or past m_end, W rows at or past n_end and depth
+// past K are zero-filled, not read. Returns with every copy landed and
+// every wgmma done; the ring is free once the block has passed a barrier.
+template <typename P, int WG>
+__device__ __forceinline__ void mma_tile(float (&acc)[64],
+                                         const typename P::T* A, int lda,
+                                         int m0, int m_end,
+                                         const typename P::T* W, int ldw,
+                                         int n0, int n_end, int K,
+                                         uint32_t ring,
+                                         unsigned char* ring_p) {
   using T = typename P::T;
-  constexpr int BM = 64 * WG, THREADS = WG * 128, STAGES = P::STAGES;
+  constexpr int BM = 64 * WG, STAGES = P::STAGES, THREADS = WG * 128;
   constexpr int BK = ROW_BYTES / (int)sizeof(T);  // depth per stage
   constexpr int UV = 16 / (int)sizeof(T);         // values per 16 bytes
   constexpr int A_BYTES = BM * ROW_BYTES, STAGE = (BM + BN) * ROW_BYTES;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t raw_s = smem_u32(smem_raw);
-  const uint32_t ring = (raw_s + 1023) & ~1023u;
-  unsigned char* ring_p = smem_raw + (ring - raw_s);
   const uint32_t scratch = ring + STAGES * STAGE;  // Tf32: small parts
-
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int wg = tid >> 7;          // the warpgroup's 64 rows
-  const int wq = (tid >> 5) & 3;    // the warp's 16 of them
-  const int bz = blockIdx.z;
-  const T* A = (const T*)g.a + (size_t)bz * g.sa;
-  const T* W = (const T*)g.w + (size_t)bz * g.sw;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int nk = (g.K + BK - 1) / BK;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int nk = (K + BK - 1) / BK;
 
   // rows [0, BM) of a stage are A's, rows [BM, BM + BN) W's; each row is
   // 8 units of 16 bytes, K % 8 == 0 so a unit is whole or absent
@@ -271,10 +311,10 @@ gemm_mma_kernel(MmaArgs g) {
       const bool is_a = r < BM;
       const int rr = is_a ? r : r - BM;
       const int row = (is_a ? m0 : n0) + rr;
-      const bool ok = k < g.K && row < (is_a ? g.M : g.N);
-      const T* src = is_a ? A + (size_t)row * g.lda + k
-                          : W + (size_t)row * g.ldw + k;
-      cp16(st + (is_a ? 0 : A_BYTES) + swz(rr, u), ok ? src : g.a,
+      const bool ok = k < K && row < (is_a ? m_end : n_end);
+      const T* src = is_a ? A + (size_t)row * lda + k
+                          : W + (size_t)row * ldw + k;
+      cp16(st + (is_a ? 0 : A_BYTES) + swz(rr, u), ok ? src : A,
            ok ? 16 : 0);
     }
   };
@@ -284,7 +324,6 @@ gemm_mma_kernel(MmaArgs g) {
     cp_commit();
   }
 
-  float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   for (int kc = 0; kc < nk; ++kc) {
@@ -331,20 +370,26 @@ gemm_mma_kernel(MmaArgs g) {
     acc_fence(acc);
   }
   cp_wait<0>();
+}
 
-  // epilogue in two passes through the ring, now free: bias, ReLU and the
-  // rounding from the accumulators into a tile; then positions and
-  // residual, 16 bytes (CPT columns) per thread, from the tile to C
-  proxy_fence();
-  __syncthreads();
-  T* tile = reinterpret_cast<T*>(ring_p);
-  const float* bias = g.bias ? g.bias + (size_t)bz * g.sb : nullptr;
+// The epilogue's first pass: a warpgroup's accumulators + bias[col0 +
+// column] (f32), ReLU, rounded to T, into its 64 rows of the tile (rows of
+// ld values). Columns at or past n_end get no bias (N % 8 == 0: a pair is
+// whole or absent).
+template <typename P>
+__device__ __forceinline__ void acc_to_tile(const float (&acc)[64],
+                                            typename P::T* tile, int ld,
+                                            const float* bias, int col0,
+                                            int n_end, int relu) {
+  using T = typename P::T;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wq = (tid >> 5) & 3;  // the warp's 16 rows of the 64
 #pragma unroll
   for (int t = 0; t < BN / 8; ++t) {
     const int cl = t * 8 + (lane & 3) * 2;
-    const bool in = n0 + cl < g.N;  // N % 8 == 0: both columns or neither
-    const float b0 = bias && in ? bias[n0 + cl] : 0.f;
-    const float b1 = bias && in ? bias[n0 + cl + 1] : 0.f;
+    const bool in = col0 + cl < n_end;
+    const float b0 = bias && in ? bias[col0 + cl] : 0.f;
+    const float b1 = bias && in ? bias[col0 + cl + 1] : 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float v0 = acc[4 * t + 2 * h], v1 = acc[4 * t + 2 * h + 1];
@@ -352,12 +397,12 @@ gemm_mma_kernel(MmaArgs g) {
         v0 += b0;
         v1 += b1;
       }
-      if (g.relu) {
+      if (relu) {
         v0 = fmaxf(v0, 0.f);
         v1 = fmaxf(v1, 0.f);
       }
-      const int rl = wg * 64 + wq * 16 + (lane >> 2) + 8 * h;
-      T* dst = tile + rl * TLD + cl;
+      const int rl = wq * 16 + (lane >> 2) + 8 * h;
+      T* dst = tile + rl * ld + cl;
       if constexpr (P::SPLIT) {
         *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
       } else {
@@ -366,57 +411,405 @@ gemm_mma_kernel(MmaArgs g) {
       }
     }
   }
-  __syncthreads();
+}
 
-  constexpr int CPT = UV;  // columns per thread: 16 bytes of C
-  const T* R = g.res ? (const T*)g.res + (size_t)bz * g.sr : nullptr;
-  T* C = (T*)g.c + (size_t)bz * g.sc;
-  for (int e = tid; e < BM * (BN / CPT); e += THREADS) {
-    const int rl = e / (BN / CPT), cl = (e % (BN / CPT)) * CPT;
-    const int row = m0 + rl, col = n0 + cl;
-    if (row >= g.M || col >= g.N) continue;
-    float v[CPT];
-    {
-      const uint4 raw = *reinterpret_cast<const uint4*>(tile + rl * TLD + cl);
-      const T* tv = reinterpret_cast<const T*>(&raw);
+// The epilogue's second pass on 16 bytes (UV columns) of row `row`, column
+// `col` (of the whole product): + pos where the row has a positional row,
+// round; + res, round.
+template <typename P>
+__device__ __forceinline__ void add_pos_res(float* v, const MmaArgs& g,
+                                            const typename P::T* R, int row,
+                                            int col) {
+  using T = typename P::T;
+  constexpr int UV = 16 / (int)sizeof(T);
+  if (g.pos) {
+    const int prow = row % g.pos_period;
+    if (prow < g.pos_rows) {
+      const float4* p = reinterpret_cast<const float4*>(
+          g.pos + (size_t)prow * g.ldp + col);
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) v[j] = widen(tv[j]);
-    }
-    if (g.pos) {
-      const int prow = row % g.pos_period;
-      if (prow < g.pos_rows) {
-        const float4* p = reinterpret_cast<const float4*>(
-            g.pos + (size_t)prow * g.ldp + col);
+      for (int q = 0; q < UV / 4; ++q) {
+        const float4 pq = p[q];
+        const float pv[4] = {pq.x, pq.y, pq.z, pq.w};
 #pragma unroll
-        for (int q = 0; q < CPT / 4; ++q) {
-          const float4 pq = p[q];
-          const float pv[4] = {pq.x, pq.y, pq.z, pq.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            v[4 * q + j] = P::round(v[4 * q + j] + pv[j]);
-        }
+        for (int j = 0; j < 4; ++j)
+          v[4 * q + j] = P::round(v[4 * q + j] + pv[j]);
       }
     }
-    if (R) {
-      const size_t o = (size_t)row * g.ldr + col;
-      const uint4 rr = *reinterpret_cast<const uint4*>(R + o);
-      const T* rv = reinterpret_cast<const T*>(&rr);
-      float r[CPT];
+  }
+  if (R) {
+    const uint4 rr = *reinterpret_cast<const uint4*>(
+        R + (size_t)row * g.ldr + col);
+    const T* rv = reinterpret_cast<const T*>(&rr);
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) r[j] = widen(rv[j]);
+    for (int j = 0; j < UV; ++j) v[j] = P::round(v[j] + widen(rv[j]));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void load16(float* v, const T* p) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const T* tv = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) v[j] = P::round(v[j] + r[j]);
-    }
-    uint4 out;
-    T* ov = reinterpret_cast<T*>(&out);
+  for (int j = 0; j < 16 / (int)sizeof(T); ++j) v[j] = widen(tv[j]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store16(T* p, const float* v) {
+  uint4 out;
+  T* ov = reinterpret_cast<T*>(&out);
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) ov[j] = narrow<T>(v[j]);
-    *reinterpret_cast<uint4*>(C + (size_t)row * g.ldc + col) = out;
+  for (int j = 0; j < 16 / (int)sizeof(T); ++j) ov[j] = narrow<T>(v[j]);
+  *reinterpret_cast<uint4*>(p) = out;
+}
+
+// N f32 values from 16-byte aligned p (N % 4 == 0)
+template <int N>
+__device__ __forceinline__ void load_f32(float (&v)[N], const float* p) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 x = reinterpret_cast<const float4*>(p)[q];
+    v[4 * q] = x.x, v[4 * q + 1] = x.y, v[4 * q + 2] = x.z,
+    v[4 * q + 3] = x.w;
+  }
+}
+
+template <typename P, int WG>
+__global__ void __launch_bounds__(WG * 128)
+gemm_mma_kernel(MmaArgs g) {
+  using T = typename P::T;
+  constexpr int BM = 64 * WG, THREADS = WG * 128;
+  constexpr int UV = 16 / (int)sizeof(T);  // values per 16 bytes
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t ring = (raw_s + 1023) & ~1023u;
+  unsigned char* ring_p = smem_raw + (ring - raw_s);
+
+  const int tid = threadIdx.x;
+  const int bz = blockIdx.z;
+  const T* A = (const T*)g.a + (size_t)bz * g.sa;
+  const T* W = (const T*)g.w + (size_t)bz * g.sw;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  float acc[64];
+  mma_tile<P, WG>(acc, A, g.lda, m0, g.M, W, g.ldw, n0, g.N, g.K, ring,
+                  ring_p);
+
+  // epilogue in two passes through the ring, now free: bias, ReLU and the
+  // rounding from the accumulators into a tile (the warpgroup's 64 rows);
+  // then positions and residual, 16 bytes (UV columns) per thread, from
+  // the tile to C
+  proxy_fence();
+  __syncthreads();
+  T* tile = reinterpret_cast<T*>(ring_p);
+  const float* bias = g.bias ? g.bias + (size_t)bz * g.sb : nullptr;
+  acc_to_tile<P>(acc, tile + (tid >> 7) * 64 * TLD, TLD, bias, n0, g.N,
+                 g.relu);
+  __syncthreads();
+
+  const T* R = g.res ? (const T*)g.res + (size_t)bz * g.sr : nullptr;
+  T* C = (T*)g.c + (size_t)bz * g.sc;
+  for (int e = tid; e < BM * (BN / UV); e += THREADS) {
+    const int rl = e / (BN / UV), cl = (e % (BN / UV)) * UV;
+    const int row = m0 + rl, col = n0 + cl;
+    if (row >= g.M || col >= g.N) continue;
+    float v[UV];
+    load16(v, tile + rl * TLD + cl);
+    add_pos_res<P>(v, g, R, row, col);
+    store16(C + (size_t)row * g.ldc + col, v);
   }
 }
 
 // ---------------------------------------------------------------------------
-// 5. attention: one block per (head, query tile, sequence, branch), LQ / 16
+// 2 and 5. The whole-row mode. The LayerNorm needs all of a row's columns
+// in one group (one branch), so a thread block cluster owns them: its CL
+// blocks (one per 128-column tile of the group, at most 8) are the blocks
+// of gemm_mma_kernel, the same 64 or 128 rows x 128 columns, the same ring
+// and wgmma m64n128 sums in the same order, so the rows reaching the
+// LayerNorm are bitwise those a column-tiled product writes, and as many
+// blocks fit an SM (a ring of 97 KB, and a staging row a warp: two). Grid:
+// (groups x CL, row
+// blocks, batch), clusters (CL, 1, 1). Why clusters and not one block over
+// the whole row: 64 rows x 384 columns of f32 accumulators are 96 KB of
+// registers, so such a block runs alone on its SM and nothing hides its
+// loads, barriers and epilogue (measured on the H100: the whole-row product
+// took twice the column-tiled one's time).
+//
+// Per row tile: each block runs its product and the epilogue's two passes
+// (acc_to_tile, add_pos_res) into its row tile at the ring's start; then
+// the cluster syncs and each row's LayerNorm statistics are taken by one
+// warp of one block (rows dealt round the cluster), reading the row across
+// the cluster's tiles through distributed shared memory (copied into a
+// staging row, 16 bytes a lane, then read in the sums' order): f32 sums of
+// the
+// rounded values over the first H columns, lane l taking columns l, l + 32,
+// ... (s += v, ss = fma(v, v, ss)), a butterfly over the lanes (xor 16 ..
+// 1), mu = s / H, rstd = 1 / sqrt(fma(-mu, mu, ss / H) + 1e-5), written
+// into every block's statistics; after a second sync each block normalizes
+// its own columns, y = round(fma((x - mu) rstd, gamma, beta)), 16 bytes a
+// thread, to C. Every step is written with its rounding (__fmaf_rn, ...):
+// the compiler contracts nothing, and these are the separate LayerNorm
+// pass's own roundings, so its outputs come out bitwise.
+// A group wider than 8 x 128 columns takes its tiles in passes, its rows
+// through C (in L2) instead of the row tiles.
+//
+// Pooling (L > 0): a block owns floor(BM / L) whole sequences (two or four
+// queries of 32 tokens), or, for L > BM, one sequence whose row tiles it
+// walks. The LayerNorm's rows stay in the row tiles when the cluster has
+// one pass and L <= 64 (so at any BM), else they go to C's rows (in L2) as
+// scratch. After a sync, each row's logit is taken as its statistics were,
+// across the cluster (lane d takes d, d + 32, ..., s = fma(y, wm, s), the
+// butterfly), -1e10 where masked, and written into every block; after the
+// last tile every block takes each sequence's softmax on its own copy (one
+// warp a sequence: max and sum over lanes l, l + 32, ..., butterflies; p =
+// e / sum) and its own columns' weighted sums (one thread a (sequence,
+// column): sum over l in order of fma(y, p, acc), f32) to pooled. C is then
+// needed only as that scratch. tests/test_torch_tower_fused.py emulates
+// these sums in these orders. A block touches another's shared memory only
+// between two cluster syncs, so none exits while another reads it.
+// ---------------------------------------------------------------------------
+constexpr int ROWS_MAX_CL = 8;  // blocks a cluster: the portable limit
+
+__host__ __device__ constexpr int rows_tiles(int gs) {
+  return (gs + BN - 1) / BN;
+}
+
+__host__ __device__ constexpr int rows_cluster(int gs) {
+  return rows_tiles(gs) < ROWS_MAX_CL ? rows_tiles(gs) : ROWS_MAX_CL;
+}
+
+__host__ __device__ constexpr int rows_passes(int gs) {
+  return (rows_tiles(gs) + ROWS_MAX_CL - 1) / ROWS_MAX_CL;
+}
+
+// pooling keeps the LayerNorm's rows in the row tiles: one pass, and
+// sequences of at most 64 rows (whole in a block of 64 or 128 rows)
+__host__ __device__ constexpr bool rows_pool_in_smem(int gs, int L) {
+  return rows_passes(gs) == 1 && L <= 64;
+}
+
+// the logits a block holds (a whole number of 16 bytes): its rows, or its
+// sequence's L rows
+__host__ __device__ constexpr int rows_logits(int L, int bm) {
+  return L > 0 ? ((L > bm ? L : bm) + 3) / 4 * 4 : 0;
+}
+
+// With one pass a warp stages rows of the group's gs values: in the ring
+// after the row tile where they fit (the ring is idle once the product is
+// done), else after the logits
+template <typename P, int WG>
+__host__ __device__ constexpr bool rows_stage_in_ring(int gs) {
+  return 4 * WG * gs * (int)sizeof(typename P::T) <=
+         ring_bytes<P, WG>() - 64 * WG * TLD * (int)sizeof(typename P::T);
+}
+
+// dynamic shared memory of gemm_rows_kernel<P, WG>: the ring (the row tile
+// in it), the rows' statistics, the logits, the staging rows if not in the
+// ring
+template <typename P, int WG>
+constexpr int rows_smem(int gs, int L) {
+  return 1024 + ring_bytes<P, WG>() + 64 * WG * 8 +
+         4 * rows_logits(L, 64 * WG) +
+         (rows_passes(gs) == 1 && !rows_stage_in_ring<P, WG>(gs)
+              ? 4 * WG * gs * (int)sizeof(typename P::T)
+              : 0);
+}
+
+// as many blocks an SM as the column-tiled product: 128 registers a
+// thread for 128-row blocks (one more would leave one block an SM), 170
+// for 64-row blocks (three)
+template <typename P, int WG>
+__global__ void __launch_bounds__(WG * 128, WG == 1 ? 3 : 2)
+gemm_rows_kernel(MmaArgs g) {
+  using T = typename P::T;
+  constexpr int BM = 64 * WG, THREADS = WG * 128, NWARPS = THREADS / 32;
+  constexpr int UV = 16 / (int)sizeof(T);  // values per 16 bytes
+  constexpr int UNITS = BN / UV;           // 16-byte units of a tile row
+  constexpr int RING = ring_bytes<P, WG>();
+  static_assert(BM * TLD * (int)sizeof(T) <= RING,
+                "the row tile lives in the ring");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t ring = (raw_s + 1023) & ~1023u;
+  unsigned char* ring_p = smem_raw + (ring - raw_s);
+  T* tile = reinterpret_cast<T*>(ring_p);
+  float2* stats = reinterpret_cast<float2*>(ring_p + RING);  // (mu, rstd)
+  float* att = reinterpret_cast<float*>(stats + BM);  // the block's logits
+  T* stage = (rows_stage_in_ring<P, WG>(g.gs)
+                  ? reinterpret_cast<T*>(ring_p + BM * TLD * sizeof(T))
+                  : reinterpret_cast<T*>(att + rows_logits(g.L, BM))) +
+             (threadIdx.x >> 5) * g.gs;  // the warp's staging row
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bz = blockIdx.z, n0 = (blockIdx.x / cl) * g.gs;  // the group
+  const T* A = (const T*)g.a + (size_t)bz * g.sa;
+  const T* W = (const T*)g.w + (size_t)bz * g.sw;
+  const T* R = g.res ? (const T*)g.res + (size_t)bz * g.sr : nullptr;
+  T* C = g.c ? (T*)g.c + (size_t)bz * g.sc + n0 : nullptr;
+  const float* bias = g.bias ? g.bias + (size_t)bz * g.sb : nullptr;
+  const float* gamma = g.gamma + (size_t)bz * g.sg + n0;
+  const float* beta = g.beta + (size_t)bz * g.sg + n0;
+  const bool pool = g.L > 0;
+  const int seqs = pool ? (g.L <= BM ? BM / g.L : 1) : 0;
+  const int r0 = blockIdx.y * (pool ? seqs * g.L : BM);
+  const int r1 = min(g.M, r0 + (pool ? seqs * g.L : BM));
+  const int passes = rows_passes(g.gs);
+  const bool keep = pool && rows_pool_in_smem(g.gs, g.L);
+
+  for (int m0 = r0; m0 < r1; m0 += BM) {
+    const int rows = min(BM, r1 - m0);
+    // the values of row rl, from the cluster's row tiles (tiles) or from
+    // C: with one pass, copied into the warp's staging row 16 bytes a lane
+    // (a few wide copies from the other blocks instead of a load a value),
+    // then read from there (at); with several, read from C in place. Reads
+    // of C that other blocks wrote go to L2 (__ldcg): a line this SM's L1
+    // kept from before the cluster's sync would be stale.
+    auto at = [&](const T* x, int k) -> float {
+      return widen(passes > 1 ? __ldcg(x + k) : x[k]);
+    };
+    auto row_of = [&](int rl, bool tiles) -> const T* {
+      if (passes > 1) return C + (size_t)(m0 + rl) * g.ldc;
+      for (int k = lane * UV; k < g.gs; k += 32 * UV) {
+        const uint4* src =
+            tiles ? reinterpret_cast<const uint4*>(
+                        cluster.map_shared_rank(tile, k / BN) + rl * TLD +
+                        k % BN)
+                  : reinterpret_cast<const uint4*>(
+                        C + (size_t)(m0 + rl) * g.ldc + k);
+        *reinterpret_cast<uint4*>(stage + k) = tiles ? *src : __ldcg(src);
+      }
+      __syncwarp();
+      return stage;
+    };
+    for (int p = 0; p < passes; ++p) {
+      const int c0 = (p * cl + rank) * BN;  // the block's columns this pass
+      if (c0 >= g.gs) continue;
+      __syncthreads();  // the ring, and the row tile in it, is free
+      float acc[64];
+      mma_tile<P, WG>(acc, A, g.lda, m0, m0 + rows, W, g.ldw, n0 + c0,
+                      n0 + g.gs, g.K, ring, ring_p);
+      proxy_fence();
+      __syncthreads();
+      acc_to_tile<P>(acc, tile + (tid >> 7) * 64 * TLD, TLD, bias, n0 + c0,
+                     n0 + g.gs, g.relu);
+      __syncthreads();
+      T* pre = passes == 1 ? tile : C + (size_t)m0 * g.ldc + c0;
+      const int ldpre = passes == 1 ? TLD : g.ldc;
+      for (int e = tid; e < rows * UNITS; e += THREADS) {
+        const int rl = e / UNITS, cu = (e % UNITS) * UV;
+        if (c0 + cu >= g.gs) continue;
+        float v[UV];
+        load16(v, tile + rl * TLD + cu);
+        add_pos_res<P>(v, g, R, m0 + rl, n0 + c0 + cu);
+        store16(pre + (size_t)rl * ldpre + cu, v);
+      }
+    }
+    cluster.sync();  // every block's rows before the LayerNorm are written
+    // the statistics of the rows dealt to this block, into every block
+    for (int rl = rank + cl * warp; rl < rows; rl += cl * NWARPS) {
+      const T* x = row_of(rl, true);
+      float s = 0.f, ss = 0.f;
+      for (int k = lane; k < g.H; k += 32) {
+        const float v = at(x, k);
+        s = __fadd_rn(s, v);
+        ss = __fmaf_rn(v, v, ss);
+      }
+      __syncwarp();  // the staging row is read
+      s = warp_sum(s);
+      ss = warp_sum(ss);
+      const float mu = __fdiv_rn(s, (float)g.H);
+      const float var = __fmaf_rn(-mu, mu, __fdiv_rn(ss, (float)g.H));
+      const float rs = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, LN_EPS)));
+      if (lane < cl)
+        *cluster.map_shared_rank(stats + rl, lane) = make_float2(mu, rs);
+    }
+    cluster.sync();
+    // the LayerNorm of the block's own columns
+    for (int p = 0; p < passes; ++p) {
+      const int c0 = (p * cl + rank) * BN;
+      if (c0 >= g.gs) continue;
+      const T* pre = passes == 1 ? tile : C + (size_t)m0 * g.ldc + c0;
+      const int ldpre = passes == 1 ? TLD : g.ldc;
+      T* out = keep ? tile : C + (size_t)m0 * g.ldc + c0;
+      const int ldo = keep ? TLD : g.ldc;
+      for (int e = tid; e < rows * UNITS; e += THREADS) {
+        const int rl = e / UNITS, cu = (e % UNITS) * UV;
+        if (c0 + cu >= g.gs) continue;
+        const float2 st = stats[rl];
+        float v[UV], ga[UV], be[UV];
+        load16(v, pre + (size_t)rl * ldpre + cu);
+        load_f32(ga, gamma + c0 + cu);
+        load_f32(be, beta + c0 + cu);
+#pragma unroll
+        for (int j = 0; j < UV; ++j)
+          v[j] = __fmaf_rn(__fmul_rn(__fsub_rn(v[j], st.x), st.y), ga[j],
+                           be[j]);
+        store16(out + (size_t)rl * ldo + cu, v);
+      }
+    }
+    if (!pool) continue;
+    cluster.sync();  // every block's LayerNorm rows are written
+    // the pooling logits of the rows dealt to this block, into every block
+    const float* wm = g.wm + (size_t)bz * g.sg + n0;
+    for (int rl = rank + cl * warp; rl < rows; rl += cl * NWARPS) {
+      const T* y = row_of(rl, keep);
+      float s = 0.f;
+      for (int d = lane; d < g.H; d += 32)
+        s = __fmaf_rn(at(y, d), wm[d], s);
+      __syncwarp();  // the staging row is read
+      s = warp_sum(s);
+      const float a = g.mask[m0 + rl] > 0.f ? s : NEG_INF;
+      if (lane < cl) *cluster.map_shared_rank(att + (m0 + rl - r0), lane) = a;
+    }
+    cluster.sync();  // the logits are everywhere; no tile is read remotely
+  }
+  if (!pool) return;
+  // softmax over each sequence's tokens, one warp per sequence
+  const int nseq = (r1 - r0) / g.L;
+  for (int sq = warp; sq < nseq; sq += NWARPS) {
+    float* a = att + sq * g.L;
+    float mx = -INFINITY;
+    for (int l = lane; l < g.L; l += 32) mx = fmaxf(mx, a[l]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int l = lane; l < g.L; l += 32) {
+      const float e = expf(a[l] - mx);
+      a[l] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    __syncwarp();
+    for (int l = lane; l < g.L; l += 32) a[l] = a[l] / sum;
+  }
+  __syncthreads();
+  // pooled = sum over tokens of y * p, in token order, the block's columns
+  float* pooled = g.pooled + ((size_t)bz * (g.M / g.L) + r0 / g.L) * g.H;
+  for (int p = 0; p < passes; ++p) {
+    const int c0 = (p * cl + rank) * BN;
+    if (c0 >= g.H) continue;
+    const int ncols = min(BN, g.H - c0);
+    for (int e = tid; e < nseq * ncols; e += THREADS) {
+      const int sq = e / ncols, d = e - sq * ncols;
+      const float* pr = att + sq * g.L;
+      float acc = 0.f;
+      if (keep) {
+        const T* y = tile + (size_t)sq * g.L * TLD + d;
+        for (int l = 0; l < g.L; ++l)
+          acc = fmaf(widen(y[(size_t)l * TLD]), pr[l], acc);
+      } else {
+        const T* y = C + (size_t)(r0 + sq * g.L) * g.ldc + c0 + d;
+        for (int l = 0; l < g.L; ++l)
+          acc = fmaf(widen(y[(size_t)l * g.ldc]), pr[l], acc);
+      }
+      pooled[(size_t)sq * g.H + c0 + d] = acc;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 4. attention: one block per (head, query tile, sequence, branch), LQ / 16
 // warps. qkv is (G, Nseq * L, 3H) with Q | K | V column blocks, head h at
 // columns h * dh of each (dh % 8 == 0, zero-padded head dims); ctx (G, Nseq
 // * L, H) in the same head layout.
@@ -868,6 +1261,50 @@ int gemm_by_rows(const MmaArgs& g, int batch, cudaStream_t s) {
   }
 }
 
+template <typename P, int WG>
+int launch_rows(const MmaArgs& g, int batch, cudaStream_t s) {
+  constexpr int BM = 64 * WG;
+  const int smem = rows_smem<P, WG>(g.gs, g.L);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = smem_opt_in<gemm_rows_kernel<P, WG>>(smem);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = (g.M + BM - 1) / BM;
+  if (g.L > 0) {
+    const int seqs = g.L <= BM ? BM / g.L : 1;
+    blocks = (g.M / g.L + seqs - 1) / seqs;
+  }
+  if (blocks > 65535) return (int)cudaErrorInvalidValue;
+  const int cl = rows_cluster(g.gs);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.N / g.gs * cl, blocks, batch);
+  cfg.blockDim = dim3(WG * 128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gemm_rows_kernel<P, WG>, g);
+  return err != cudaSuccess ? (int)err : launch_rc();
+}
+
+// rows a block: as gemm_by_rows chooses for the column-tiled products, so
+// the same products run
+template <typename P>
+int rows_by_rows(const MmaArgs& g, int batch, cudaStream_t s) {
+  if constexpr (P::SPLIT) {
+    return launch_rows<P, 2>(g, batch, s);
+  } else {
+    const long tiles = (long)((g.M + 127) / 128) * (g.N / g.gs) *
+                       rows_tiles(g.gs) * batch;
+    if (tiles >= 2L * sm_count()) return launch_rows<P, 2>(g, batch, s);
+    return launch_rows<P, 1>(g, batch, s);
+  }
+}
+
 template <typename A, int LQ, int KT, int DMAX, bool MULTI>
 int launch_attention(const void* qkv, const void* mask, void* ctx, int G,
                      int Nseq, int L, int H, int heads, int dh, float scale,
@@ -953,19 +1390,25 @@ extern "C" int tower_normalize(const void* x, void* y, int M, int D, int ldy,
 // bias, pos, res may be null. 16-byte rows everywhere (cp.async and the
 // epilogue's 16-byte accesses): K, N and every stride of a tower-dtype
 // array a multiple of 8, ldp of 4, every pointer 16-byte aligned.
-extern "C" int tower_gemm_mma(const void* a, const void* w, const void* bias,
-                              void* c, const void* pos, const void* res,
-                              int M, int N, int K, int lda, int ldw, int ldc,
-                              int ldp, int ldr, int sa, int sw, int sb,
-                              int sc, int sr, int relu, int pos_period,
-                              int pos_rows, int batch, int f32, void* s) {
-  if (M <= 0 || N <= 0 || batch <= 0) return launch_rc();
+static int check_mma(const void* a, const void* w, const void* c,
+                     const void* pos, const void* res, int K, int N,
+                     int lda, int ldw, int ldc, int ldp, int ldr, int sa,
+                     int sw, int sc, int sr, int batch) {
   if (K <= 0 || K % 8 || lda % 8 || ldw % 8 || sa % 8 || sw % 8 ||
-      !aligned16(a) || !aligned16(w) || N % 8 || ldc % 8 || sc % 8 ||
-      !aligned16(c) || (res && (ldr % 8 || sr % 8 || !aligned16(res))) ||
+      !aligned16(a) || !aligned16(w) || N % 8 ||
+      (c && (ldc % 8 || sc % 8 || !aligned16(c))) ||
+      (res && (ldr % 8 || sr % 8 || !aligned16(res))) ||
       (pos && (ldp % 4 || !aligned16(pos))) || batch > 65535)
     return (int)cudaErrorInvalidValue;
-  MmaArgs g;
+  return 0;
+}
+
+static MmaArgs mma_args(const void* a, const void* w, const void* bias,
+                        void* c, const void* pos, const void* res, int M,
+                        int N, int K, int lda, int ldw, int ldc, int ldp,
+                        int ldr, int sa, int sw, int sb, int sc, int sr,
+                        int relu, int pos_period, int pos_rows) {
+  MmaArgs g = {};
   g.a = a; g.w = w; g.bias = (const float*)bias; g.c = c;
   g.pos = (const float*)pos; g.res = res;
   g.M = M; g.N = N; g.K = K;
@@ -973,8 +1416,61 @@ extern "C" int tower_gemm_mma(const void* a, const void* w, const void* bias,
   g.sa = sa; g.sw = sw; g.sb = sb; g.sc = sc; g.sr = sr;
   g.relu = relu; g.pos_period = pos_period > 0 ? pos_period : 1;
   g.pos_rows = pos_rows;
+  return g;
+}
+
+extern "C" int tower_gemm_mma(const void* a, const void* w, const void* bias,
+                              void* c, const void* pos, const void* res,
+                              int M, int N, int K, int lda, int ldw, int ldc,
+                              int ldp, int ldr, int sa, int sw, int sb,
+                              int sc, int sr, int relu, int pos_period,
+                              int pos_rows, int batch, int f32, void* s) {
+  if (M <= 0 || N <= 0 || batch <= 0) return launch_rc();
+  if (!c || check_mma(a, w, c, pos, res, K, N, lda, ldw, ldc, ldp, ldr, sa,
+                      sw, sc, sr, batch))
+    return (int)cudaErrorInvalidValue;
+  const MmaArgs g = mma_args(a, w, bias, c, pos, res, M, N, K, lda, ldw, ldc,
+                             ldp, ldr, sa, sw, sb, sc, sr, relu, pos_period,
+                             pos_rows);
   return f32 ? gemm_by_rows<Tf32>(g, batch, (cudaStream_t)s)
              : gemm_by_rows<Bf16>(g, batch, (cudaStream_t)s);
+}
+
+// The whole-row mode: tower_gemm_mma's product and epilogue, then the
+// LayerNorm of each row of each group of gs columns (N % gs == 0, gs % 8
+// == 0, statistics over the first H <= gs), gamma and beta f32 at gamma + b
+// sg (+ the column; 16-byte aligned, sg % 4 == 0). L == 0: y to c (M, ldc). L > 0 (N == gs): the rows are
+// M / L sequences of L rows, pooled with wm (f32 at wm + b sg) and mask
+// (M / L, L) into pooled (batch, M / L, H) f32; c is then scratch for the
+// LayerNorm's rows, needed (and written) only when they do not stay in
+// shared memory: a group wider than 8 x 128 columns, or L > 64.
+extern "C" int tower_gemm_ln(const void* a, const void* w, const void* bias,
+                             void* c, const void* pos, const void* res,
+                             const void* gamma, const void* beta,
+                             const void* wm, const void* mask, void* pooled,
+                             int M, int N, int K, int lda, int ldw, int ldc,
+                             int ldp, int ldr, int sa, int sw, int sb, int sc,
+                             int sr, int sg, int relu, int pos_period,
+                             int pos_rows, int gs, int H, int L, int batch,
+                             int f32, void* s) {
+  if (M <= 0 || N <= 0 || batch <= 0) return launch_rc();
+  const bool pool = L > 0;
+  if (check_mma(a, w, c, pos, res, K, N, lda, ldw, ldc, ldp, ldr, sa, sw,
+                sc, sr, batch) ||
+      gs <= 0 || gs % 8 || N % gs || H <= 0 || H > gs || sg % 4 ||
+      !aligned16(gamma) || !aligned16(beta) ||
+      L < 0 || (!pool && !c) ||
+      (pool && (N != gs || M % L || !wm || !mask || !pooled ||
+                (!c && !rows_pool_in_smem(gs, L)))))
+    return (int)cudaErrorInvalidValue;
+  MmaArgs g = mma_args(a, w, bias, c, pos, res, M, N, K, lda, ldw, ldc, ldp,
+                       ldr, sa, sw, sb, sc, sr, relu, pos_period, pos_rows);
+  g.gamma = (const float*)gamma; g.beta = (const float*)beta;
+  g.wm = (const float*)wm; g.mask = (const float*)mask;
+  g.pooled = (float*)pooled;
+  g.sg = sg; g.gs = gs; g.H = H; g.L = L;
+  return f32 ? rows_by_rows<Tf32>(g, batch, (cudaStream_t)s)
+             : rows_by_rows<Bf16>(g, batch, (cudaStream_t)s);
 }
 
 // qkv (G, Nseq * L, 3H), mask (Nseq, L) f32 -> ctx (G, Nseq * L, H); heads

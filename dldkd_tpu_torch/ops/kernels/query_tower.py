@@ -12,8 +12,9 @@ rows padded and in the TPU scoring layout (L_p, Nv_p, H), as
 `_map_context(transposed=True)` does. Both dtypes run one chain of CUDA kernels:
 `csrc/tower_mma.cu` (the input normalization, every product on wgmma and
 the attention on mma.sync, on the tensor cores: bf16 products in bf16,
-f32 products in 3xTF32, the f32-grade split products of the f32 scorer)
-and `csrc/tower.cu` (LayerNorm, pooling and the int8 epilogue). The
+f32 products in 3xTF32, the f32-grade split products of the f32 scorer;
+the LayerNorms, and the query tower's pooling, in the epilogues of the
+products that feed them) and `csrc/tower.cu` (the int8 epilogue). The
 attention streams its keys in tiles, so every sequence the positional
 table allows computes. What bounds the towers on an H100 is operations (3
 TF32 products over 495 TFLOP/s in f32, bf16 products over 989); the
@@ -476,22 +477,27 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
     tower_plain. x and mask are contiguous f32 CUDA tensors; each
     sequence's first `pos_rows` rows (default: all) get positional rows.
 
-    One chain for both dtypes: csrc/tower_mma.cu's input normalization,
-    products (wgmma) and attention (mma.sync, tiled over keys: any L), and
-    csrc/tower.cu's LayerNorm, pooling and int8 epilogue. bf16 runs bf16
-    products with f32 accumulation. f32 runs every product in 3xTF32 (big
-    .big + big.small + small.big of TF32 parts, f32-grade; the Pallas
-    trunk's f32 products run at the global "highest"): each product splits
-    its operands in shared memory as they land, so the chain's buffers are
-    plain f32. The buffers carry the packer's padded widths (zeros past the
-    true ones); the outputs come back at the true widths. With emit_q8
-    (video towers) the out_mapping product goes to a scratch buffer and the
-    int8 epilogue writes the outputs; q8_out = (out, v_off) makes it the
-    transposed write into out (G, L_p, Nv_p, H) int8 at video v_off
-    (`_launch_quantize_t`), and returns out's branches. Bound: operations,
-    3 TF32 products over 495 TFLOP/s in f32 and the bf16 products over 989
-    TFLOP/s in bf16; at the query tower's sizes the chain's eight launches
-    set the floor."""
+    One chain for both dtypes, all csrc/tower_mma.cu: the input
+    normalization; the folded projection with its epilogue (bias, ReLU,
+    positions) and the LayerNorm (`tower_gemm_ln`, a thread block cluster
+    owning whole rows of one branch); the Q|K|V product (wgmma); the
+    attention (mma.sync, tiled over keys: any L); the output product with its
+    residual and LayerNorm, and in the query tower the pooling too
+    (`tower_gemm_ln`); in the video tower out_mapping_linear, then, with
+    emit_q8, csrc/tower.cu's int8 epilogue. Query: 5 launches; video: 6,
+    7 with emit_q8. bf16 runs bf16 products with f32 accumulation. f32 runs
+    every product in 3xTF32 (big.big + big.small + small.big of TF32
+    parts, f32-grade; the Pallas trunk's f32 products run at the global
+    "highest"): each product splits its operands in shared memory as they
+    land, so the chain's buffers are plain f32. The buffers carry the
+    packer's padded widths (zeros past the true ones); the outputs come
+    back at the true widths. With emit_q8 (video towers) the out_mapping
+    product goes to a scratch buffer and the int8 epilogue writes the
+    outputs; q8_out = (out, v_off) makes it the transposed write into out
+    (G, L_p, Nv_p, H) int8 at video v_off (`_launch_quantize_t`), and
+    returns out's branches. Bound: operations, 3 TF32 products over 495
+    TFLOP/s in f32 and the bf16 products over 989 TFLOP/s in bf16; at the
+    query tower's sizes the chain's five launches set the floor."""
     from dldkd_tpu_torch.ops.kernels.build import bind, check
 
     hdim, heads_packed, d_packed = (int(v) for v in packed["dims"])
@@ -515,8 +521,8 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
         x = x.clone()
     p = {k: v.data_ptr() for k, v in packed.items() if k != "dims"}
 
-    layernorm = bind("tower", "tower_layernorm", 4, 6)
     mma = bind("tower_mma", "tower_gemm_mma", 6, 18)
+    mma_ln = bind("tower_mma", "tower_gemm_ln", 11, 22)
 
     # Each buffer is made when its kernel writes it and dropped after its
     # last reader, so the launch's peak holds only the live ones (at 200
@@ -535,21 +541,29 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
             check(mma(a, p[w], bias, c, pos, res, *dims, *strides, relu, l,
                       rows, batch, 1 - bf, s), f"tower_gemm_mma ({what})")
 
+        def gemm_ln(what, a, w, bias, c, res, ln, dims, strides, sg,
+                    relu=0, batch=g_n, pos=None, pool=None):
+            """gemm's product and epilogue, then the LayerNorm `ln` (its
+            gamma and beta) of each row's groups of hp columns; pool =
+            (wm, pooled): pool each sequence's rows into pooled instead"""
+            wm, pooled = (None, None) if pool is None else pool
+            check(mma_ln(a, p[w], bias, c, pos, res, p[ln[0]], p[ln[1]], wm,
+                         None if pool is None else mask.data_ptr(), pooled,
+                         *dims, *strides, sg, relu, l, rows, hp, hdim,
+                         0 if pool is None else l, batch, 1 - bf, s),
+                  f"tower_gemm_ln ({what})")
+
         xn = new(m, dp)
         check(bind("tower_mma", "tower_normalize", 2, 4)(
             x.data_ptr(), xn.data_ptr(), m, d, dp, 1 - bf, s),
             "tower_normalize")
-        # folded projection over every branch's columns: one read of x
-        h = new(m, ghp)
-        gemm("projection", xn.data_ptr(), "wp", p["bp"], h.data_ptr(), None,
-             (m, ghp, dp, dp, dp, ghp, ghp, 0), (0, 0, 0, 0, 0), relu=1,
-             batch=1, pos=p["pos"])
-        del xn
+        # folded projection over every branch's columns (one read of x),
+        # + positions, LayerNorm; a cluster per (rows, branch)
         h2 = new(m, ghp)
-        check(layernorm(h.data_ptr(), h2.data_ptr(), p["g1"], p["b1"], m,
-                        g_n, hdim, hp, ghp, bf, s),
-              "tower_layernorm (positions)")
-        del h
+        gemm_ln("projection", xn.data_ptr(), "wp", p["bp"], h2.data_ptr(),
+                None, ("g1", "b1"), (m, ghp, dp, dp, dp, ghp, ghp, 0),
+                (0, 0, 0, 0, 0), 0, relu=1, batch=1, pos=p["pos"])
+        del xn
         qkv = new(g_n, m, 3 * hq)
         gemm("qkv", h2.data_ptr(), "wqkv", p["bqkv"], qkv.data_ptr(), None,
              (m, 3 * hq, hp, ghp, hp, 3 * hq, 0, 0),
@@ -560,26 +574,29 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
             n_heads, _r8(dh), 1 - bf, 1.0 / math.sqrt(dh), s),
             "tower_attention_mma")
         del qkv
-        o = new(m, ghp)
-        gemm("output", ctx.data_ptr(), "wo", p["bo"], o.data_ptr(),
-             h2.data_ptr(), (m, hp, hq, hq, hq, ghp, 0, ghp),
-             (m * hq, hp * hq, hp, hp, hp))
-        del ctx, h2
-        out = new(m, ghp)
-        check(layernorm(o.data_ptr(), out.data_ptr(), p["g2"], p["b2"], m,
-                        g_n, hdim, hp, ghp, bf, s), "tower_layernorm (output)")
-        del o
+        # output projection + residual, LayerNorm (and the query tower's
+        # pooling)
+        out_dims = (m, hp, hq, hq, hq, ghp, 0, ghp)
+        out_strides = (m * hq, hp * hq, hp, hp, hp)
         if kind == "query":
             pooled = torch.empty((g_n, n, hdim), dtype=torch.float32,
                                  device=dev)
-            check(bind("tower", "tower_pool", 4, 7)(
-                out.data_ptr(), mask.data_ptr(), p["wm"], pooled.data_ptr(),
-                g_n, n, l, hdim, hp, ghp, bf, s), "tower_pool")
+            # the LayerNorm's rows go to device memory only when a block
+            # cannot keep them (csrc/tower_mma.cu, rows_pool_in_smem)
+            spill = new(m, ghp) if pool_rows_spill(hp, l) else None
+            gemm_ln("output", ctx.data_ptr(), "wo", p["bo"],
+                    None if spill is None else spill.data_ptr(),
+                    h2.data_ptr(), ("g2", "b2"), out_dims, out_strides, hp,
+                    pool=(p["wm"], pooled.data_ptr()))
             LAUNCHES["query_tower"] += 1
             LAUNCHES["query_tower_" + ("bf16" if bf else "f32")] += 1
             if g_n == 1:
                 LAUNCHES["query_tower_1br"] += 1
             return list(pooled.unbind(0))
+        out = new(m, ghp)
+        gemm_ln("output", ctx.data_ptr(), "wo", p["bo"], out.data_ptr(),
+                h2.data_ptr(), ("g2", "b2"), out_dims, out_strides, hp)
+        del ctx, h2
         y = new(g_n, m, hp)
         gemm("out_mapping", out.data_ptr(), "wm", p["bm"], y.data_ptr(),
              None, (m, hp, hp, ghp, hp, hp, 0, 0), (hp, hp * hp, hp, m * hp,
@@ -602,6 +619,14 @@ def tower_cuda(x: torch.Tensor, mask: torch.Tensor,
     if hp != hdim:
         outs = [t[..., :hdim].contiguous() for t in outs]
     return outs
+
+
+def pool_rows_spill(hp: int, l: int) -> bool:
+    """Whether the query tower's last product sends the LayerNorm's rows
+    through device memory before pooling them: a branch wider than a
+    cluster's eight 128-column blocks, or a sequence longer than a block's
+    64 rows (csrc/tower_mma.cu, rows_pool_in_smem)."""
+    return hp > 8 * 128 or l > 64
 
 
 # ---------------------------------------------------------------------- #

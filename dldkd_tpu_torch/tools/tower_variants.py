@@ -4,8 +4,8 @@ timed beside the source as it is, on one CUDA card; and each tower
 launch's device time by kernel.
 
 Cases: the video tower (200 videos x 128 frames, 1024 -> 384) and the
-query tower (50 queries x 30 tokens on the 32-token grid, 768 -> 384),
-both branches, 4 heads, in f32 and bf16: the chain alone
+query tower (50 and 256 queries x 30 tokens on the 32-token grid, 768 ->
+384), both branches, 4 heads, in f32 and bf16: the chain alone
 (`query_tower.tower_cuda`) on weights packed once, as the eval runs it.
 For each case the base source's device time by kernel instance comes
 first (torch.profiler over 10 chains). Each variant is the source with a
@@ -22,6 +22,12 @@ checkout it sits in, or of DIR with --tree):
     python3 dldkd_tpu_torch/tools/tower_variants.py [variant ...]  # all
     python3 dldkd_tpu_torch/tools/tower_variants.py --tree DIR     # by
                                           # kernel only, the port in DIR
+    python3 dldkd_tpu_torch/tools/tower_variants.py --by-kernel    # by
+                                          # kernel only, this checkout
+
+--save FILE writes each case's outputs (torch.save, on the CPU), for
+`tower_epilogues.py --compare` against another checkout's on the same
+seeded inputs.
 """
 
 from __future__ import annotations
@@ -56,18 +62,25 @@ VARIANTS = {
     # f32 products without the split pass (wrong outputs: small is stale)
     "f32_nosplit": [("      for (int o = tid * 16; o < STAGE; o += THREADS * 16) {",
                      "      for (int o = tid * 16; o < 0; o += THREADS * 16) {")],
-    # the GEMM's bf16 output rounded two values at a time
+    # the products' bf16 outputs rounded two values at a time
     "bf16_store_pairs": [(
-        "    for (int j = 0; j < CPT; ++j) ov[j] = narrow<T>(v[j]);",
-        "    for (int j = 0; j < CPT; j += 2) {\n"
-        "      if constexpr (P::SPLIT) {\n"
-        "        ov[j] = narrow<T>(v[j]);\n"
-        "        ov[j + 1] = narrow<T>(v[j + 1]);\n"
-        "      } else {\n"
-        "        *reinterpret_cast<__nv_bfloat162*>(ov + j) =\n"
-        "            __floats2bfloat162_rn(v[j], v[j + 1]);\n"
-        "      }\n"
-        "    }")],
+        "  for (int j = 0; j < 16 / (int)sizeof(T); ++j) ov[j] = narrow<T>(v[j]);",
+        "  for (int j = 0; j < 16 / (int)sizeof(T); j += 2) {\n"
+        "    if constexpr (sizeof(T) == 4) {\n"
+        "      ov[j] = narrow<T>(v[j]);\n"
+        "      ov[j + 1] = narrow<T>(v[j + 1]);\n"
+        "    } else {\n"
+        "      *reinterpret_cast<__nv_bfloat162*>(ov + j) =\n"
+        "          __floats2bfloat162_rn(v[j], v[j + 1]);\n"
+        "    }\n"
+        "  }")],
+    # the whole-row products without their LayerNorm statistics (wrong
+    # outputs: what the statistics cost)
+    "rows_no_stats": [(
+        "    for (int rl = rank + cl * warp; rl < rows; rl += cl * NWARPS) {\n"
+        "      const T* x = row_of(rl, true);",
+        "    for (int rl = rows; rl < rows; rl += cl * NWARPS) {\n"
+        "      const T* x = row_of(rl, true);")],
     # f32 attention in key tiles of 64 instead of 32
     "attn_f32_keys64": [("  constexpr int KT = A::SPLIT ? 32 : TILE;",
                          "  constexpr int KT = A::SPLIT ? 64 : TILE;")],
@@ -120,13 +133,14 @@ def cases(dev):
         model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(2))
         tw = tower_weights(model.eval(), dev)
         for kind, n, l, lp, d in (("context", 200, 128, 128, 1024),
-                                  ("query", 50, 30, 32, 768)):
+                                  ("query", 50, 30, 32, 768),
+                                  ("query", 256, 30, 32, 768)):
             x = torch.randn(n, lp, d, generator=gen)
             x = (x / x.norm(dim=-1, keepdim=True)).to(dev)
             lengths = torch.randint(3, l + 1, (n,), generator=gen)
             mask = (torch.arange(lp)[None] < lengths[:, None]).float().to(dev)
             packed = tw["packed"][kind][0]
-            out[f"{kind} {dtype}"] = (
+            out[f"{kind} {n} {dtype}"] = (
                 lambda x=x, mask=mask, packed=packed, tdt=tdt, kind=kind,
                 l=l: qt.tower_cuda(x, mask, packed, 4, tdt, kind,
                                    pos_rows=l))
@@ -150,6 +164,17 @@ def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
+def kernel_name(name: str) -> str:
+    """A kernel instance's name without namespaces and parameters:
+    'gemm_mma_kernel<Bf16, 2>'."""
+    name = name.replace("(anonymous namespace)::", "")
+    base, _, rest = name.partition("<")
+    if not rest:
+        return name.split(" (")[0]
+    base = base.split()[-1].split("::")[-1]
+    return f"{base}<{rest.split('>(')[0]}>"
+
+
 def by_kernel(fn, n: int = 10) -> dict:
     """Device ms per chain of each kernel instance (torch.profiler)."""
     import torch
@@ -166,8 +191,7 @@ def by_kernel(fn, n: int = 10) -> dict:
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        name = e.name.split("::")[-1] if "::" in e.name else e.name
-        out[name] = out.get(name, 0.0) + (
+        out[kernel_name(e.name)] = out.get(kernel_name(e.name), 0.0) + (
             e.time_range.end - e.time_range.start) / n / 1e3
     return out
 
@@ -178,6 +202,9 @@ def main() -> None:
     ap.add_argument("--tree", default=ROOT,
                     help="the checkout whose port is timed (by kernel only "
                          "when it is not this one)")
+    ap.add_argument("--by-kernel", action="store_true",
+                    help="time the chains by kernel and run no variant")
+    ap.add_argument("--save", help="torch.save each case's outputs here")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
@@ -199,7 +226,10 @@ def main() -> None:
                           "chain_ms": cuda_ms(fn),
                           "device_ms": sum(kernels.values()),
                           "device_ms_by_kernel": kernels}), flush=True)
-    if os.path.abspath(args.tree) != ROOT:
+    if args.save:
+        torch.save({case: [t.cpu() for t in fn()]
+                    for case, fn in launches.items()}, args.save)
+    if args.by_kernel or os.path.abspath(args.tree) != ROOT:
         return
     names = args.variants or list(VARIANTS)
     libs = build_variants(build, names)

@@ -147,8 +147,12 @@ def test_tower_kernels_match_plain(dev, dtype, branches, kind):
 # to 16 on the query grid), 20, 43 and 128 rows (one key tile), 136 and 300
 # (two and three key tiles of 128: the softmax's max and sum over every
 # tile first); an input width and hidden size that are not multiples of 8
-# (44 and 36: 4 heads of 9 dims); one 256-dim head (key tiles of 64). Each
-# case has an all-masked row.
+# (44 and 36: 4 heads of 9 dims); one 256-dim head (key tiles of 64). The
+# whole-row products (LayerNorm and pooling in the epilogue): query
+# sequences of 24 and 40 rows (64 rows hold two and one of them), 64 and
+# 72 (one row tile, two), hidden 520 (a cluster of five 128-column
+# blocks) and 1,032 (two passes of the eight-block cluster, the rows
+# through L2). Each case has an all-masked row.
 # (kind, n, l, d, hidden, heads): positional tables of l rows
 _TOWER_EDGES = [("context", 1, 1, 72, 96, 4), ("context", 7, 9, 40, 96, 4),
                 ("context", 4, 16, 72, 96, 4), ("context", 13, 5, 40, 96, 4),
@@ -160,7 +164,13 @@ _TOWER_EDGES = [("context", 1, 1, 72, 96, 4), ("context", 7, 9, 40, 96, 4),
                 ("query", 3, 136, 40, 96, 4), ("context", 2, 300, 72, 96, 4),
                 ("query", 2, 300, 40, 96, 4), ("context", 6, 20, 44, 36, 4),
                 ("query", 9, 11, 44, 36, 4), ("context", 4, 20, 48, 256, 1),
-                ("query", 9, 11, 48, 256, 1)]
+                ("query", 9, 11, 48, 256, 1), ("query", 7, 24, 40, 96, 4),
+                ("query", 5, 40, 40, 96, 4), ("query", 3, 64, 40, 96, 4),
+                ("query", 3, 72, 40, 96, 4), ("query", 5, 20, 40, 520, 4),
+                ("context", 3, 20, 72, 520, 4),
+                ("query", 2, 136, 40, 520, 4),
+                ("query", 3, 16, 40, 1032, 8),
+                ("context", 2, 16, 40, 1032, 8)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -200,18 +210,19 @@ def test_tower_tiling_edges_match_plain(dev, dtype, branches, kind, n, l, d,
 
 
 # one chain for both dtypes: the tensor-core entries of csrc/tower_mma.cu,
-# csrc/tower.cu's LayerNorm and pooling, and no SIMT product
+# the LayerNorms and the pooling in the whole-row products' epilogues
+# (tower_gemm_ln), and no SIMT product
 _TOWER_ENTRIES = {("tower_mma", "tower_normalize"),
                   ("tower_mma", "tower_gemm_mma"),
-                  ("tower_mma", "tower_attention_mma"),
-                  ("tower", "tower_layernorm"), ("tower", "tower_pool")}
+                  ("tower_mma", "tower_gemm_ln"),
+                  ("tower_mma", "tower_attention_mma")}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_towers_bind_their_dtype_entries(dev, bound_symbols, dtype):
     """f32 and bf16 towers run the same tensor-core entries of
-    csrc/tower_mma.cu (f32 in 3xTF32) and csrc/tower.cu's LayerNorm and
-    pooling; csrc/tower.cu holds no product."""
+    csrc/tower_mma.cu (f32 in 3xTF32), LayerNorm and pooling in the
+    products' epilogues; nothing of csrc/tower.cu (the int8 epilogue)."""
     gen = torch.Generator().manual_seed(10)
     cfg = ModelConfig(visual_input_size=72, query_input_size=40,
                       inheritance_hidden=96, exploration_hidden=96,
@@ -227,26 +238,81 @@ def test_towers_bind_their_dtype_entries(dev, bound_symbols, dtype):
     assert set(bound_symbols) == _TOWER_ENTRIES
 
 
+def _device_kernels(fn):
+    """Names of the CUDA kernels fn() runs on the card (torch.profiler),
+    copies and fills apart."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,emit_q8,want", [("query", False, 5),
+                                               ("context", False, 6),
+                                               ("context", True, 7)])
+def test_tower_chain_launches(dev, dtype, kind, emit_q8, want):
+    """One tower launch runs 5 kernels (query), 6 (video) or 7 (video with
+    the int8 epilogue): normalize, the projection with its LayerNorm, Q|K|V,
+    attention, the output product with its LayerNorm (and the query
+    tower's pooling), out_mapping, the int8 epilogue; no separate
+    LayerNorm or pooling kernel."""
+    cfg = ModelConfig(visual_input_size=72, query_input_size=40,
+                      inheritance_hidden=96, exploration_hidden=96,
+                      max_ctx_l=20, max_desc_l=16, n_heads=4,
+                      double_branch=True, dtype=dtype)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(2))
+    tw = tower_weights(model, dev)
+    gen = torch.Generator().manual_seed(4)
+    n, l, d = (5, 16, 40) if kind == "query" else (5, 20, 72)
+    x = torch.randn(n, l, d, generator=gen).to(dev)
+    mask = _mask(n, l, gen, dev)
+    names = _device_kernels(lambda: qt.tower_cuda(
+        x, mask, tw["packed"][kind][0], 4, getattr(torch, dtype), kind,
+        emit_q8=emit_q8))
+    assert len(names) == want, names
+    assert not any("layernorm_kernel" in k or "pool_kernel" in k
+                   for k in names)
+    assert sum("gemm_rows_kernel" in k for k in names) == 2
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_towers_compute_at_l_136(dev, dtype):
     """136 frames, past the 128 rows the attention once held whole: two key
     tiles and two query tiles, through the kernels, within the tower
-    tolerance of the plain version."""
+    tolerance of the plain version; and a query tower of 136 tokens, whose
+    pooling walks three 64-row tiles of each sequence."""
     cfg = ModelConfig(visual_input_size=72, query_input_size=40,
                       inheritance_hidden=96, exploration_hidden=96,
-                      max_ctx_l=136, max_desc_l=11, n_heads=4,
+                      max_ctx_l=136, max_desc_l=136, n_heads=4,
                       double_branch=True, dtype=dtype)
     model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(2))
     tdt = getattr(torch, dtype)
-    ws = tower_weights(model, dev)["context"]
+    tw = tower_weights(model, dev)
     gen = torch.Generator().manual_seed(13)
     x = torch.randn(2, 136, 72, generator=gen).to(dev)
     mask = _mask(2, 136, gen, dev)
     before = qt.LAUNCHES["context_tower"]
-    got = qt.context_towers(x, mask, ws, 4, tdt, "test")
-    want = qt.context_towers(x, mask, ws, 4, tdt, "test", plain=True)
+    got = qt.context_towers(x, mask, tw["context"], 4, tdt, "test")
+    want = qt.context_towers(x, mask, tw["context"], 4, tdt, "test",
+                             plain=True)
     torch.cuda.synchronize()
     assert qt.LAUNCHES["context_tower"] == before + 1
+    xq = torch.randn(3, 136, 40, generator=gen).to(dev)
+    mq = _mask(3, 136, gen, dev)
+    before = qt.LAUNCHES["query_tower"]
+    got += qt.query_towers(xq, mq, tw["query"], 4, tdt, 136, "test")
+    want += qt.query_towers(xq, mq, tw["query"], 4, tdt, 136, "test",
+                            plain=True)
+    torch.cuda.synchronize()
+    assert qt.LAUNCHES["query_tower"] == before + 1
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(),

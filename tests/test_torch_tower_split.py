@@ -101,9 +101,13 @@ def _key_tile(l, depth, f32):
     return 64 if depth > 128 else 128
 
 
-def emulate_tower(x, mask, packed, n_heads, dtype, kind, pos_rows=None):
+def emulate_tower(x, mask, packed, n_heads, dtype, kind, pos_rows=None,
+                  ln=None, pool=None):
     """The CUDA chain of `query_tower.tower_cuda` in torch on the packed
-    operands, kernel by kernel, at the kernels' rounding points."""
+    operands, kernel by kernel, at the kernels' rounding points. ln(v,
+    gamma, beta, hdim, rt) and pool(out (N, L, H), mask, wm (H,)) replace
+    the LayerNorm and the pooling written here with torch's reductions
+    (tests/test_torch_tower_fused.py passes the epilogue's sum orders)."""
     f32 = dtype == torch.float32
     hdim, _, d = (int(v) for v in packed["dims"])
     g_n, hp = packed["g1"].shape
@@ -122,11 +126,19 @@ def emulate_tower(x, mask, packed, n_heads, dtype, kind, pos_rows=None):
     def mmw(a, name, b=None):  # a product with a packed weight
         return mm(a, packed[name] if b is None else packed[name][b])
 
-    def ln(v, gamma, beta):  # statistics over the true width, zero pad
-        t = v[..., :hdim]
+    def ln_mean(v, gamma, beta, hdim, rt):  # statistics over the true
+        t = v[..., :hdim]                   # width, zero pad
         mu = t.mean(-1, keepdim=True)
         var = (t * t).mean(-1, keepdim=True) - mu * mu
         return rt((v - mu) * torch.rsqrt(var + 1e-5) * gamma + beta)
+
+    def pool_softmax(out, mask, wm):
+        att = torch.softmax(torch.where(mask > 0, out @ wm, torch.full(
+            mask.shape, qt.NEG_INF)), dim=-1)
+        return (out * att[..., None]).sum(1)
+
+    ln = ln or ln_mean
+    pool = pool or pool_softmax
 
     # 1. normalize, at the padded width
     xf = rt(x.reshape(m, d))
@@ -134,16 +146,16 @@ def emulate_tower(x, mask, packed, n_heads, dtype, kind, pos_rows=None):
     var = (xf * xf).mean(-1, keepdim=True) - mu * mu
     xn = torch.nn.functional.pad(rt((xf - mu) * torch.rsqrt(var + 1e-5)),
                                  (0, dp - d))
-    # 2. projection, + positions on each sequence's first rows
+    # 2. projection, + positions on each sequence's first rows, LayerNorm
     h = rt(torch.relu(mmw(xn, "wp") + packed["bp"])).reshape(n, l, -1)
     rows = qt._pos_rows(packed, l, pos_rows)
     h[:, :rows] = rt(h[:, :rows] + packed["pos"][:rows])
     h = h.reshape(m, g_n, hp)
     outs = []
     for b in range(g_n):
-        h2 = ln(h[:, b], packed["g1"][b], packed["b1"][b])      # 3
-        qkv = rt(mmw(h2, "wqkv", b) + packed["bqkv"][b])         # 4
-        # 5. attention per head, key tiles of the kernel's size
+        h2 = ln(h[:, b], packed["g1"][b], packed["b1"][b], hdim, rt)  # 2
+        qkv = rt(mmw(h2, "wqkv", b) + packed["bqkv"][b])         # 3
+        # 4. attention per head, key tiles of the kernel's size
         depth = dhp if f32 else -(-dhp // 16) * 16
         kt = _key_tile(l, depth, f32)
         bias = (1.0 - mask) * qt.NEG_BIG
@@ -173,15 +185,12 @@ def emulate_tower(x, mask, packed, n_heads, dtype, kind, pos_rows=None):
                 o = o / tot
             ctx[..., hh * dhp:(hh + 1) * dhp] = o
         ctx = rt(ctx.reshape(m, hq))
-        o = rt(rt(mmw(ctx, "wo", b) + packed["bo"][b]) + h2)     # 6
-        out = ln(o, packed["g2"][b], packed["b2"][b])            # 7
-        if kind == "query":                                      # 8
+        o = rt(rt(mmw(ctx, "wo", b) + packed["bo"][b]) + h2)     # 5
+        out = ln(o, packed["g2"][b], packed["b2"][b], hdim, rt)
+        if kind == "query":                             # 5: the pooling
             out = out.reshape(n, l, hp)[..., :hdim]
-            att = out @ packed["wm"][b, :hdim]
-            att = torch.softmax(torch.where(mask > 0, att, torch.full_like(
-                att, qt.NEG_INF)), dim=-1)
-            outs.append((out * att[..., None]).sum(1))
-        else:
+            outs.append(pool(out, mask, packed["wm"][b, :hdim]))
+        else:                                                    # 6
             y = mmw(out, "wm", b) + packed["bm"][b]
             outs.append(y.reshape(n, l, hp)[..., :hdim].to(dtype))
     return outs
