@@ -38,9 +38,11 @@ package. Phases, in order; any failure exits non-zero without the final
    serving run it, with `device_ms` beside it: the chain's kernels alone
    (torch.profiler), without the host's time between launches; then the
    towers at the shapes the kernels once refused (sequences of 136 and 300
-   rows, an input width of 44 with hidden 36 in 4 heads, one 256-dim head),
+   rows, an input width of 44 with hidden 36 in 4 heads, one 256-dim head,
+   and the ActivityNet and Charades input width of 1,024 at hidden 384),
    both kinds, both dtypes, against their plain versions (the query tower
-   also on 136 tokens at the serving width, through `_tower_check`); then
+   also on 136 tokens at the serving width, and at the query width of
+   1,024 on the eval's 50 queries, through `_tower_check`); then
    the towers' LayerNorms and pooling in the whole-row products'
    epilogues (`phase_epilogues`, `tools/tower_epilogues.py`): each fused
    product against the same product without them, its rows against the
@@ -59,7 +61,24 @@ package. Phases, in order; any failure exits non-zero without the final
    that dataset against the numpy path (its call count, the largest
    difference); then the serving CLI in fresh processes, `--save_index`
    without queries and `--load_index` with the .npz queries and no dataset
-   flags, whose lines must be the in-process two-stage run's;
+   flags, whose lines must be the in-process two-stage run's; between
+   them, the paper's other entry points (`phase_entry_scripts`), each in
+   a fresh process with no device flag: the f32 weights above pickled as
+   the reference's model.ckpt (`module.` names, an EasyDict config),
+   `python -m dldkd_tpu_torch.convert`, then scripts/torch/do_test.sh on
+   the converted directory (parameters bitwise and model_cfg.json equal to
+   the directly written checkpoint's, the same test metrics as
+   `infer.main`); scripts/torch/do_activitynet.sh and do_charades.sh at
+   their widths (video and query 1,024, hidden 384 x 2, 4 heads, 128
+   frames, 30 tokens; 256 train, 100 val and 100 test synthetic videos, 2
+   epochs), each followed by do_test.sh with the dataset's eval feature
+   (Charades: trained on i3d_rgb_lgi, do_test.sh given an i3d directory
+   of other data; the restored opt.json's feature must be read): finite
+   losses, two validations, the best checkpoint, the script's flags in
+   opt.json, the eval log's rows; then one validation of each trained
+   checkpoint in this process through the f32 kernels (each launched, no
+   plain version run) against the plain versions, ranks equal, and the
+   run's best validation SumR reproduced;
 5. `evaluate.eval_retrieval` at TVR test-split scale (2,179 videos x 128
    frames, 10,895 queries, both branches), in bf16 and in f32: metrics,
    wall time, peak memory and launch counts; one more pass of each under
@@ -218,7 +237,9 @@ entries of their own, their launches those of stage_bench's one-branch
 rows and their times phase 3's one-branch bf16 checks. Each kernel that
 `phase_parallel` or `phase_serving_mesh` ran also carries its launches
 on each of those phases' paths (`parallel_launches`; the serving paths
-named "serving <route>, <mesh>").
+named "serving <route>, <mesh>"). Each kernel that the in-process
+validations of `phase_entry_scripts` ran (f32 scoring, both f32 towers)
+also carries its launches there (`entry_launches`, by dataset).
 """
 
 from __future__ import annotations
@@ -272,6 +293,12 @@ SERVE = dict(query_bsz=256, k=10, plain_queries=512, shortlist=40)
 # the streaming eval's query batch (run_retrieval_eval's, at least 64) and
 # the block at which the scorers are held against their plain versions
 STREAM = dict(blocks=(512, 2048), query_bsz=64, check_block=512)
+# the ActivityNet and Charades scripts' datasets: the I3D width of their
+# public features and their query width (1,024 both), 128 frames, 30
+# tokens, CLIP's 512-wide teacher; small splits, two epochs; the models at
+# the scripts' widths (hidden 384 x 2, 4 heads: the flags' defaults)
+ENTRY = dict(n_train=256, n_val=100, n_test=100, d_video=1024, d_query=1024,
+             d_teacher=512, noise=6.0, n_epoch=2)
 
 
 def fail(msg: str) -> None:
@@ -402,14 +429,15 @@ def phase_build():
           "libraries": {k: str(v) for k, v in libs.items()}})
 
 
-def _serving_model(dtype: str, seed: int, tokens: int = TVR["tokens"]):
+def _serving_model(dtype: str, seed: int, tokens: int = TVR["tokens"],
+                   d_query: int = TVR["d_query"]):
     import torch
 
     from dldkd_tpu_torch.config import ModelConfig
     from dldkd_tpu_torch.models import DLDKD
 
     cfg = ModelConfig(visual_input_size=TVR["d_video"],
-                      query_input_size=TVR["d_query"],
+                      query_input_size=d_query,
                       inheritance_hidden=TVR["hidden"],
                       exploration_hidden=TVR["hidden"],
                       max_ctx_l=TVR["frames"], max_desc_l=tokens,
@@ -637,10 +665,14 @@ def phase_kernels(dev):
         model = _serving_model(dtype, seed=2)
         ws = tower_weights(model, dev)
         ws136 = tower_weights(_serving_model(dtype, seed=2, tokens=136), dev)
+        ws1024 = tower_weights(_serving_model(dtype, seed=2,
+                                              d_query=ENTRY["d_query"]), dev)
         cases = [("query", nq, TVR["tokens"], TVR["d_query"], ws, (2, 1)),
                  ("context", TVR["context_bsz"], lf, TVR["d_video"], ws,
                   (2, 1)),
-                 ("query", nq, 136, TVR["d_query"], ws136, (2,))]
+                 ("query", nq, 136, TVR["d_query"], ws136, (2,)),
+                 ("query", nq, TVR["tokens"], ENTRY["d_query"], ws1024,
+                  (2,))]
         if dtype == "bfloat16":
             cases.insert(1, ("query", SERVE["query_bsz"], TVR["tokens"],
                              TVR["d_query"], ws, (2, 1)))
@@ -681,17 +713,20 @@ def phase_kernels(dev):
                     key += (n,)
                 elif l == 136:
                     key += ("L136",)
+                elif d == ENTRY["d_query"] and kind == "query":
+                    key += ("d1024",)
                 results[key] = rec
-        del model, ws, ws136
+        del model, ws, ws136, ws1024
         torch.cuda.empty_cache()
     return results
 
 
 # (L, input width, hidden, heads) the tower kernels once refused: two and
 # three key tiles, widths that are not multiples of 8 (4 heads of 9 dims),
-# one 256-dim head
+# one 256-dim head; and the ActivityNet and Charades query width (1,024)
+# at the serving model's hidden size
 TOWER_SHAPES = ((136, 64, 32, 4), (300, 64, 32, 4), (20, 44, 36, 4),
-                (20, 48, 256, 1))
+                (20, 48, 256, 1), (30, 1024, 384, 4))
 
 
 def phase_tower_shapes(dev):
@@ -871,6 +906,10 @@ def _check_metrics(metrics, what: str) -> None:
             fail(f"{what}: bad {branch} metrics {m}")
 
 
+# the seed of phase_infer's weights (run_<dtype>/ckpt)
+INFER_SEED = 4
+
+
 def phase_infer(workdir: str):
     """The do_test.sh path through dldkd_tpu_torch.infer.main."""
     import os
@@ -887,7 +926,7 @@ def phase_infer(workdir: str):
     setup_s = time.perf_counter() - t0
     for dtype in ("bfloat16", "float32"):
         run_dir = os.path.join(workdir, f"run_{dtype}")
-        _write_run(run_dir, root, dtype, seed=4)
+        _write_run(run_dir, root, dtype, seed=INFER_SEED)
         _reset_counts()
         t0 = time.perf_counter()
         metrics = infer.main(["--model_dir", run_dir, "--root_path", root,
@@ -900,6 +939,291 @@ def phase_infer(workdir: str):
         _check_metrics(metrics, f"infer.main {dtype}")
         _check_launched(counts, _eval_kernels(dtype), f"infer.main {dtype}")
     return root
+
+
+# (script, collection, training feature, do_test.sh's feature, seeds of
+# the two feature directories, the script's own flags as opt.json keeps
+# them); Charades trains on i3d_rgb_lgi and do_test.sh is given i3d, a
+# directory of other data: the restored opt.json's feature must win
+ENTRY_SCRIPTS = (
+    ("do_activitynet.sh", "activitynet", "i3d", "i3d", (21, 21),
+     {"exp_id": "ac_DLDKD++", "drop": 0.25, "input_drop": 0.25,
+      "lr": 2.5e-4}),
+    ("do_charades.sh", "charades", "i3d_rgb_lgi", "i3d", (22, 23),
+     {"exp_id": "charades_DLDKD++", "drop": 0.15, "input_drop": 0.15,
+      "lr": 0.00024}),
+)
+
+
+def _script_env(workdir: str) -> dict:
+    """The environment for scripts/torch/*.sh: `python` on PATH is this
+    interpreter."""
+    bindir = os.path.join(workdir, "python_bin")
+    os.makedirs(bindir, exist_ok=True)
+    with open(os.path.join(bindir, "python"), "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(bindir, "python"), 0o755)
+    return dict(os.environ, PATH=f"{bindir}:{os.environ.get('PATH', '')}")
+
+
+def _fresh(cmd, env, what: str) -> float:
+    """cmd in a fresh process from the repository root; its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=600, env=env,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        fail(f"{what}: exit {proc.returncode}: {proc.stderr[-2500:]}")
+    return time.perf_counter() - t0
+
+
+def _script(name: str, args, env) -> float:
+    return _fresh(["bash", os.path.join("scripts", "torch", name), *args],
+                  env, f"scripts/torch/{name}")
+
+
+def _eval_blocks(run_dir: str) -> list:
+    """eval.log.txt's blocks, one per inference, without their
+    timestamps."""
+    blocks = []
+    with open(os.path.join(run_dir, "eval.log.txt")) as f:
+        for line in f.read().splitlines():
+            if line.startswith("test "):
+                blocks[-1].append(line)
+            else:
+                blocks.append([])
+    return blocks
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) of every leaf of a tree of dicts."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _entry_converter(workdir: str, env) -> None:
+    """(a) phase_infer's f32 weights as the reference's model.ckpt pickle,
+    `python -m dldkd_tpu_torch.convert` and do_test.sh in fresh processes;
+    the converted directory against phase_infer's own."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dldkd_tpu_torch import convert
+    from dldkd_tpu_torch.checkpoint import read_checkpoint
+
+    model = _serving_model("float32", INFER_SEED)
+    src = os.path.join(workdir, "run_float32")
+    ref = os.path.join(workdir, "reference_model.ckpt")
+    convert._ensure_fake_easydict()
+    saved_cfg = sys.modules["easydict"].EasyDict({
+        k: getattr(model.config, k) for k in (
+            "visual_input_size", "query_input_size", "max_ctx_l",
+            "max_desc_l", "n_heads", "input_drop", "drop",
+            "initializer_range", "margin", "hard_pool_size")})
+    torch.save({"model": {"module." + k: v.detach().cpu()
+                          for k, v in model.state_dict().items()},
+                "model_cfg": saved_cfg, "epoch": 5}, ref)
+    run = os.path.join(workdir, "run_converted")
+    # the model's own label_style: _write_run's config keeps the default
+    convert_s = _fresh([sys.executable, "-m", "dldkd_tpu_torch.convert",
+                        "--torch_ckpt", ref, "--out_dir",
+                        os.path.join(run, "ckpt"), "--label_style",
+                        model.config.label_style], env,
+                       "python -m dldkd_tpu_torch.convert")
+    shutil.copy(os.path.join(src, "opt.json"), os.path.join(run, "opt.json"))
+    test_s = _script("do_test.sh", ["synthetic", "i3d",
+                                    os.path.join(workdir, "data"), run], env)
+    converted = read_checkpoint(os.path.join(run, "ckpt"))
+    got = dict(_leaves(converted["params"]))
+    want = dict(_leaves(read_checkpoint(os.path.join(src, "ckpt"))["params"]))
+    bitwise = got.keys() == want.keys() and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+        for k in want)
+    cfgs = []
+    for d in (run, src):
+        with open(os.path.join(d, "ckpt", "model_cfg.json")) as f:
+            cfgs.append(json.load(f))
+    epoch = int(converted["epoch"])
+    conv_eval, direct_eval = _eval_blocks(run)[-1], _eval_blocks(src)[-1]
+    emit({"phase": "entry_converter", "convert_s": convert_s,
+          "do_test_s": test_s, "params_bitwise": bitwise,
+          "n_params": len(got), "model_cfg_equal": cfgs[0] == cfgs[1],
+          "epoch": epoch, "do_test_eval": conv_eval,
+          "infer_main_eval": direct_eval})
+    if not bitwise or cfgs[0] != cfgs[1] or epoch != 5:
+        fail(f"converter: parameters bitwise {bitwise}, model_cfg.json "
+             f"{cfgs[0]} against {cfgs[1]}, epoch {epoch}")
+    if len(conv_eval) != 3 or conv_eval != direct_eval:
+        fail(f"converter: do_test.sh on the converted checkpoint gave "
+             f"{conv_eval}, infer.main on the same weights {direct_eval}")
+
+
+def _entry_dataset(root: str, script, collection, train_feat, eval_feat,
+                   flags, env, dev) -> dict:
+    """(b) one dataset script and do_test.sh in fresh processes, then one
+    validation of the trained checkpoint in this process, through the
+    kernels and through the plain versions; returns that validation's
+    launch counts."""
+    import dataclasses
+
+    import torch
+
+    from dldkd_tpu_torch import checkpoint as ckpt_lib
+    from dldkd_tpu_torch import infer
+    from dldkd_tpu_torch.config import parse_args
+    from dldkd_tpu_torch.convert import load_jax_params
+    from dldkd_tpu_torch.evaluate import run_retrieval_eval, score_matrices
+    from dldkd_tpu_torch.metrics import build_gt_indices
+    from dldkd_tpu_torch.models import DLDKD
+
+    what = f"scripts/torch/{script}"
+    res = os.path.join(os.path.dirname(root), f"entry_{collection}")
+    train_s = _script(script, [root, "--n_epoch", str(ENTRY["n_epoch"]),
+                               "--results_root", res], env)
+    run_dir = _run_dir(res)
+    steps, sumrs, epochs = _train_history(run_dir)
+    _check_losses(steps, what)
+    for rel in ("ckpt/model.ckpt", "opt.json", "eval.log.txt"):
+        if not os.path.isfile(os.path.join(run_dir, rel)):
+            fail(f"{what}: {rel} missing from the run directory")
+    if epochs != list(range(ENTRY["n_epoch"])) \
+            or len(sumrs) != ENTRY["n_epoch"]:
+        fail(f"{what}: epochs {epochs}, validation SumRs {sumrs}")
+    with open(os.path.join(run_dir, "opt.json")) as f:
+        opt = json.load(f)
+    want = {"collection": collection, "dset_name": collection,
+            "visual_feature": train_feat, "q_feat_size": ENTRY["d_query"],
+            "model_name": "DLDKD", "label_style": "soft",
+            "double_branch": True, "distill_loss_decay": "exp", **flags}
+    off = {k: (opt.get(k), v) for k, v in want.items() if opt.get(k) != v}
+    if off:
+        fail(f"{what}: opt.json differs from the script's flags: {off}")
+
+    test_s = _script("do_test.sh", [collection, eval_feat, root, run_dir],
+                     env)
+    blocks = _eval_blocks(run_dir)
+    # do_test.sh reads the restored opt.json's feature: the post-train
+    # inference's metrics again
+    if len(blocks) != 2 or len(blocks[1]) != 3 \
+            or not blocks[1][2].startswith("test fused") \
+            or blocks[1] != blocks[0]:
+        fail(f"{what}: eval.log.txt after do_test.sh {collection} "
+             f"{eval_feat}: {blocks}")
+
+    # in this process: the feature the restored config names, and on
+    # Charades the other directory's metrics, which must differ
+    cfg = parse_args(["--model_dir", run_dir, "--root_path", root],
+                     test=True, finalize=False)
+    if cfg.data.visual_feature != train_feat:
+        fail(f"{what}: the restored config names "
+             f"{cfg.data.visual_feature}, trained on {train_feat}")
+    other = None
+    if eval_feat != train_feat:
+        infer.start_inference(cfg, device=dev)
+        infer.start_inference(dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data,
+                                          visual_feature=eval_feat)),
+            device=dev)
+        blocks = _eval_blocks(run_dir)
+        other = blocks[3]
+        if blocks[2] != blocks[1] or blocks[3] == blocks[1]:
+            fail(f"{what}: {train_feat} in this process gave {blocks[2]}, "
+                 f"do_test.sh {blocks[1]}, {eval_feat} {blocks[3]}")
+
+    ckpt_dir = os.path.join(run_dir, "ckpt")
+    mcfg = ckpt_lib.load_model_cfg(ckpt_dir)
+    params, best_epoch = ckpt_lib.restore_params_only(ckpt_dir)
+    model = load_jax_params(DLDKD(mcfg), params).to(dev).eval()
+    videos, queries = infer.pack_split(cfg, "val", mcfg)
+    _reset_counts()
+    with _PlainCalls() as plain:
+        t0 = time.perf_counter()
+        val = run_retrieval_eval(model, videos, queries, cfg.eval,
+                                 device=dev)
+        torch.cuda.synchronize()
+        val_s = time.perf_counter() - t0
+    counts = _counts()
+    with torch.no_grad():
+        k_i, k_e = score_matrices(model, videos, queries,
+                                  cfg.eval.eval_context_bsz,
+                                  cfg.eval.eval_query_bsz, dev)
+        p_i, p_e = score_matrices(model, videos, queries,
+                                  cfg.eval.eval_context_bsz,
+                                  cfg.eval.eval_query_bsz, dev, plain=True)
+    gt = torch.from_numpy(build_gt_indices(queries.video_ids,
+                                           videos.ids)).to(dev)
+    rank_flips = int((_rank_rows(k_i, k_e, gt)
+                      != _rank_rows(p_i, p_e, gt)).sum())
+    score_err = max(max_err(k_i, p_i), max_err(k_e, p_e))
+    emit({"phase": "entry_script", "script": script,
+          "collection": collection, "train_feature": train_feat,
+          "do_test_feature": eval_feat, "train_s": train_s,
+          "do_test_s": test_s, "steps": len(steps),
+          "loss_overall": [r["Train/loss_overall"] for r in steps],
+          "val_fused_sumr": sumrs, "best_epoch": best_epoch,
+          "do_test_eval": blocks[1], "other_feature_eval": other,
+          "validation_s": val_s, "val_videos": len(videos),
+          "val_queries": len(queries), "val_metrics": val,
+          "launches": counts, "plain_calls": plain.calls,
+          "kernel_vs_plain_scores_max_abs_err": score_err,
+          "tol": TOL[("scores", "float32")], "rank_flips": rank_flips})
+    _check_metrics(val, f"{what} validation")
+    _check_launched(counts, _eval_kernels("float32"), f"{what} validation")
+    if plain.calls:
+        fail(f"{what} validation: plain versions ran {plain.calls}")
+    if rank_flips or not score_err <= TOL[("scores", "float32")]:
+        fail(f"{what} validation: kernel vs plain, {rank_flips} ranks "
+             f"differ, scores by {score_err}")
+    if val["fused"]["sumr"] != max(sumrs):
+        fail(f"{what}: the best checkpoint's validation gives fused SumR "
+             f"{val['fused']['sumr']}, the run logged {sumrs}")
+    del model, k_i, k_e, p_i, p_e
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_entry_scripts(workdir: str, dev) -> dict:
+    """The paper's other entry points on the card, each in a fresh process
+    with no device flag: (a) the released-checkpoint converter on
+    phase_infer's f32 weights, then do_test.sh on its output; (b)
+    scripts/torch/do_activitynet.sh and do_charades.sh at their widths
+    (query 1,024) on a small synthetic root, each followed by do_test.sh.
+    Returns {path: launch counts} of the in-process validations."""
+    from dldkd_tpu_torch.data.synthetic import generate_dataset
+
+    t_phase = time.perf_counter()
+    env = _script_env(workdir)
+    _entry_converter(workdir, env)
+    root = os.path.join(workdir, "entry_data")
+    t0 = time.perf_counter()
+    for _, collection, train_feat, eval_feat, seeds, _ in ENTRY_SCRIPTS:
+        # do_test.sh's feature first: the text files are then the
+        # training feature's
+        feats = ((eval_feat, seeds[1]),) if eval_feat != train_feat else ()
+        for feat, seed in feats + ((train_feat, seeds[0]),):
+            generate_dataset(
+                root, collection=collection, visual_feature=feat,
+                n_videos={"train": ENTRY["n_train"], "val": ENTRY["n_val"],
+                          "test": ENTRY["n_test"]},
+                frames_range=(20, 200), tokens_range=(5, 31),
+                d_student=ENTRY["d_video"], d_query=ENTRY["d_query"],
+                d_teacher=ENTRY["d_teacher"], noise=ENTRY["noise"],
+                seed=seed, feature_format="npz")
+    setup_s = time.perf_counter() - t0
+    launches = {}
+    for script, collection, train_feat, eval_feat, seeds, flags in \
+            ENTRY_SCRIPTS:
+        launches[f"{collection} validation"] = _entry_dataset(
+            root, script, collection, train_feat, eval_feat, flags, env,
+            dev)
+    emit({"phase": "entry_scripts", "dataset_setup_s": setup_s,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
 
 
 def _tvr_data(dev, seed: int):
@@ -4735,7 +5059,7 @@ def _parallel_launches(parallel_launches, counter: str) -> dict:
 
 def kernels_line(checks, launches, int8_launches, serve_launches,
                  train_launches, stream, q8t_checks, artifact_launches,
-                 bench, parallel, epilogues):
+                 bench, parallel, epilogues, entry):
     """Every ported kernel: its source, the TPU kernel it replaces, its
     launches on its main path and its phase-3 numbers; beside them, its
     launches in the train phase (train.main: three validations and the
@@ -4761,7 +5085,10 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
     LayerNorms, and the query tower's pooling, in the whole-row products,
     timed against the products alone, with `torch.nn.functional.layer_norm`
     as the LayerNorm's yardstick) and the query towers their check on 136
-    tokens (`check_l136`)."""
+    tokens (`check_l136`) and at the ActivityNet and Charades query width
+    of 1,024 (`check_d1024`). Each kernel that the in-process validations
+    of `phase_entry_scripts` ran carries its launches there
+    (`entry_launches`, by dataset)."""
     bench_launches, bench_checks = bench
     parallel_launches, parallel_checks = parallel
     # (launch counter, source, TPU kernel replaced, check record, path whose
@@ -4833,6 +5160,9 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
                                                         counter)
         kernels[-1]["parallel_launches"] = _parallel_launches(
             parallel_launches, counter)
+        kernels[-1]["entry_launches"] = {p: c[counter]
+                                         for p, c in entry.items()
+                                         if c.get(counter)}
         at_bench = {"query_tower": "query_tower_dual",
                     "context_tower": "context_tower_dual",
                     "sim_max_int8": "sim_max_int8",
@@ -4861,6 +5191,8 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
             if kind == "query":
                 kernels[-1]["check_l136"] = _brief(
                     checks[("query_tower", dtype, 2, "L136")])
+                kernels[-1]["check_d1024"] = _brief(
+                    checks[("query_tower", dtype, 2, "d1024")])
         if name == "context_tower_q8":
             # the in-place epilogue at the streaming block (2,048 videos)
             kernels[-1]["streaming_check"]["kernel_ms_2048"] = \
@@ -4942,6 +5274,7 @@ def main() -> None:
         os.environ["DLDKD_PACK_CACHE_DIR"] = packs
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             root = phase_infer(workdir)
+            entry = phase_entry_scripts(workdir, dev)
             phase_serving_cli(workdir, root)
         launches, videos, queries = phase_tvr_eval(dev)
         stream = phase_streaming(dev, videos, queries)
@@ -4964,7 +5297,7 @@ def main() -> None:
     kernels = kernels_line(checks, launches, int8_launches,
                            serve_launches, train_launches, stream,
                            q8t_checks, artifact_launches, bench,
-                           parallel, epilogues)
+                           parallel, epilogues, entry)
     check_no_jax()
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -26,15 +26,34 @@ torch's stacked gate weights, models/rnn.py).
 The optimizer state maps the same way: BertAdam's m and v are trees shaped
 like the parameters (`opt_state_from_jax`, `opt_state_to_jax`), and so is
 the JAX package's weight-decay mask (`wd_mask_from_jax`).
+
+Released checkpoints: `convert_torch_checkpoint` reads the reference's
+`model.ckpt` (the pickle {"model": state_dict, "model_cfg": EasyDict,
+"epoch"} of its train.py:234-235) and writes the checkpoint directory the
+JAX package's converter writes (dldkd_tpu/convert.py:147-193): model.ckpt
+and model_cfg.json, in the format `checkpoint.py` reads. The reference's
+names are the port's, so the state dict maps through
+`params_from_state_dict`. CLI:
+
+  python -m dldkd_tpu_torch.convert --torch_ckpt model.ckpt \
+      --out_dir <run>/ckpt [--label_style soft|hard]
+
+with the reference run's opt.json in <run>/; then
+`scripts/torch/do_test.sh <collection> <feature> <root> <run>` evaluates it.
 """
 
 from __future__ import annotations
 
+import argparse
+import sys
+import types
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
+from dldkd_tpu_torch import checkpoint as ckpt_lib
+from dldkd_tpu_torch.config import ModelConfig
 from dldkd_tpu_torch.models.dldkd import BRANCH_PREFIX
 
 
@@ -230,6 +249,109 @@ def params_from_state_dict(state_dict: Mapping[str, Any]
     return {"params": tree}
 
 
+# ------------------------------------------------------ released checkpoints
+
+class _FakeEasyDict(dict):
+    """Minimal easydict.EasyDict stand-in (an attribute-style dict). At
+    module level so instances pickle: the reference torch.saves its
+    model_cfg EasyDict inside model.ckpt (train.py:234-235)."""
+
+    def __getattr__(self, k):
+        try:
+            return self[k]
+        except KeyError as e:
+            raise AttributeError(k) from e
+
+    def __setattr__(self, k, v):
+        self[k] = v
+
+
+def _ensure_fake_easydict() -> None:
+    """Register the stand-in as `easydict.EasyDict` before torch.load
+    unpickles a reference checkpoint, unless a module of that name is
+    already loaded."""
+    if "easydict" in sys.modules:
+        return
+    mod = types.ModuleType("easydict")
+    _FakeEasyDict.__module__ = "easydict"
+    _FakeEasyDict.__qualname__ = "EasyDict"
+    mod.EasyDict = _FakeEasyDict
+    sys.modules["easydict"] = mod
+
+
+def _sorted_tree(tree):
+    """The tree with every dict's keys in sorted order, as JAX's tree
+    utilities rebuild it, so the written bytes are the JAX converter's."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def convert_torch_checkpoint(torch_ckpt_path: str, out_dir: str,
+                             label_style: str = "soft") -> str:
+    """Read a reference model.ckpt and write the checkpoint directory
+    (model.ckpt, model_cfg.json) that dldkd_tpu.convert writes for it:
+    the `module.` prefix stripped, two branches when any name starts with
+    `exp_`, the ModelConfig from the saved model_cfg with the state dict's
+    shapes and the JAX converter's defaults filling its gaps, the saved
+    epoch; no optimizer state. Returns out_dir."""
+    _ensure_fake_easydict()
+    ckpt = torch.load(torch_ckpt_path, map_location="cpu",
+                      weights_only=False)
+    # strip the DataParallel prefix first, so the shapes below are read
+    # under the canonical names (reference train.py:197)
+    sd = {k.removeprefix("module."): v for k, v in ckpt["model"].items()}
+    cfg_src = dict(ckpt.get("model_cfg", {}))
+    double = any(k.startswith("exp_") for k in sd)
+
+    def dim(name, axis):
+        return sd[name].shape[axis]
+
+    mcfg = ModelConfig(
+        visual_input_size=int(cfg_src.get(
+            "visual_input_size", dim("visual_input_proj.net.1.weight", 1))),
+        query_input_size=int(cfg_src.get(
+            "query_input_size", dim("query_input_proj.net.1.weight", 1))),
+        inheritance_hidden=int(cfg_src.get(
+            "inheritance_hidden", dim("visual_input_proj.net.1.weight", 0))),
+        exploration_hidden=int(cfg_src.get(
+            "exploration_hidden", dim("visual_input_proj.net.1.weight", 0))),
+        max_ctx_l=int(cfg_src.get(
+            "max_ctx_l",
+            dim("visual_pos_embed.position_embeddings.weight", 0))),
+        max_desc_l=int(cfg_src.get(
+            "max_desc_l",
+            dim("query_pos_embed.position_embeddings.weight", 0))),
+        n_heads=int(cfg_src.get("n_heads", 4)),
+        input_drop=float(cfg_src.get("input_drop", 0.1)),
+        drop=float(cfg_src.get("drop", 0.1)),
+        initializer_range=float(cfg_src.get("initializer_range", 0.02)),
+        margin=float(cfg_src.get("margin", 0.2)),
+        hard_pool_size=int(cfg_src.get("hard_pool_size", 20)),
+        double_branch=double,
+        label_style=label_style,
+    )
+    ckpt_lib.save_checkpoint(out_dir, {
+        "params": _sorted_tree(params_from_state_dict(sd)), "opt_state": {},
+        "epoch": int(ckpt.get("epoch", -1)), "best_score": 0.0,
+        "rng": np.zeros(2, np.uint32),
+    }, mcfg)
+    return out_dir
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        description="Convert a reference DL-DKD model.ckpt into the "
+                    "checkpoint directory the port and the JAX package read.")
+    p.add_argument("--torch_ckpt", required=True)
+    p.add_argument("--out_dir", required=True)
+    p.add_argument("--label_style", default="soft")
+    args = p.parse_args(argv)
+    out = convert_torch_checkpoint(args.torch_ckpt, args.out_dir,
+                                   args.label_style)
+    print(f"wrote {out}")
+
+
 # ------------------------------------------------------------------ CLIP
 # transformers' Flax CLIP tree (flax_model.msgpack) <-> models/clip.py's
 # names (transformers' PyTorch CLIPModel names): Dense kernels (in, out)
@@ -335,3 +457,7 @@ def clip_params_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
             leaves[leaf] = np.ascontiguousarray(to_flax(arr) if to_flax
                                                 else arr)
     return tree
+
+
+if __name__ == "__main__":
+    main()

@@ -209,6 +209,48 @@ def test_tower_tiling_edges_match_plain(dev, dtype, branches, kind, n, l, d,
                                    atol=TOWER_TOL[tdt], rtol=0)
 
 
+# The ActivityNet and Charades scripts' widths (scripts/torch/
+# do_activitynet.sh, do_charades.sh): query and I3D video features 1,024
+# wide, hidden 384 x 2, 4 heads, 30 tokens and 128 frames; the eval's 50
+# queries, serving's 256 and the eval's 200-video batch, both branches in
+# one launch on weights packed once.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,n", [("query", 50), ("query", 256),
+                                    ("context", 200)])
+def test_towers_at_width_1024_match_plain(dev, dtype, kind, n):
+    gen = torch.Generator().manual_seed(17)
+    cfg = ModelConfig(visual_input_size=1024, query_input_size=1024,
+                      inheritance_hidden=384, exploration_hidden=384,
+                      max_ctx_l=128, max_desc_l=30, n_heads=4,
+                      double_branch=True, dtype=dtype)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(2))
+    tdt = getattr(torch, dtype)
+    tw = tower_weights(model, dev)
+    ws, packed = tw[kind], tw["packed"][kind][0]
+    l = 30 if kind == "query" else 128
+    x = torch.randn(n, l, 1024, generator=gen)
+    x = (x / x.norm(dim=-1, keepdim=True)).to(dev)
+    mask = _mask(n, l, gen, dev)
+    if kind == "query":
+        def run(plain):
+            return qt.query_towers(x, mask, ws, 4, tdt, l, "test", plain,
+                                   packed)
+    else:
+        def run(plain):
+            return qt.context_towers(x, mask, ws, 4, tdt, "test", plain,
+                                     packed=packed)
+    before = qt.LAUNCHES[f"{kind}_tower"]
+    got, want = run(False), run(True)
+    torch.cuda.synchronize()
+    assert qt.LAUNCHES[f"{kind}_tower"] == before + 1
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=TOWER_TOL[tdt], rtol=0)
+
+
 # one chain for both dtypes: the tensor-core entries of csrc/tower_mma.cu,
 # the LayerNorms and the pooling in the whole-row products' epilogues
 # (tower_gemm_ln), and no SIMT product

@@ -70,7 +70,8 @@ def test_port_imports_no_jax():
                                     "dldkd_tpu_torch.tools.bench",
                                     "dldkd_tpu_torch.parallel",
                                     "dldkd_tpu_torch.parallel.eval_shard",
-                                    "dldkd_tpu_torch.parallel.train_dp"])
+                                    "dldkd_tpu_torch.parallel.train_dp",
+                                    "dldkd_tpu_torch.convert"])
 def test_entry_points_import_no_jax(module):
     """The serving CLI, the eval CLI and the training CLI, the index
     artifacts, native packer and pack cache modules (whose JAX originals
@@ -80,7 +81,8 @@ def test_entry_points_import_no_jax(module):
     originals read the root bench.py), each imported alone, load no JAX,
     Flax, JAX package, transformers or regex module; so does the
     multi-GPU package (`parallel/`), whose JAX original is built on
-    jax.sharding."""
+    jax.sharding; and so does the released-checkpoint converter, whose JAX
+    original writes through Flax."""
     code = (f"import sys, {module}\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dldkd_tpu', 'transformers', "
