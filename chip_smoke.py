@@ -23,7 +23,11 @@ package. Phases, in order; any failure exits non-zero without the final
    the scorers' kernel time is their C entry's
    alone, the wrapper's beside it; then the same for the int8 scoring
    kernel (50 and 256 queries), the exact-rescore kernel (256 queries),
-   the towers' int8 epilogue (both launches, 200 videos), and the rates
+   the towers' int8 epilogue (both launches, 200 videos, bitwise, with its
+   device time and share of the bytes bound; then one launch a branch at
+   the serving corpus's 2,179 x 128 frames, and the bf16 reciprocal's
+   check over all 2^32 pairs of bf16 value and norm, which fails the run
+   on any pair that differs from the divide), and the rates
    that set the stage-2 dense-versus-gather cost model. Beside each
    scorer, `product_ms` times the bare products at the same shapes
    (`torch.matmul`, `torch._int_mm`; for exact rescoring the three bf16
@@ -1609,6 +1613,7 @@ def phase_kernels_slice2(dev):
                    "vs_plain_towers_share_off": float(sum(
                        (t > 0).sum() for t in diff)) / n_el,
                    "kernel_ms": cuda_ms(lambda: qt.quantize_frames_q8(y)),
+                   "device_ms": device_ms(lambda: qt.quantize_frames_q8(y)),
                    "plain_ms": cuda_ms(lambda: qt.quantize_frames_q8(
                        y, plain=True), n=10),
                    "tower_with_epilogue_ms": cuda_ms(
@@ -1616,6 +1621,7 @@ def phase_kernels_slice2(dev):
                                                  "check", emit_q8=True),
                        n=10),
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            rec["share_of_bound"] = b_ms / rec["device_ms"]
             emit(rec)
             results[("context_tower_q8", dtype, branches)] = rec
             if not err <= rec["tol"]:
@@ -1626,7 +1632,45 @@ def phase_kernels_slice2(dev):
                      f"than one level from the plain towers'")
         del model, ws
         torch.cuda.empty_cache()
+    results.update(_q8_serving_and_exhaustive(dev))
     return results
+
+
+def _q8_serving_and_exhaustive(dev) -> dict:
+    """The int8 epilogue at the serving index build's shape (one launch a
+    branch over the corpus's 2,179 x 128 frames, `serving._build_q8`),
+    both dtypes, bitwise against its plain version, timed beside its bound
+    (`tools/tower_epilogues.q8_case`); and the bf16 reciprocal's proof:
+    the quotient of every bf16 value against every bf16 norm, which must
+    equal the divide's (`query_tower.q8_reciprocal_mismatches`)."""
+    import torch
+
+    from dldkd_tpu_torch.ops.kernels import query_tower as qt
+    from dldkd_tpu_torch.tools import tower_epilogues as te
+
+    out = {}
+    rows = TVR["n_videos"] * TVR["frames"]
+    for dtype in ("bfloat16", "float32"):
+        rec = te.q8_case("serving corpus, one branch a launch", rows, None,
+                         dtype, dev)
+        rec = {"check": "context_tower_q8_serving", **rec,
+               "launches_per_index_build": 2}
+        emit(rec)
+        out[("context_tower_q8_serving", dtype)] = rec
+        if not rec["bitwise_vs_plain"]:
+            fail(f"context_tower_q8 {dtype} at the serving corpus: the "
+                 f"epilogue differs from its plain version")
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bad = qt.q8_reciprocal_mismatches(dev)
+    rec = {"check": "q8_reciprocal_exhaustive", "pairs": 2 ** 32,
+           "mismatches": bad, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    out["q8_reciprocal_exhaustive"] = rec
+    if bad:
+        fail(f"the bf16 epilogue's reciprocal differs from the divide on "
+             f"{bad} of the 2^32 bf16 pairs")
+    return out
 
 
 def _check_jsonl(path: str, n_lines: int, k: int, ids, what: str) -> None:
@@ -2483,7 +2527,11 @@ def _q8t_kernel_check(dev) -> dict:
                "tol": 0.0,
                "kernel_ms": cuda_ms(lambda: qt._launch_quantize_t(
                    y, h, lf, t_out, 0, stream)),
+               "device_ms": device_ms(lambda: qt._launch_quantize_t(
+                   y, h, lf, t_out, 0, stream)),
                "in_place_epilogue_ms": cuda_ms(lambda: qt._launch_quantize(
+                   y, y8, stream)),
+               "in_place_device_ms": device_ms(lambda: qt._launch_quantize(
                    y, y8, stream)),
                "plain_ms": cuda_ms(lambda: [
                    qt.q8_transposed_plain(qt.quantize_frames_q8_plain(f))
@@ -2493,6 +2541,8 @@ def _q8t_kernel_check(dev) -> dict:
                        x, xm, *ws, TVR["heads"], tdt, emit_q8=True,
                        q8_transposed=True), n=3, warmup=1),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        rec["share_of_bound"] = b_ms / rec["device_ms"]
+        rec["in_place_share_of_bound"] = b_ms / rec["in_place_device_ms"]
         emit(rec)
         out[dtype] = rec
         if not (bitwise and alone and bias_ok and launches == 1):
@@ -5194,9 +5244,21 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
                 kernels[-1]["check_d1024"] = _brief(
                     checks[("query_tower", dtype, 2, "d1024")])
         if name == "context_tower_q8":
-            # the in-place epilogue at the streaming block (2,048 videos)
+            # the in-place epilogue at the streaming block (2,048 videos),
+            # at the serving index build's shape, its share of the bound,
+            # and the bf16 reciprocal's exhaustive check
             kernels[-1]["streaming_check"]["kernel_ms_2048"] = \
                 q8t_checks["bfloat16"]["in_place_epilogue_ms"]
+            kernels[-1]["streaming_check"]["device_ms_2048"] = \
+                q8t_checks["bfloat16"]["in_place_device_ms"]
+            kernels[-1]["share_of_bound"] = rec["share_of_bound"]
+            kernels[-1]["serving_check"] = {
+                dtype: {k: checks[("context_tower_q8_serving", dtype)][k]
+                        for k in ("rows", "device_ms", "bound_ms",
+                                  "share_of_bound", "bitwise_vs_plain")}
+                for dtype in ("bfloat16", "float32")}
+            kernels[-1]["reciprocal_mismatches"] = checks[
+                "q8_reciprocal_exhaustive"]["mismatches"]
     # the one-branch launches: on stage_bench's one-branch rows (bf16),
     # checked at their shapes
     for name, kind, replaces in (
@@ -5242,8 +5304,10 @@ def kernels_line(checks, launches, int8_launches, serve_launches,
         "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None,
         "in_place_epilogue_ms": rec["in_place_epilogue_ms"],
+        "device_ms": rec["device_ms"], "share_of_bound": rec["share_of_bound"],
         "float32": {k: q8t_checks["float32"][k] for k in (
-            "kernel_ms", "plain_ms", "bound_ms", "in_place_epilogue_ms")}})
+            "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+            "share_of_bound", "in_place_epilogue_ms")}})
     return kernels
 
 

@@ -284,6 +284,26 @@ def _launch_quantize_t(y: torch.Tensor, hdim: int, seq_l: int,
     LAUNCHES["context_tower_q8_t"] += 1
 
 
+def q8_reciprocal_mismatches(device) -> int:
+    """The bf16 epilogue's quotient against the divide on every pair of
+    bf16 values (2^32 pairs: each value x against each norm n, 1e-12 clamp
+    included): the count of pairs whose bf16 xn differs from
+    round_bf16(x / max(n, 1e-12)), which the kernel's one reciprocal a row
+    must leave at 0 (csrc/tower.cu, `tower_q8_reciprocal_check`). Runs on
+    the card only; not a launch of the epilogue."""
+    from dldkd_tpu_torch.ops.kernels.build import bind, check
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("q8_reciprocal_mismatches: needs a CUDA device")
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        check(bind("tower", "tower_q8_reciprocal_check", 1, 0)(
+            count.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "tower_q8_reciprocal_check")
+    return int(count.item())
+
+
 def q8_transposed_plain(rows: torch.Tensor) -> torch.Tensor:
     """Plain version of the transposed write: int8 rows (Nv_p, L_p, H) of
     padded videos and frames, in the TPU scoring layout (L_p, Nv_p, H)."""

@@ -1,14 +1,26 @@
 #!/usr/bin/env python3
-"""The towers' LayerNorm and pooling on one CUDA card, per launch at the
-main path's shapes: in this checkout, folded into the epilogues of the
-whole-row products (`tower_gemm_ln`, csrc/tower_mma.cu), timed against the
-same products without them (`tower_gemm_mma`) and checked against their
-plain PyTorch versions; with --parent DIR, also the separate kernels of a
-checkout that still has them (DIR's csrc/tower.cu: `tower_layernorm`,
-`tower_pool`, `tower_quantize_q8`, e.g. the parent commit unpacked with
-`git archive`), built with the port's nvcc flags and timed on the same
-values, with `torch.nn.functional.layer_norm` on those values as the
-LayerNorm's yardstick (`library_ms`; the port never calls it).
+"""The towers' epilogues on one CUDA card, per launch at the main path's
+shapes.
+
+The LayerNorm and pooling: in this checkout, folded into the epilogues of
+the whole-row products (`tower_gemm_ln`, csrc/tower_mma.cu), timed against
+the same products without them (`tower_gemm_mma`) and checked against
+their plain PyTorch versions; with --parent DIR whose csrc/tower.cu still
+has the separate `tower_layernorm` and `tower_pool`, also those, built
+with the port's nvcc flags and timed on the same values, with
+`torch.nn.functional.layer_norm` on those values as the LayerNorm's
+yardstick (`library_ms`; the port never calls it).
+
+The int8 epilogue (csrc/tower.cu `tower_quantize_q8`): the reciprocal's
+exhaustive check (every bf16 value against every bf16 norm), then per
+dtype one launch at each of `Q8_CASES` (the eval's context batch of 200
+videos, one branch of it, the streaming block of 2,048 videos in place
+and transposed, the serving corpus one branch a launch) bitwise against
+its plain version; with --parent DIR also DIR's `tower_quantize_q8` (e.g.
+the parent commit unpacked with `git archive`) on the same rows, timed in
+turns with this checkout's and held bitwise against it, there and on rows
+that reach every branch (`q8_edge_rows`: zeros, norms under 1e-12, ties,
+inf, NaN) at widths 48 to 1,024 in both modes.
 
 Shapes: the serving model's widths (hidden 384, two branches, 4 heads,
 query 768 -> 384 on 32 tokens, video 1024 -> 384 on 128 frames), the
@@ -17,7 +29,10 @@ in bf16 and f32; weights packed from a seeded model as the eval packs
 them, activations seeded. Each record: CUDA-event time per launch over 50
 launches ("ms"), the kernels' device time per launch (torch.profiler,
 "device_ms"), and the least time for the work ("bound_ms": bytes over
-3.35 TB/s, each input read once, each output written once).
+3.35 TB/s, each input read once, each output written once;
+"share_of_bound": bound over device time; for the int8 epilogue also
+its rate in TB/s beside a device-to-device copy's of its input,
+"copy_tb_per_s").
 
     python3 dldkd_tpu_torch/tools/tower_epilogues.py [--parent DIR]
     python3 dldkd_tpu_torch/tools/tower_epilogues.py --compare A.pt B.pt
@@ -35,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -111,9 +127,10 @@ def parent_library(tree: str):
         fn.restype = ctypes.c_int
         return fn
 
-    return {"layernorm": entry("tower_layernorm", 4, 6),
-            "pool": entry("tower_pool", 4, 7),
-            "quantize_q8": entry("tower_quantize_q8", 2, 9)}
+    entries = {"layernorm": ("tower_layernorm", 4, 6),
+               "pool": ("tower_pool", 4, 7),
+               "quantize_q8": ("tower_quantize_q8", 2, 9)}
+    return {k: entry(*e) for k, e in entries.items() if hasattr(lib, e[0])}
 
 
 def _packed(dtype, dev):
@@ -274,7 +291,7 @@ def case_records(kind, n, l, d, dtype, packed, parent=None) -> list:
         r["epilogue_ms"] = r["gemm_ln"]["ms"] - r["gemm_mma"]["ms"]
         r["epilogue_device_ms"] = (r["gemm_ln"]["device_ms"]
                                    - r["gemm_mma"]["device_ms"])
-    if parent is None:
+    if parent is None or "layernorm" not in parent:
         return recs
 
     def par_ln(src, dst, gamma, beta):
@@ -312,16 +329,159 @@ def case_records(kind, n, l, d, dtype, packed, parent=None) -> list:
                                             scale=ln2.abs().max()),
                      "vs_fused": _agreement(pooled, pp, dtype,
                                             scale=ln2.abs().max())})
-    else:
-        y8 = empty(g_n * m, hp, dt=torch.int8)
-        q8 = (lambda: check(parent["quantize_q8"](
-            o.data_ptr(), y8.data_ptr(), g_n * m, hp, hp, g_n * m, 1, 0, 0,
-            0, bf, stream), "parent tower_quantize_q8"))
-        recs.append({"what": "parent quantize_q8 (step 9)", **shape,
-                     **_timed(q8), "bound_ms": bound_ms(
-                         g_n * m * hp * (item + 1)), "bound_by": "bytes",
-                     "library_ms": None})
     return recs
+
+
+# The int8 epilogue (csrc/tower.cu) at its main paths' shapes, rows of the
+# serving width: (what, rows a launch, (videos, frames) of the transposed
+# write or None for the in-place one)
+Q8_CASES = (("eval context batch, 200 videos x 2 branches", 2 * 200 * 128,
+             None),
+            ("one branch, 200 videos", 200 * 128, None),
+            ("streaming block, 2,048 videos x 2 branches", 2 * 2048 * 128,
+             None),
+            ("transposed write, 2,048 videos x 2 branches", 2 * 2048 * 128,
+             (2048, 128)),
+            ("serving corpus, 2,179 videos, one branch a launch",
+             2179 * 128, None))
+
+
+def q8_case(what, rows, transposed, dtype, dev, parent=None) -> dict:
+    """One launch of the int8 epilogue on `rows` seeded rows of HIDDEN
+    values: this checkout's kernel and, with `parent`, the parent's entry
+    on the same rows, timed in turns (this, parent, parent, this; CUDA
+    events and device time a launch); each output bitwise against the
+    plain version and against the other; the bytes bound (each value read
+    once, each int8 written once) and its share of the device time."""
+    import torch
+
+    from dldkd_tpu_torch.ops.kernels.build import bind, check
+    from dldkd_tpu_torch.ops.kernels.query_tower import (
+        q8_transposed_plain, quantize_frames_q8_plain)
+
+    tdt = getattr(torch, dtype)
+    item = torch.tensor([], dtype=tdt).element_size()
+    bf = int(dtype == "bfloat16")
+    h = HIDDEN
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(rows, h, generator=gen, device=dev).to(tdt)
+    if transposed is None:
+        args = (rows, h, h, rows, 1, 0, 0, 0)
+        shape = (rows, h)
+        plain = lambda: quantize_frames_q8_plain(x)  # noqa: E731
+    else:
+        nv, l = transposed
+        g_n = rows // (nv * l)
+        args = (rows, h, h, nv * l, l, nv, l, 0)
+        shape = (g_n, l, nv, h)
+        plain = lambda: torch.stack([  # noqa: E731
+            q8_transposed_plain(quantize_frames_q8_plain(b))
+            for b in x.view(g_n, nv, l, h)])
+    stream = torch.cuda.current_stream().cuda_stream
+    mine = bind("tower", "tower_quantize_q8", 2, 9)
+    y = torch.empty(shape, dtype=torch.int8, device=dev)
+
+    def launch(entry, out):
+        return lambda: check(entry(x.data_ptr(), out.data_ptr(), *args, bf,
+                                   stream), "tower_quantize_q8")
+
+    run = launch(mine, y)
+    run()
+    want = plain()
+    torch.cuda.synchronize()
+    b_ms = bound_ms(rows * h * (item + 1))
+    # a yardstick of the card's streaming rate: a device-to-device copy of
+    # the input (its bytes read and written once)
+    x_copy = torch.empty_like(x)
+    copy_ms = device_ms(lambda: x_copy.copy_(x))
+    del x_copy
+    rec = {"what": what, "dtype": dtype, "rows": rows, "hidden": h,
+           "launch_shape": list(shape), "bitwise_vs_plain": torch.equal(
+               y, want), "bound_ms": b_ms, "bound_by": "bytes",
+           "library_ms": None,
+           "plain_ms": cuda_ms(plain, n=3, warmup=1),
+           "copy_tb_per_s": 2 * rows * h * item / copy_ms / 1e9}
+    del want
+    if parent is None:
+        rec.update(_timed(run))
+    else:
+        y_p = torch.empty_like(y)
+        prun = launch(parent["quantize_q8"], y_p)
+        prun()
+        torch.cuda.synchronize()
+        rec["bitwise_vs_parent"] = torch.equal(y, y_p)
+        turns = [_timed(f) for f in (run, prun, prun, run)]
+        rec["ms"] = [turns[0]["ms"], turns[3]["ms"]]
+        rec["device_ms"] = [turns[0]["device_ms"], turns[3]["device_ms"]]
+        rec["parent_ms"] = [turns[1]["ms"], turns[2]["ms"]]
+        rec["parent_device_ms"] = [turns[1]["device_ms"],
+                                   turns[2]["device_ms"]]
+        rec["parent_share_of_bound"] = b_ms / min(rec["parent_device_ms"])
+    best = min(rec["device_ms"]) if isinstance(rec["device_ms"], list) \
+        else rec["device_ms"]
+    rec["share_of_bound"] = b_ms / best
+    rec["tb_per_s"] = rows * h * (item + 1) / best / 1e9
+    return rec
+
+
+def q8_edge_rows(h, dtype, dev, seed=0):
+    """4,099 rows of width h that reach every branch of the epilogue:
+    values over many magnitudes, all-zero rows and rows of 1e-13 (norms
+    under 1e-12), rows of four equal values (xn * 127 on the tie 63.5),
+    rows of one value, and rows with an inf or a NaN."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    m = 4099
+    x = torch.randn(m, h, generator=gen) * torch.exp(
+        torch.randn(m, 1, generator=gen) * 20)
+    x[:16] = 0.0
+    x[16:24] = 1e-13
+    x[24:40, :4] = torch.randn(16, 1, generator=gen)
+    x[40:56, 0] = torch.randn(16, generator=gen)
+    x[56, 3] = float("inf")
+    x[57, 5] = -float("inf")
+    x[58, 7] = float("nan")
+    return x.to(dev, getattr(torch, dtype))
+
+
+def q8_vs_parent_edges(dtype, dev, parent) -> dict:
+    """This checkout's epilogue against the parent's entry on
+    `q8_edge_rows` at widths 48, 60, 100, 384 and 1,024, in place and (rows
+    of 31 frames, 7 videos of a 160-video output at offset 3) transposed:
+    bitwise or not, per width and mode."""
+    import torch
+
+    from dldkd_tpu_torch.ops.kernels.build import bind, check
+
+    bf = int(dtype == "bfloat16")
+    stream = torch.cuda.current_stream().cuda_stream
+    mine = bind("tower", "tower_quantize_q8", 2, 9)
+    out = {}
+    for h in (48, 60, 100, 384, 1024):
+        x = q8_edge_rows(h, dtype, dev, seed=h)
+        m = x.shape[0]
+        ys = []
+        for entry in (mine, parent["quantize_q8"]):
+            y = torch.full((m, h), 77, dtype=torch.int8, device=dev)
+            check(entry(x.data_ptr(), y.data_ptr(), m, h, h, m, 1, 0, 0, 0,
+                        bf, stream), "tower_quantize_q8")
+            ys.append(y)
+        seq_l, nv, nv_p, l_p = 31, 7, 160, 40
+        hp = -(-h // 8) * 8
+        rows = torch.zeros(2, nv * seq_l, hp, dtype=x.dtype, device=dev)
+        rows[..., :h] = x[:2 * nv * seq_l].view(2, nv * seq_l, h)
+        for entry in (mine, parent["quantize_q8"]):
+            y = torch.full((2, l_p, nv_p, h), 77, dtype=torch.int8,
+                           device=dev)
+            check(entry(rows.data_ptr(), y.data_ptr(), 2 * nv * seq_l, h, hp,
+                        nv * seq_l, seq_l, nv_p, l_p, 3, bf, stream),
+                  "tower_quantize_q8 (transposed)")
+            ys.append(y)
+        torch.cuda.synchronize()
+        out[h] = {"in_place": torch.equal(ys[0], ys[1]),
+                  "transposed": torch.equal(ys[2], ys[3])}
+    return out
 
 
 def compare(a_path: str, b_path: str) -> None:
@@ -339,8 +499,8 @@ def compare(a_path: str, b_path: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", help="a checkout whose csrc/tower.cu has "
-                    "the separate LayerNorm and pooling kernels")
+    ap.add_argument("--parent", help="a checkout whose csrc/tower.cu is "
+                    "built and timed beside this one's")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"))
     args = ap.parse_args()
     if args.compare:
@@ -364,6 +524,23 @@ def main() -> None:
             for rec in case_records(kind, n, l, d, dtype, packed[kind],
                                     parent):
                 print(json.dumps(rec), flush=True)
+        del packed
+    from dldkd_tpu_torch.ops.kernels.query_tower import (
+        q8_reciprocal_mismatches)
+
+    start = time.perf_counter()
+    print(json.dumps({"what": "q8 reciprocal, all 2^32 bf16 pairs",
+                      "mismatches": q8_reciprocal_mismatches(dev),
+                      "seconds": time.perf_counter() - start}), flush=True)
+    for dtype in ("bfloat16", "float32"):
+        for what, rows, transposed in Q8_CASES:
+            print(json.dumps(q8_case(what, rows, transposed, dtype, dev,
+                                     parent)), flush=True)
+            torch.cuda.empty_cache()
+        if parent is not None:
+            print(json.dumps({"what": "q8 edge rows vs parent",
+                              "dtype": dtype, "bitwise": q8_vs_parent_edges(
+                                  dtype, dev, parent)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -564,6 +564,122 @@ def test_int8_epilogue_kernel_matches_plain(dev, dtype, h):
     assert got.dtype == torch.int8 and torch.equal(got, want)
 
 
+def _q8_scaled(x):
+    """xn * 127 of each value, at the plain epilogue's rounding points
+    (quantize_frames_q8_plain before its rint and clamp)."""
+    dt = x.dtype
+    s = qt._warp_order_sum((x * x).float()).to(dt).float()
+    norm = torch.sqrt(s).to(dt).float()
+    return (x.float() / torch.clamp(norm, min=1e-12)).to(dt).float() * 127
+
+
+def _q8_edge_rows(m, h, dtype, dev, seed):
+    """m rows of width h: seeded values, an all-zero row and a row of
+    1e-13 (norms under 1e-12, the clamp), rows whose norm is twice each
+    value (xn = +-0.5: xn * 127 on the tie 63.5) and rows of one value (xn
+    = +-1: xn * 127 = +-127); asserts that the ties are there. Finite rows
+    never pass +-127: each rounding is monotone, so the norm is at least
+    every |x| of its row (the clamp past +-127.5 takes non-finite rows:
+    test_int8_epilogue_non_finite_rows)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = 2 * torch.randn(m, h, generator=gen)
+    x[m // 2] = 0.0
+    for i in range(1, 9):                   # the ties, either sign
+        x[i] = 0.0
+        x[i, :4] = (-1) ** i * torch.rand(1, generator=gen).item() * 3
+    one = torch.exp(torch.randn(40, generator=gen) * 3)
+    x[9:49] = 0.0
+    x[9:49, 0] = one * torch.where(torch.arange(40) % 2 == 0, 1.0, -1.0)
+    x[49] = 1e-13                           # a norm under 1e-12
+    x = x.to(dev, dtype)
+    t = _q8_scaled(x)
+    assert bool((t.abs() == 63.5).any()), "no tie"
+    assert bool((t.abs() == 127).any()) and bool((t.abs() <= 127).all())
+    return x
+
+
+@pytest.mark.parametrize("h", [48, 60, 100, 384, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_epilogue_edge_rows_bitwise(dev, dtype, h):
+    """In place, every width the kernel's paths split on (16-byte copies
+    and stores at 48, 384, 1,024; a row start not 16-byte aligned at 60 and
+    100), a row count that leaves the last block and the grid's last pass
+    partial, the clamp, the ties and the saturation: bitwise the plain
+    version."""
+    x = _q8_edge_rows(20_011, h, dtype, dev, seed=h)
+    got = qt.quantize_frames_q8(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, qt.quantize_frames_q8_plain(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_epilogue_unaligned_rows_bitwise(dev, dtype):
+    """At 384, input and output that start off a 16-byte boundary (one
+    value and one byte in): the value-by-value copies and the byte
+    stores, bitwise the plain version."""
+    m, h = 1003, 384
+    x = _q8_edge_rows(m, h, dtype, dev, seed=7)
+    xb = torch.empty(m * h + 1, dtype=dtype, device=dev)
+    xu = xb[1:].view(m, h)
+    xu.copy_(x)
+    yb = torch.full((m * h + 1,), 77, dtype=torch.int8, device=dev)
+    yu = yb[1:].view(m, h)
+    qt._launch_quantize(xu, yu, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert int(yb[0]) == 77
+    assert torch.equal(yu, qt.quantize_frames_q8_plain(x))
+
+
+@pytest.mark.parametrize("h", [48, 60, 100, 384, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_epilogue_transposed_bitwise(dev, dtype, h):
+    """The transposed write alone on (G, N seq_l, hp) rows (hp = h padded
+    to 8, zeros past h) into (G, l_p, nv_p, h) at a video offset: every
+    written row bitwise the plain epilogue's, permuted; nothing else
+    written."""
+    g_n, n, seq_l, l_p, nv_p, v_off = 2, 37, 9, 12, 50, 5
+    hp = -(-h // 8) * 8
+    rows = _q8_edge_rows(g_n * n * seq_l, h, dtype, dev, seed=h + 1)
+    y = torch.zeros(g_n, n * seq_l, hp, dtype=dtype, device=dev)
+    y[..., :h] = rows.view(g_n, n * seq_l, h)
+    out = torch.full((g_n, l_p, nv_p, h), 77, dtype=torch.int8, device=dev)
+    before = qt.LAUNCHES["context_tower_q8_t"]
+    qt._launch_quantize_t(y, h, seq_l, out, v_off,
+                          torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert qt.LAUNCHES["context_tower_q8_t"] == before + 1
+    want = torch.full_like(out, 77)
+    q8 = qt.quantize_frames_q8_plain(rows).view(g_n, n, seq_l, h)
+    want[:, :seq_l, v_off:v_off + n] = q8.permute(0, 2, 1, 3)
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_epilogue_non_finite_rows(dev, dtype):
+    """Rows with an inf or a NaN, where the plain version's torch.clamp
+    keeps the NaN and the kernel keeps its fmaxf: an inf makes the norm inf
+    (inf / inf is NaN: -127; finite / inf is 0); a NaN makes it NaN, which
+    fmaxf clamps to 1e-12 (the NaN gives -127, +-1 / 1e-12 saturates at
+    +-127)."""
+    x = torch.zeros(3, 384, dtype=dtype, device=dev)
+    x[0, :2] = torch.tensor([float("inf"), 1.0])
+    x[1, :2] = torch.tensor([-float("inf"), -1.0])
+    x[2, :3] = torch.tensor([float("nan"), 1.0, -1.0])
+    want = torch.zeros(3, 384, dtype=torch.int8)
+    want[0, 0] = want[1, 0] = -127
+    want[2, :3] = torch.tensor([-127, 127, -127])
+    got = qt.quantize_frames_q8(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int8_epilogue_reciprocal_exhaustive(dev):
+    """The bf16 epilogue's one reciprocal a row gives the divide's bf16
+    quotient for every bf16 value against every bf16 norm (2^32 pairs,
+    the 1e-12 clamp included)."""
+    assert qt.q8_reciprocal_mismatches(dev) == 0
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("branches", [2, 1])
 def test_context_tower_q8_matches_plain(dev, dtype, branches):

@@ -89,7 +89,7 @@ def test_quantize_unit_int8_matches_jax(dtype):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("h", [48, 384])
+@pytest.mark.parametrize("h", [48, 60, 100, 384, 1024])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_frames_q8_matches_jax(dtype, h):
     """The epilogue's plain version against the canonical
