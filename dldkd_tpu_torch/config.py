@@ -172,7 +172,7 @@ class Config:
     # TPU-native extensions (no reference equivalent)
     resume: str = ""           # ckpt dir to restore full training state from
     debug_nans: bool = False   # jax_debug_nans (detect_anomaly equivalent)
-    profile_dir: str = ""      # write a jax.profiler trace here
+    profile_dir: str = ""      # torch.profiler trace.json + counts.json here
     profile_steps: int = 8     # steps to trace
     # port-only: the torch device the entry points run on ('cuda' | 'cpu')
     torch_device: str = "cuda"
@@ -347,6 +347,7 @@ _TEST_OVERRIDE_ALLOWLIST = {
     "score_quant",  # an eval-time speed knob, never a training property
     "corpus_stream_bsz",  # eval-time memory knob, never a training property
     "torch_device",  # where the port runs; never a training property
+    "profile_dir",  # where the eval's trace goes; never a training property
 }
 
 

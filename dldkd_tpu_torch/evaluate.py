@@ -24,6 +24,14 @@ Two engines, one metric tail (`_metrics_from_score_matrices`):
 free memory (`auto_stream_block`), as the JAX package does. On a mesh
 (`parallel/`), `run_retrieval_eval` routes to the corpus-sharded engines
 (`parallel/eval_shard.py`), which reuse this module's pieces per shard.
+
+Under a torch profiler the layers are spans (`utils/tracing.py`):
+eval/run (`run_retrieval_eval`, every route), eval/corpus (the corpus
+encode: `_embed`, or the streaming block loop), eval/score
+(`score_all_queries`, `score_all_queries_q8`), eval/rank
+(`_metrics_from_score_matrices`), and eval/h2d around each host-to-device
+copy (`_chunk`, `_blocks_on_device`'s staging, the ground truth), which
+counts the bytes it hands over as eval.h2d_bytes.
 """
 
 from __future__ import annotations
@@ -46,19 +54,32 @@ from dldkd_tpu_torch.ops.kernels.sim_max import build_q8_index
 from dldkd_tpu_torch.ops.masking import l2_normalize
 from dldkd_tpu_torch.ops.similarity import (clip_scores_maxpool,
                                             clip_scores_maxpool_pre8)
+from dldkd_tpu_torch.utils.tracing import count, span, traced
 
 Pair = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 
 def _chunk(x: np.ndarray, start: int, n: int, device) -> torch.Tensor:
     """Rows [start, start + n) of x on `device`, zero-padded to n rows."""
-    block = torch.from_numpy(np.ascontiguousarray(x[start:start + n]))
-    if block.shape[0] < n:
-        block = torch.cat([block, block.new_zeros(
-            (n - block.shape[0],) + tuple(block.shape[1:]))])
-    return block.to(device)
+    with span("eval/h2d"):
+        block = torch.from_numpy(np.ascontiguousarray(x[start:start + n]))
+        if block.shape[0] < n:
+            block = torch.cat([block, block.new_zeros(
+                (n - block.shape[0],) + tuple(block.shape[1:]))])
+        count("eval.h2d_bytes", block.nbytes)
+        return block.to(device)
 
 
+def _gt_on_device(queries: PackedQueries, videos: PackedVideos, dev
+                  ) -> torch.Tensor:
+    """Each query's corpus row (int32), on `dev`."""
+    gt = torch.from_numpy(build_gt_indices(queries.video_ids, videos.ids))
+    with span("eval/h2d"):
+        count("eval.h2d_bytes", gt.nbytes)
+        return gt.to(dev)
+
+
+@traced("eval/corpus")
 def _embed(encode, model, videos: PackedVideos, context_bsz: int, device,
            weights: Optional[dict], plain: bool):
     """Run `encode` over the corpus in context batches into preallocated
@@ -138,6 +159,7 @@ def _query_batches(model, queries: Optional[PackedQueries], query_bsz: int,
 
 
 @torch.no_grad()
+@traced("eval/score")
 def score_all_queries(model, queries: Optional[PackedQueries],
                       ctx_inher: torch.Tensor,
                       ctx_explore: Optional[torch.Tensor],
@@ -173,6 +195,7 @@ def score_all_queries(model, queries: Optional[PackedQueries],
 
 
 @torch.no_grad()
+@traced("eval/score")
 def score_all_queries_q8(model, queries: Optional[PackedQueries],
                          q8_i: torch.Tensor, q8_e: Optional[torch.Tensor],
                          bias: torch.Tensor, query_bsz: int = 50,
@@ -219,6 +242,7 @@ def score_matrices(model, videos: PackedVideos, queries: PackedQueries,
                              query_bsz, weights, plain)
 
 
+@traced("eval/rank")
 def _metrics_from_score_matrices(inher_s: torch.Tensor,
                                  explore_s: Optional[torch.Tensor],
                                  gt: torch.Tensor,
@@ -306,8 +330,11 @@ def _blocks_on_device(arrays, block: int, device):
     starts = list(range(0, n, block))
     if device.type != "cuda":
         for start in starts:
-            yield start, [torch.from_numpy(np.ascontiguousarray(
-                a[start:start + block])) for a in arrays]
+            with span("eval/h2d"):
+                staged = [torch.from_numpy(np.ascontiguousarray(
+                    a[start:start + block])) for a in arrays]
+                count("eval.h2d_bytes", sum(t.nbytes for t in staged))
+            yield start, staged
         return
     rows = [min(block, n - start) for start in starts]
     slots = range(min(2, len(starts)))
@@ -325,12 +352,14 @@ def _blocks_on_device(arrays, block: int, device):
         s, r, start = b % 2, rows[b], starts[b]
         if b >= 2:
             consumed[s].synchronize()
-        for a, p in zip(arrays, pinned[s]):
-            p[:r].numpy()[...] = a[start:start + r]
-        with torch.cuda.stream(side):
-            for p, d in zip(pinned[s], dev_bufs[s]):
-                d[:r].copy_(p[:r], non_blocking=True)
-            copied[s].record(side)
+        with span("eval/h2d"):
+            for a, p in zip(arrays, pinned[s]):
+                p[:r].numpy()[...] = a[start:start + r]
+            with torch.cuda.stream(side):
+                for p, d in zip(pinned[s], dev_bufs[s]):
+                    d[:r].copy_(p[:r], non_blocking=True)
+                copied[s].record(side)
+            count("eval.h2d_bytes", sum(p[:r].nbytes for p in pinned[s]))
 
     stage(0)
     for b, start in enumerate(starts):
@@ -418,15 +447,16 @@ def stream_score_matrices(model, videos: PackedVideos,
                  if explore_q is not None else None)
     encode, score = ((encode_context_q8, score_q8_block) if score_quant
                      else (encode_context_best, score_encoded_block))
-    for start, (feats, mask) in _blocks_on_device(
-            (videos.feats, videos.mask), corpus_block, dev):
-        ctx_i, ctx_e = encode(model, feats, mask, weights, plain)
-        s_i, s_e = score(inher_q, explore_q, ctx_i, ctx_e, mask, plain)
-        cols = slice(start, start + s_i.shape[1])
-        inher_s[:, cols] = s_i
-        if s_e is not None:
-            explore_s[:, cols] = s_e
-        del ctx_i, ctx_e, s_i, s_e   # one encoded block alive at a time
+    with span("eval/corpus"):
+        for start, (feats, mask) in _blocks_on_device(
+                (videos.feats, videos.mask), corpus_block, dev):
+            ctx_i, ctx_e = encode(model, feats, mask, weights, plain)
+            s_i, s_e = score(inher_q, explore_q, ctx_i, ctx_e, mask, plain)
+            cols = slice(start, start + s_i.shape[1])
+            inher_s[:, cols] = s_i
+            if s_e is not None:
+                explore_s[:, cols] = s_e
+            del ctx_i, ctx_e, s_i, s_e   # one encoded block alive at a time
     return inher_s, explore_s
 
 
@@ -443,8 +473,7 @@ def eval_retrieval_streaming(model, videos: PackedVideos,
     dev = resolve_device(device)
     inher_s, explore_s = stream_score_matrices(
         model, videos, queries, corpus_block, query_bsz, dev, score_quant)
-    gt = torch.from_numpy(build_gt_indices(queries.video_ids,
-                                           videos.ids)).to(dev)
+    gt = _gt_on_device(queries, videos, dev)
     return _metrics_from_score_matrices(inher_s, explore_s, gt, fusion)
 
 
@@ -477,11 +506,11 @@ def eval_retrieval(model, videos: PackedVideos, queries: PackedQueries,
     inher_s, explore_s = score_matrices(model, videos, queries, context_bsz,
                                         query_bsz, dev,
                                         score_quant=score_quant)
-    gt = torch.from_numpy(build_gt_indices(queries.video_ids,
-                                           videos.ids)).to(dev)
+    gt = _gt_on_device(queries, videos, dev)
     return _metrics_from_score_matrices(inher_s, explore_s, gt, fusion)
 
 
+@traced("eval/run")
 def run_retrieval_eval(model, videos: PackedVideos, queries: PackedQueries,
                        eval_cfg, mesh=None, device=None
                        ) -> Dict[str, Dict[str, float]]:

@@ -8,9 +8,13 @@ the corpus is sharded (parallel/eval_shard.py): over every visible GPU in
 one process, or over the processes under torchrun (one GPU each; only
 process 0 writes eval.log.txt).
 
+--profile_dir DIR traces the eval with torch.profiler: DIR/trace.json
+(chrome trace: the eval's spans, `utils/tracing.py`, beside the host's ops
+and the card's kernels) and DIR/counts.json (its counters).
+
 Run: python -m dldkd_tpu_torch.infer --model_dir <results_dir> \
         --root_path $root --collection tvr --visual_feature i3d_resnet \
-        [--torch_device cuda|cpu]
+        [--torch_device cuda|cpu] [--profile_dir DIR]
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from dldkd_tpu_torch.evaluate import run_retrieval_eval
 from dldkd_tpu_torch.models import DLDKD
 from dldkd_tpu_torch.parallel.multihost import (default_mesh,
                                                 maybe_initialize_distributed)
+from dldkd_tpu_torch.utils import tracing
 
 logger = logging.getLogger("dldkd_tpu_torch")
 
@@ -60,9 +65,16 @@ def _inference(cfg: Config, split: str, dev: torch.device):
     # the corpus sharded over the processes of a group, or over every
     # visible GPU of this process (dldkd_tpu/infer.py:60-68)
     mesh = default_mesh(dev)
-    with torch.no_grad():
-        metrics = run_retrieval_eval(model, videos, queries, cfg.eval,
-                                     mesh=mesh, device=dev)
+    writes = mesh is None or mesh.rank == 0
+    prof = tracing.start_profile(dev) if cfg.profile_dir and writes else None
+    try:
+        with torch.no_grad():
+            metrics = run_retrieval_eval(model, videos, queries, cfg.eval,
+                                         mesh=mesh, device=dev)
+    finally:
+        if prof is not None:
+            logger.info("profiler trace written to %s",
+                        tracing.stop_profile(prof, cfg.profile_dir))
     lines = []
     for branch, m in metrics.items():
         line = ("{} {}: r_1_5_10_100 [{:.1f}, {:.1f}, {:.1f}, {:.1f}] | "
@@ -72,7 +84,7 @@ def _inference(cfg: Config, split: str, dev: torch.device):
         logger.info("%s", line)
         lines.append(line)
     # append-only eval log in the run dir, as the JAX package keeps it
-    if mesh is None or mesh.rank == 0:
+    if writes:
         with open(f"{model_dir}/eval.log.txt", "a") as f:
             f.write(time.strftime("%Y_%m_%d_%H_%M_%S") + "\n"
                     + "\n".join(lines) + "\n")

@@ -22,6 +22,7 @@ from dldkd_tpu_torch.ops.kernels.query_tower import (
     context_towers, context_weights_for_branch, pack_weights, query_towers,
     weights_for_branch)
 from dldkd_tpu_torch.ops.masking import mask_logits
+from dldkd_tpu_torch.utils.tracing import traced
 
 Pair = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
@@ -153,6 +154,7 @@ def _launch_groups(model) -> List[List[int]]:
     return [[i] for i in range(n)]
 
 
+@traced("eval/pack_weights")
 def tower_weights(model, device=None) -> Dict[str, list]:
     """Every branch's query and video weight tuples in the config's tower
     dtype, on `device`, and under "packed" each launch's operands in the

@@ -37,6 +37,10 @@ The entry points pad and mask the inputs like the Pallas wrappers (query
 tokens to a multiple of 8, positions past the learned table forced to
 padding), then run the CUDA kernels for a CUDA tensor, or the plain
 PyTorch version (`tower_plain`, on the weight tuples) for a CPU tensor.
+Under a torch profiler each call of `query_towers`, `context_towers` and
+`quantize_frames_q8` is one span (kernels/query_tower,
+kernels/context_tower, kernels/quantize_q8; `utils/tracing.py`), on
+either path.
 The plain version rounds to the tower dtype at the Pallas kernel's points
 and keeps IEEE f32 products; the CPU tests hold it against the Pallas
 kernels in interpret mode, `tower_packed_plain` (the plain version on the
@@ -51,6 +55,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from dldkd_tpu_torch.utils.tracing import traced
 
 # launches of the CUDA chains and of the int8 epilogue since the counts
 # were last set to 0; the chains also by their dtype (query_tower_f32, ...)
@@ -227,6 +233,7 @@ def quantize_frames_q8_plain(x: torch.Tensor) -> torch.Tensor:
     return quantize_unit_int8(xn)
 
 
+@traced("kernels/quantize_q8")
 def quantize_frames_q8(x: torch.Tensor, plain: bool = False
                        ) -> torch.Tensor:
     """int8 frames (..., H) from frame features (..., H) in f32 or bf16:
@@ -751,6 +758,7 @@ def _run(x, mask, weights, n_heads, dtype, kind, l, plain, emit_q8=False,
     return [torch.cat(outs) for outs in zip(*parts)]
 
 
+@traced("kernels/query_tower")
 def query_towers(x: torch.Tensor, mask: torch.Tensor,
                  weights: Sequence[Weights], n_heads: int,
                  dtype: torch.dtype, n_pos: int, what: str,
@@ -771,6 +779,7 @@ def query_towers(x: torch.Tensor, mask: torch.Tensor,
                 packed=packed)
 
 
+@traced("kernels/context_tower")
 def context_towers(x: torch.Tensor, mask: torch.Tensor,
                    weights: Sequence[Weights], n_heads: int,
                    dtype: torch.dtype, what: str,

@@ -34,7 +34,9 @@ q8_transposed=True)`) and its bias (`q8_index_bias(mask, l_p, nv_p)`).
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU tensor
 it runs its plain PyTorch version (full f32 products), which the CPU tests
-hold against the Pallas kernels in interpret mode.
+hold against the Pallas kernels in interpret mode. Under a torch profiler
+each wrapper's call is one span on either path (kernels/sim_max,
+kernels/sim_max_int8, kernels/sim_max_exact; `utils/tracing.py`).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import torch.nn.functional as F
 from dldkd_tpu_torch.ops.kernels.query_tower import (INT8_SCALE,
                                                      quantize_unit_int8)
 from dldkd_tpu_torch.ops.masking import NEG_INF, l2_normalize, mask_logits
+from dldkd_tpu_torch.utils.tracing import traced
 
 # launches of the CUDA kernels since the counts were last set to 0; the
 # masked-cosine scorer also by its dtype (sim_max_bf16, sim_max_f32)
@@ -177,6 +180,7 @@ def _check(qn, cn, mask):
     _contiguous("fused_clip_scores", qn=qn, cn=cn, mask=mask)
 
 
+@traced("kernels/sim_max")
 def fused_clip_scores(qn: torch.Tensor, cn: torch.Tensor,
                       mask: torch.Tensor) -> torch.Tensor:
     """(Nq, Nv) f32 scores from normalized queries qn (Nq, D) and frames
@@ -267,6 +271,7 @@ def sim_max_int8_plain(q8: torch.Tensor, c8: torch.Tensor,
     return out
 
 
+@traced("kernels/sim_max_int8")
 def fused_clip_scores_int8(q8: torch.Tensor, c8: torch.Tensor,
                            bias: torch.Tensor, plain: bool = False
                            ) -> torch.Tensor:
@@ -344,6 +349,7 @@ def sim_max_exact_plain(qn: torch.Tensor, ctx: torch.Tensor,
     return out
 
 
+@traced("kernels/sim_max_exact")
 def fused_exact_scores(query: torch.Tensor, ctx: torch.Tensor,
                        mask: torch.Tensor, plain: bool = False
                        ) -> torch.Tensor:

@@ -44,12 +44,12 @@ import torch.nn.functional as F
 
 from dldkd_tpu_torch.data.ingest import PackedQueries, PackedVideos
 from dldkd_tpu_torch.evaluate import (Pair, _blocks_on_device,
+                                      _gt_on_device,
                                       _metrics_from_score_matrices,
                                       embed_corpus, embed_corpus_q8,
                                       encode_all_queries, score_all_queries,
                                       score_all_queries_q8,
                                       score_encoded_block, score_q8_block)
-from dldkd_tpu_torch.metrics import build_gt_indices
 from dldkd_tpu_torch.ops.fast_eval import (encode_context_best,
                                            encode_context_q8, tower_weights)
 from dldkd_tpu_torch.parallel.mesh import Mesh, shard_rows
@@ -173,9 +173,8 @@ def sharded_score_matrices(model, videos: PackedVideos,
 
 
 def _metrics(videos, queries, mesh, scores, fusion):
-    gt = torch.from_numpy(build_gt_indices(queries.video_ids, videos.ids))
-    return _metrics_from_score_matrices(*scores, gt.to(mesh.devices[0]),
-                                        fusion)
+    return _metrics_from_score_matrices(
+        *scores, _gt_on_device(queries, videos, mesh.devices[0]), fusion)
 
 
 def eval_retrieval_sharded(

@@ -50,7 +50,6 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from dldkd_tpu_torch import checkpoint as ckpt_lib
 from dldkd_tpu_torch import float32_matmul_precision, resolve_device
@@ -78,7 +77,7 @@ from dldkd_tpu_torch.parallel.multihost import (broadcast_object,
 from dldkd_tpu_torch.parallel.train_dp import average_gradients
 from dldkd_tpu_torch.utils import (AverageMeter, MetricsWriter,
                                    PreemptionGuard, make_code_zip,
-                                   setup_logging)
+                                   setup_logging, tracing)
 from dldkd_tpu_torch.utils.preemption import agree_should_stop
 
 LOSS_KEYS = ("loss_overall", "inher_trip", "inher_nce", "explore_trip",
@@ -110,10 +109,10 @@ def train_step(model: DLDKD, mcfg: ModelConfig, tcfg, optimizer: BertAdam,
     `shard_batch_multihost`: the gradients are averaged over the
     processes before the clip."""
     model.train()
-    with record_function("train_step/forward_losses"):
+    with tracing.span("train_step/forward_losses"):
         loss, loss_dict = compute_losses(model, batch, generator, mcfg, tcfg,
                                          scalars, group=group)
-    with record_function("train_step/backward"):
+    with tracing.span("train_step/backward"):
         params = list(optimizer.params.values())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -121,7 +120,7 @@ def train_step(model: DLDKD, mcfg: ModelConfig, tcfg, optimizer: BertAdam,
         if group is not None:
             grads = average_gradients(grads, group)
         grads = clip_grads(grads, tcfg.grad_clip)
-    with record_function("train_step/optimizer"):
+    with tracing.span("train_step/optimizer"):
         optimizer.step(grads)
     return {k: v.detach() for k, v in loss_dict.items()}
 
@@ -229,24 +228,6 @@ def _restore_rng(generator: torch.Generator, payload, seed: int,
     logger.info("the checkpoint's rng (%s %s) is not this device's "
                 "torch.Generator state: re-seeded the generator from %d",
                 payload.dtype, payload.shape, seed)
-
-
-def _start_profile(device: torch.device):
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    prof = profile(activities=acts)
-    prof.start()
-    return prof
-
-
-def _stop_profile(prof, profile_dir: str, logger) -> None:
-    prof.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    logger.info("profiler trace written to %s", path)
 
 
 def start_training(cfg: Config, device=None, preempt_guard=None,
@@ -394,9 +375,11 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
                             and epoch == max(start_epoch, 0):
                         # steps [1, 1 + profile_steps): step 0 warms up
                         if batch_idx == 1:
-                            prof = _start_profile(dev)
+                            prof = tracing.start_profile(dev)
                         elif batch_idx == 1 + cfg.profile_steps and prof:
-                            _stop_profile(prof, cfg.profile_dir, logger)
+                            logger.info("profiler trace written to %s",
+                                        tracing.stop_profile(
+                                            prof, cfg.profile_dir))
                             prof = None
                     t_step = time.time()
                     loss_dict = step(batch, generator, scalars)
@@ -416,7 +399,8 @@ def _train(cfg: Config, dev: torch.device, logger, preempt_guard,
                     if cfg.debug and batch_idx == 3:
                         break
                 if prof:  # epoch shorter than profile_steps
-                    _stop_profile(prof, cfg.profile_dir, logger)
+                    logger.info("profiler trace written to %s",
+                                tracing.stop_profile(prof, cfg.profile_dir))
                 meters = {k: AverageMeter() for k in LOSS_KEYS}
                 if pending:
                     vals = torch.stack([torch.stack([ld[k] for k in LOSS_KEYS])

@@ -1177,3 +1177,74 @@ def test_sharded_serving_on_card_matches_single_device(dev, kw,
     got = r.search(qf, qm, k=7)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------ tracing
+
+def test_kernel_spans_hold_their_launches_on_card(dev, tmp_path):
+    """A resident eval under torch.profiler on the card: every kernel
+    launched inside a kernels/* span starts after the span does, a video
+    tower call runs its chain's 6 kernels and a scorer call 1, and Kineto
+    draws each kernels/* span on the device row (gpu_user_annotation), the
+    hook that attributes device time to the program's spans."""
+    import json
+
+    from dldkd_tpu_torch import evaluate
+    from dldkd_tpu_torch.config import EvalConfig
+    from dldkd_tpu_torch.data.ingest import PackedQueries
+    from dldkd_tpu_torch.utils import tracing
+
+    cfg = ModelConfig(visual_input_size=64, query_input_size=48,
+                      inheritance_hidden=32, exploration_hidden=32,
+                      max_ctx_l=16, max_desc_l=12, n_heads=4,
+                      double_branch=True)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(5)
+                                    ).to(dev).eval()
+    rng = np.random.RandomState(6)
+    mask = (np.arange(16)[None] < rng.randint(3, 17, 40)[:, None]
+            ).astype(np.float32)
+    ids = [f"v{i}" for i in range(40)]
+    gt = [ids[i % 40] for i in range(30)]
+    videos = PackedVideos(feats=rng.randn(40, 16, 64).astype(np.float32),
+                          mask=mask, ids=ids)
+    queries = PackedQueries(feats=rng.randn(30, 12, 48).astype(np.float32),
+                            mask=np.ones((30, 12), np.float32),
+                            cap_ids=[f"{v}#{i}" for i, v in enumerate(gt)],
+                            video_ids=gt)
+    eval_cfg = EvalConfig(eval_query_bsz=10, eval_context_bsz=16,
+                          corpus_stream_bsz=-1)
+    evaluate.run_retrieval_eval(model, videos, queries, eval_cfg, device=dev)
+    prof = tracing.start_profile(dev)
+    evaluate.run_retrieval_eval(model, videos, queries, eval_cfg, device=dev)
+    torch.cuda.synchronize()
+    with open(tracing.stop_profile(prof, str(tmp_path))) as f:
+        events = json.load(f)["traceEvents"]
+
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                    e["name"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("kernels/"))
+    launched = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    per_span = {s: 0 for s in spans}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        at = launched[e["args"]["correlation"]]
+        holder = [s for s in spans if s[0] <= at <= s[1]]
+        if holder:
+            assert holder[0][0] < float(e["ts"]), holder[0]
+            per_span[holder[0]] += 1
+    by_name = {}
+    for s, n in per_span.items():
+        by_name.setdefault(s[2], []).append(n)
+    assert by_name["kernels/context_tower"] == [6] * 3   # 40 videos, 16 a batch
+    assert by_name["kernels/sim_max"] == [1] * 6         # 3 batches x 2
+    assert len(by_name["kernels/query_tower"]) == 3
+    assert min(by_name["kernels/query_tower"]) >= 5      # the chain's 5
+    drawn = [e["name"] for e in events
+             if e.get("cat") == "gpu_user_annotation"]
+    for name, n in (("kernels/context_tower", 3), ("kernels/query_tower", 3),
+                    ("kernels/sim_max", 6)):
+        assert drawn.count(name) == n, name

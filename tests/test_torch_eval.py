@@ -10,6 +10,7 @@ equal.
 """
 
 import dataclasses
+import json
 import os
 
 import jax
@@ -330,3 +331,23 @@ def test_infer_reads_jax_checkpoint(dataset, tmp_path, double):
     assert infer.start_inference(cfg, device="cpu") == want
     with open(os.path.join(run_dir, "eval.log.txt")) as f:
         assert "test fused: r_1_5_10_100" in f.read()
+
+
+def test_infer_profile_dir_traces_the_eval(dataset, tmp_path):
+    """infer.main --profile_dir writes the eval's chrome trace (its spans,
+    utils/tracing.py) and its counters, and the metrics are unchanged."""
+    root, _, _, _ = dataset
+    run_dir, _, _ = _jax_run_dir(tmp_path, root, True)
+    args = ["--model_dir", run_dir, "--root_path", root,
+            "--torch_device", "cpu"]
+    want = infer.main(args)
+    prof = str(tmp_path / "prof")
+    assert infer.main(args + ["--profile_dir", prof]) == want
+    with open(os.path.join(prof, "trace.json")) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "user_annotation"]
+    assert names.count("eval/run") == 1
+    # 10 test videos in one context batch (the CLI's default, 200)
+    assert names.count("kernels/context_tower") == 1
+    with open(os.path.join(prof, "counts.json")) as f:
+        assert json.load(f)["eval.h2d_bytes"] > 0
