@@ -10,15 +10,19 @@ Two engines, one metric tail (`_metrics_from_score_matrices`):
 - resident (`eval_retrieval(corpus_stream_bsz=0)`): the encoded corpus, the
   (Nq, Nv) score matrices and the ranks stay on the device; chunks are
   written in place into one preallocated buffer; only the (Nq,) ranks go
-  to the host. Padded videos carry zero masks, so they score -1e10 and
-  never win. With score_quant the towers emit an int8 index directly
-  (`embed_corpus_q8`) and the queries are scored against it by the int8
-  kernel (`score_all_queries_q8`);
+  to the host. The context and query batches, padded to their full size,
+  reach the card through `_blocks_on_device`. Padded videos carry zero
+  masks, so they score -1e10 and never win. With score_quant the towers
+  emit an int8 index directly (`embed_corpus_q8`) and the queries are
+  scored against it by the int8 kernel (`score_all_queries_q8`);
 - streaming (`eval_retrieval_streaming`): the packed corpus stays in host
   memory; the queries are encoded once, then each corpus block goes through
   the video towers and is scored against every query in one launch per
-  branch, so device memory holds one block, not the corpus. On the card the
-  blocks' copies are double-buffered (`_blocks_on_device`).
+  branch, so device memory holds one block, not the corpus.
+
+Every input batch of either engine reaches the device through one staging
+path, `_blocks_on_device`: on the card a worker thread fills two pinned
+slots ahead of the card and each slot is copied on a side stream.
 
 `eval_retrieval(corpus_stream_bsz=None)` picks the engine by the device's
 free memory (`auto_stream_block`), as the JAX package does. On a mesh
@@ -29,14 +33,18 @@ Under a torch profiler the layers are spans (`utils/tracing.py`):
 eval/run (`run_retrieval_eval`, every route), eval/corpus (the corpus
 encode: `_embed`, or the streaming block loop), eval/score
 (`score_all_queries`, `score_all_queries_q8`), eval/rank
-(`_metrics_from_score_matrices`), and eval/h2d around each host-to-device
-copy (`_chunk`, `_blocks_on_device`'s staging, the ground truth), which
-counts the bytes it hands over as eval.h2d_bytes.
-"""
+(`_metrics_from_score_matrices`), and eval/h2d around each hand-over to
+the device (`_blocks_on_device` on the main thread: waiting for a filled
+slot and queuing its copy; the ground truth's copy), which counts the bytes
+it hands over as eval.h2d_bytes, and those that went through a pinned slot
+as eval.h2d_pinned_bytes as well; eval/stage around each fill of a slot
+on the worker thread."""
 
 from __future__ import annotations
 
 import os
+import queue as queue_mod
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -59,17 +67,6 @@ from dldkd_tpu_torch.utils.tracing import count, span, traced
 Pair = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 
-def _chunk(x: np.ndarray, start: int, n: int, device) -> torch.Tensor:
-    """Rows [start, start + n) of x on `device`, zero-padded to n rows."""
-    with span("eval/h2d"):
-        block = torch.from_numpy(np.ascontiguousarray(x[start:start + n]))
-        if block.shape[0] < n:
-            block = torch.cat([block, block.new_zeros(
-                (n - block.shape[0],) + tuple(block.shape[1:]))])
-        count("eval.h2d_bytes", block.nbytes)
-        return block.to(device)
-
-
 def _gt_on_device(queries: PackedQueries, videos: PackedVideos, dev
                   ) -> torch.Tensor:
     """Each query's corpus row (int32), on `dev`."""
@@ -77,6 +74,129 @@ def _gt_on_device(queries: PackedQueries, videos: PackedVideos, dev
     with span("eval/h2d"):
         count("eval.h2d_bytes", gt.nbytes)
         return gt.to(dev)
+
+
+# Two slots: the worker's fill sets the corpus's pace (on an H100's host
+# 12-20 GB/s into pinned memory with torch's intra-op threads, against 45
+# GB/s for the copy and ~2.4 ms of towers a 105 MB context batch), so a
+# slot's copy has ended before the worker comes back to it. A slot holds
+# as many whole blocks as fit in _SLOT_BYTES, at least one: a fill of a few
+# MB costs the worker about as much in thread hand-offs as in copying, so
+# the resident engine's query batches (6.3 MB) go five to a slot (an eval
+# call at ActivityNet's size 0.71 -> 0.63 s on an H100; 64 MB no better).
+_SLOTS = 2
+_SLOT_BYTES = 32 << 20
+
+
+def _blocks_on_device(arrays, block: int, device, pad: bool = False):
+    """Yield (start, [rows of each array on `device`]) for the consecutive
+    row blocks [start, start + block) of the numpy `arrays` (one row
+    count): the last block trimmed to its rows, or with `pad` zero-padded
+    to `block` rows (the resident engine's fixed batch shapes).
+
+    On the CPU each block is the arrays' rows as host tensors (a padded
+    block a new tensor). On a CUDA device the blocks go in groups through
+    two pinned host slots, each with its device buffer, and are staged
+    ahead of the card: a worker thread fills the slots (`Tensor.copy_`,
+    torch's intra-op threads; padded rows zeroed, since a slot holds the
+    rows of the group two back) while the caller queues its work on the
+    blocks before, and the main thread copies each filled slot
+    `non_blocking` on a side stream. Events order the copy before the
+    compute stream reads the group (`copied`), the copy after the kernels
+    that read the slot's device buffer two groups back (`consumed`,
+    waited for on the side stream), and the worker's refill of a pinned
+    slot after its last copy. A yielded block's tensors are valid until
+    the next one is asked for. Closing the generator early stops and
+    joins the worker."""
+    n = arrays[0].shape[0]
+    starts = range(0, n, block)
+    if device.type != "cuda":
+        for start in starts:
+            with span("eval/h2d"):
+                staged = [torch.from_numpy(np.ascontiguousarray(
+                    a[start:start + block])) for a in arrays]
+                if pad and staged[0].shape[0] < block:
+                    staged = [torch.cat([t, t.new_zeros(
+                        (block - t.shape[0],) + tuple(t.shape[1:]))])
+                        for t in staged]
+                count("eval.h2d_bytes", sum(t.nbytes for t in staged))
+            yield start, staged
+        return
+    if not starts:
+        return
+    per_slot = max(1, _SLOT_BYTES // (block * sum(a[:1].nbytes
+                                                  for a in arrays)))
+    groups = [starts[g:g + per_slot] for g in range(0, len(starts), per_slot)]
+    k = min(_SLOTS, len(groups))
+    width = per_slot * block if pad else min(per_slot * block, n)
+    pinned = [[torch.empty((width,) + a.shape[1:],
+                           dtype=torch.from_numpy(a[:0]).dtype,
+                           pin_memory=True) for a in arrays]
+              for _ in range(k)]
+    on_card = [[torch.empty(p.shape, dtype=p.dtype, device=device)
+                for p in slot] for slot in pinned]
+    compute = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    copied = [torch.cuda.Event() for _ in range(k)]
+    consumed = [torch.cuda.Event() for _ in range(k)]
+    # main -> worker: one token per queued copy (None: stop); worker ->
+    # main: each filled group in order, or the worker's exception
+    handed, filled = queue_mod.Queue(), queue_mod.Queue()
+    stop = threading.Event()
+
+    def fill() -> None:
+        try:
+            with torch.cuda.device(device):
+                for j, group in enumerate(groups):
+                    s, lo = j % k, group[0]
+                    rows = min(len(group) * block, n - lo)
+                    if j >= k:
+                        if handed.get() is None:
+                            return
+                        copied[s].synchronize()   # group j - k's copy
+                    if stop.is_set():
+                        return
+                    with span("eval/stage"):
+                        for a, p in zip(arrays, pinned[s]):
+                            p[:rows].copy_(torch.from_numpy(
+                                np.ascontiguousarray(a[lo:lo + rows])))
+                            if pad:
+                                p[rows:len(group) * block].zero_()
+                    filled.put(j)
+        except BaseException as e:  # surfaced on the consumer's side
+            filled.put(e)
+
+    worker = threading.Thread(target=fill, name="eval-stage", daemon=True)
+    worker.start()
+    try:
+        for j, group in enumerate(groups):
+            s, lo = j % k, group[0]
+            m = len(group) * block if pad else min(len(group) * block,
+                                                   n - lo)
+            with span("eval/h2d"):
+                got = filled.get()
+                if isinstance(got, BaseException):
+                    raise got
+                with torch.cuda.stream(side):
+                    if j >= k:
+                        side.wait_event(consumed[s])
+                    for p, d in zip(pinned[s], on_card[s]):
+                        d[:m].copy_(p[:m], non_blocking=True)
+                    copied[s].record(side)
+                handed.put(True)
+                compute.wait_event(copied[s])
+                nbytes = sum(p[:m].nbytes for p in pinned[s])
+                count("eval.h2d_bytes", nbytes)
+                count("eval.h2d_pinned_bytes", nbytes)
+            for start in group:
+                yield start, [d[start - lo:min(start - lo + block, m)]
+                              for d in on_card[s]]
+            # the caller has queued the group's work on the compute stream
+            consumed[s].record(compute)
+    finally:
+        stop.set()
+        handed.put(None)
+        worker.join()
 
 
 @traced("eval/corpus")
@@ -87,21 +207,21 @@ def _embed(encode, model, videos: PackedVideos, context_bsz: int, device,
     (Np, L) mask)."""
     dev = resolve_device(device)
     weights = weights or tower_weights(model, dev)
-    n = len(videos)
-    n_pad = -(-n // context_bsz) * context_bsz
-    mask = _chunk(videos.mask, 0, n_pad, dev)
-    inher = explore = None
-    for start in range(0, n, context_bsz):
-        feats = _chunk(videos.feats, start, context_bsz, dev)
-        ich, ech = encode(model, feats, mask[start:start + context_bsz],
-                          weights, plain)
+    n_pad = -(-len(videos) // context_bsz) * context_bsz
+    inher = explore = mask = None
+    for start, (feats, batch_mask) in _blocks_on_device(
+            (videos.feats, videos.mask), context_bsz, dev, pad=True):
+        ich, ech = encode(model, feats, batch_mask, weights, plain)
         if inher is None:
+            mask = batch_mask.new_empty((n_pad,) + tuple(batch_mask.shape[1:]))
             inher = ich.new_zeros((n_pad,) + tuple(ich.shape[1:]))
             if ech is not None:
                 explore = ech.new_zeros((n_pad,) + tuple(ech.shape[1:]))
-        inher[start:start + context_bsz] = ich
+        rows = slice(start, start + context_bsz)
+        mask[rows] = batch_mask
+        inher[rows] = ich
         if ech is not None:
-            explore[start:start + context_bsz] = ech
+            explore[rows] = ech
     return inher, explore, mask
 
 
@@ -151,9 +271,8 @@ def _query_batches(model, queries: Optional[PackedQueries], query_bsz: int,
             b = slice(start, start + query_bsz)
             yield start, q_i[b], (q_e[b] if q_e is not None else None)
         return
-    for start in range(0, len(queries), query_bsz):
-        feats = _chunk(queries.feats, start, query_bsz, dev)
-        mask = _chunk(queries.mask, start, query_bsz, dev)
+    for start, (feats, mask) in _blocks_on_device(
+            (queries.feats, queries.mask), query_bsz, dev, pad=True):
         yield (start,) + tuple(encode_query_best(model, feats, mask, weights,
                                                  plain))
 
@@ -309,67 +428,6 @@ def auto_stream_block(n_videos: int, n_queries: int, mcfg,
     need = resident_eval_bytes(-(-n_videos // n_devices), n_queries, mcfg,
                                score_quant)
     return 0 if need <= budget else min(block, n_videos)
-
-
-def _blocks_on_device(arrays, block: int, device):
-    """Yield (start, [rows of each array on `device`]) for the consecutive
-    row blocks [start, start + block) of the numpy `arrays` (one row
-    count), the last block trimmed to its rows.
-
-    On a CUDA device the copies are double-buffered: two pinned host
-    staging buffers and two device buffers, one block each (of the largest
-    block that slot holds); block b + 1 is staged by the host and copied
-    `non_blocking` on a side stream while the compute stream works on
-    block b. The compute stream waits on a block's copy event before it
-    reads it; the host waits on the compute stream's event for the block
-    two back before it refills that slot's staging buffer, whose device
-    buffer that block was reading. A yielded block's tensors are valid
-    until the next one is asked for. Only two blocks are ever pinned,
-    never the whole array."""
-    n = arrays[0].shape[0]
-    starts = list(range(0, n, block))
-    if device.type != "cuda":
-        for start in starts:
-            with span("eval/h2d"):
-                staged = [torch.from_numpy(np.ascontiguousarray(
-                    a[start:start + block])) for a in arrays]
-                count("eval.h2d_bytes", sum(t.nbytes for t in staged))
-            yield start, staged
-        return
-    rows = [min(block, n - start) for start in starts]
-    slots = range(min(2, len(starts)))
-    pinned = [[torch.empty((max(rows[s::2]),) + a.shape[1:],
-                           dtype=torch.from_numpy(a[:0]).dtype,
-                           pin_memory=True) for a in arrays] for s in slots]
-    dev_bufs = [[torch.empty(p.shape, dtype=p.dtype, device=device)
-                 for p in slot] for slot in pinned]
-    compute = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    copied = [torch.cuda.Event() for _ in slots]
-    consumed = [torch.cuda.Event() for _ in slots]
-
-    def stage(b: int) -> None:
-        s, r, start = b % 2, rows[b], starts[b]
-        if b >= 2:
-            consumed[s].synchronize()
-        with span("eval/h2d"):
-            for a, p in zip(arrays, pinned[s]):
-                p[:r].numpy()[...] = a[start:start + r]
-            with torch.cuda.stream(side):
-                for p, d in zip(pinned[s], dev_bufs[s]):
-                    d[:r].copy_(p[:r], non_blocking=True)
-                copied[s].record(side)
-            count("eval.h2d_bytes", sum(p[:r].nbytes for p in pinned[s]))
-
-    stage(0)
-    for b, start in enumerate(starts):
-        s = b % 2
-        compute.wait_event(copied[s])
-        yield start, [d[:rows[b]] for d in dev_bufs[s]]
-        # the caller has queued this block's work on the compute stream
-        consumed[s].record(compute)
-        if b + 1 < len(starts):
-            stage(b + 1)
 
 
 @torch.no_grad()

@@ -122,24 +122,27 @@ def _streaming_shards(model, videos: PackedVideos, mesh: Mesh, block: int,
                for q in (q_i, q_e) if q is not None]
         shards.append((dev, weights, q_i, q_e, out))
         lo, hi = rows[s].start, min(rows[s].stop, n)
-        streams.append(_blocks_on_device(
-            (videos.feats[lo:hi], videos.mask[lo:hi]), block, dev)
-            if hi > lo else iter(()))
-    for blocks in itertools.zip_longest(*streams):
-        for (dev, weights, q_i, q_e, out), item in zip(shards, blocks):
-            if item is None:
-                continue
-            start, (feats, mask) = item
-            if score_quant:
-                ctx = encode_context_q8(model, feats, mask, weights)
-                s_i, s_e = score_q8_block(q_i, q_e, *ctx, mask)
-            else:
-                ctx = encode_context_best(model, feats, mask, weights)
-                s_i, s_e = score_encoded_block(q_i, q_e, *ctx, mask)
-            cols = slice(start, start + s_i.shape[1])
-            out[0][:, cols] = s_i
-            if s_e is not None:
-                out[1][:, cols] = s_e
+        streams.append(_blocks_on_device(   # a shard of padding: no block
+            (videos.feats[lo:hi], videos.mask[lo:hi]), block, dev))
+    try:
+        for blocks in itertools.zip_longest(*streams):
+            for (dev, weights, q_i, q_e, out), item in zip(shards, blocks):
+                if item is None:
+                    continue
+                start, (feats, mask) = item
+                if score_quant:
+                    ctx = encode_context_q8(model, feats, mask, weights)
+                    s_i, s_e = score_q8_block(q_i, q_e, *ctx, mask)
+                else:
+                    ctx = encode_context_best(model, feats, mask, weights)
+                    s_i, s_e = score_encoded_block(q_i, q_e, *ctx, mask)
+                cols = slice(start, start + s_i.shape[1])
+                out[0][:, cols] = s_i
+                if s_e is not None:
+                    out[1][:, cols] = s_e
+    finally:
+        for stream in streams:   # stops each stream's staging worker
+            stream.close()
     return [(out[0], out[1] if len(out) > 1 else None)
             for *_, out in shards]
 

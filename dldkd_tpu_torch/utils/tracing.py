@@ -9,8 +9,9 @@ one clock; spans nest by the host thread's call stack. `traced(name)`
 wraps a whole function in one. Names are `<layer>/<part>`:
 
   eval/run, eval/pack_weights, eval/corpus, eval/score, eval/rank,
-  eval/h2d                      the eval engine (evaluate.py,
-                                ops/fast_eval.tower_weights)
+  eval/h2d, eval/stage          the eval engine (evaluate.py,
+                                ops/fast_eval.tower_weights); eval/stage
+                                on the staging worker thread
   kernels/query_tower, kernels/context_tower, kernels/sim_max,
   kernels/sim_max_int8, kernels/sim_max_exact, kernels/quantize_q8
                                 one call into a hand-written kernel's
@@ -21,7 +22,9 @@ wraps a whole function in one. Names are `<layer>/<part>`:
 `count(name, n)` adds to an in-memory total, also only while a profiler
 records, so `counts()` holds the totals of the profiled stretch:
 eval.h2d_bytes, the bytes the eval engines hand to the device (padded
-rows included). `start_profile` sets the totals to zero; `stop_profile`
+rows included), and eval.h2d_pinned_bytes, those of them staged through a
+pinned slot (on a CUDA device only). `start_profile` sets the totals to
+zero and profiles every thread, the staging worker's too; `stop_profile`
 writes the chrome trace as trace.json and the totals as counts.json.
 """
 
@@ -79,14 +82,16 @@ def counts() -> Dict[str, int]:
 
 
 def start_profile(device: torch.device):
-    """A started torch profiler of the host and, on a CUDA device, the
-    card; the totals start from zero."""
+    """A started torch profiler of the host's threads and, on a CUDA
+    device, the card; the totals start from zero."""
+    from torch._C._profiler import _ExperimentalConfig
     from torch.profiler import ProfilerActivity, profile
 
     _COUNTS.clear()
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    prof = profile(activities=acts)
+    prof = profile(activities=acts, experimental_config=_ExperimentalConfig(
+        profile_all_threads=True))
     prof.start()
     return prof
 

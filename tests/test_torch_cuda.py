@@ -24,6 +24,9 @@ run the tensor-core kernels of csrc/tower_mma.cu: bf16 products exact in
 f32, f32 products in 3xTF32 (f32-grade), sums in another order.
 """
 
+import threading
+import time
+
 import pytest
 import torch
 
@@ -915,6 +918,205 @@ def test_streaming_eval_on_card_matches_resident(dev, score_quant):
                                           context_bsz=16, query_bsz=50,
                                           score_quant=score_quant,
                                           corpus_stream_bsz=0, device=dev)
+
+
+# ------------------------------------------------------------ staging
+
+def _blocking_staging(arrays, block, device, pad=False):
+    """The resident engine's staging before the pinned path, as
+    `evaluate._blocks_on_device` is called: each block from numpy,
+    zero-padded with `pad`, copied by a blocking `.to`."""
+    for start in range(0, arrays[0].shape[0], block):
+        staged = []
+        for a in arrays:
+            t = torch.from_numpy(np.ascontiguousarray(a[start:start + block]))
+            if pad and t.shape[0] < block:
+                t = torch.cat([t, t.new_zeros(
+                    (block - t.shape[0],) + tuple(t.shape[1:]))])
+            staged.append(t.to(device))
+        yield start, staged
+
+
+def _resident_eval(evaluate, model, videos, queries, dev, staging=None):
+    """One resident eval (16 videos, 20 queries a batch): the frames and
+    mask `embed_corpus` returned, the pooled query batches, both score
+    matrices and the metric dicts. `staging` stands in for
+    `_blocks_on_device`."""
+    kept = {"embed_corpus": [], "encode_query_best": [],
+            "score_all_queries": []}
+    with pytest.MonkeyPatch.context() as mp:
+        if staging is not None:
+            mp.setattr(evaluate, "_blocks_on_device", staging)
+        for name, got in kept.items():
+            def keep(*args, real=getattr(evaluate, name), got=got, **kw):
+                out = real(*args, **kw)
+                got.append(out)
+                return out
+            mp.setattr(evaluate, name, keep)
+        metrics = evaluate.eval_retrieval(model, videos, queries,
+                                          context_bsz=16, query_bsz=20,
+                                          corpus_stream_bsz=0, device=dev)
+    return kept, metrics
+
+
+def _assert_same_tensors(got, want):
+    if isinstance(want, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _assert_same_tensors(g, w)
+    elif want is None:
+        assert got is None
+    else:
+        assert got.shape == want.shape and torch.equal(got, want)
+
+
+def _stage_workers():
+    return [t for t in threading.enumerate()
+            if t.name == "eval-stage" and t.is_alive()]
+
+
+def test_resident_eval_staged_on_card_matches_blocking_copies(dev, tmp_path):
+    """The resident engine through the pinned slots and their worker
+    (70 videos in 5 context batches, 90 queries in 5 query batches, both
+    last batches partial, so padded rows follow real rows) against the
+    same batches staged by blocking pageable copies: frames, padded rows
+    included, and mask, pooled queries, both score matrices and the
+    metric dicts bitwise. Under a profiler every byte but the ground
+    truth's goes through a pinned slot, each hand-over of a slot (an
+    eval/h2d span) follows one fill on the worker's thread (an eval/stage
+    span), and the worker is gone. Slot reuse: the test below."""
+    import json
+
+    from dldkd_tpu_torch import evaluate
+    from dldkd_tpu_torch.utils import tracing
+
+    model, videos, queries = _stream_fixture(np.random.RandomState(13))
+    model = model.to(dev)
+    want, want_metrics = _resident_eval(evaluate, model, videos, queries,
+                                        dev, _blocking_staging)
+    got, metrics = _resident_eval(evaluate, model, videos, queries, dev)
+    for name in want:
+        _assert_same_tensors(got[name], want[name])
+    assert len(got["encode_query_best"]) == 5
+    assert metrics == want_metrics
+
+    prof = tracing.start_profile(dev)
+    traced, traced_metrics = _resident_eval(evaluate, model, videos,
+                                            queries, dev)
+    torch.cuda.synchronize()
+    path = tracing.stop_profile(prof, str(tmp_path))
+    totals = tracing.counts()
+    assert traced_metrics == want_metrics
+    _assert_same_tensors(traced["score_all_queries"],
+                         want["score_all_queries"])
+    gt_bytes = 4 * len(queries)
+    assert totals["eval.h2d_pinned_bytes"] == totals["eval.h2d_bytes"] \
+        - gt_bytes == 4 * (80 * 16 * (48 + 1) + 100 * 8 * (32 + 1))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "user_annotation"]
+    stage = [e for e in events if e["name"] == "eval/stage"]
+    h2d = [e for e in events if e["name"] == "eval/h2d"]
+    assert len(stage) >= 2 and len(h2d) == len(stage) + 1   # + the gt
+    assert {e["tid"] for e in stage}.isdisjoint({e["tid"] for e in h2d})
+    assert not _stage_workers()
+
+
+class _FailingRows(np.ndarray):
+    """An array whose rows from 40 on cannot be read: the worker's fill
+    of the slot that holds them raises."""
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice) and (idx.stop is None or idx.stop > 40):
+            raise ValueError("rows from 40 are unreadable")
+        return super().__getitem__(idx)
+
+
+@pytest.mark.parametrize("where", ["corpus", "queries", "worker"])
+def test_staging_stops_when_the_eval_raises(dev, where):
+    """A consumer of the staged batches that raises mid-iteration (the
+    video or the query tower on its second batch), or a fill that raises
+    on the worker (surfaced on the main thread): the error reaches the
+    caller, the worker thread is joined within 10 s, and the next eval in
+    the process reads the same metrics as before."""
+    from dldkd_tpu_torch import evaluate
+
+    model, videos, queries = _stream_fixture(np.random.RandomState(14))
+    model = model.to(dev)
+
+    def run(v=videos):
+        return evaluate.eval_retrieval(model, v, queries, context_bsz=16,
+                                       query_bsz=20, corpus_stream_bsz=0,
+                                       device=dev)
+
+    want = run()
+    with pytest.MonkeyPatch.context() as mp:
+        if where == "worker":
+            bad = PackedVideos(videos.feats.view(_FailingRows), videos.mask,
+                               videos.ids)
+            with pytest.raises(ValueError, match="unreadable"):
+                run(bad)
+        else:
+            name = ("encode_context_best" if where == "corpus"
+                    else "encode_query_best")
+            real, calls = getattr(evaluate, name), []
+
+            def failing(*args, **kw):
+                calls.append(1)
+                if len(calls) == 2:
+                    raise RuntimeError("consumer fails")
+                return real(*args, **kw)
+
+            mp.setattr(evaluate, name, failing)
+            with pytest.raises(RuntimeError, match="consumer fails"):
+                run()
+    deadline = time.monotonic() + 10.0
+    while _stage_workers() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not _stage_workers()
+    assert run() == want
+
+
+@pytest.mark.parametrize("pad", [True, False], ids=["padded", "trimmed"])
+@pytest.mark.parametrize("row_kb", [128, 1024], ids=["one_slot",
+                                                     "7_slot_fills"])
+def test_staged_blocks_survive_slow_consumers(dev, pad, row_kb):
+    """Every block through the two pinned slots arrives whole and in
+    order while the consumer holds the card back (a spin kernel before it
+    reads each block) and the interpreter switches threads every
+    microsecond: a block's device buffer is not refilled before the
+    kernels that read it ran, and a pinned slot not before its copy
+    ended. 61 blocks of 3 rows, the last of 1; rows of 128 KB put every
+    block in one slot fill, rows of 1 MB ten blocks in a fill (32 MB), so
+    the two slots are filled 7 times, the last with one block."""
+    import sys
+
+    from dldkd_tpu_torch import evaluate
+
+    rng = np.random.RandomState(15)
+    feats = rng.randn(181, row_kb, 256).astype(np.float32)
+    mask = (rng.rand(181, 4) > 0.5).astype(np.float32)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        copies = []
+        for start, (f, m) in evaluate._blocks_on_device((feats, mask), 3,
+                                                        dev, pad=pad):
+            torch.cuda._sleep(1_000_000)
+            copies.append((start, f.clone(), m.clone()))
+        torch.cuda.synchronize()
+    finally:
+        sys.setswitchinterval(interval)
+    assert [c[0] for c in copies] == list(range(0, 181, 3))
+    for start, f, m in copies:
+        rows = min(3, 181 - start)
+        assert f.shape[0] == m.shape[0] == (3 if pad else rows)
+        assert torch.equal(f[:rows].cpu(),
+                           torch.from_numpy(feats[start:start + rows]))
+        assert torch.equal(m[:rows].cpu(),
+                           torch.from_numpy(mask[start:start + rows]))
+        assert not f[rows:].any() and not m[rows:].any()
+    assert not _stage_workers()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

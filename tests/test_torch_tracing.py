@@ -5,8 +5,8 @@ A tiny eval on the CPU (the kernels' plain versions) under torch.profiler:
 the eval's layer spans nest under eval/run, the eval/h2d and kernels/*
 spans number what the engine's batches give, and eval.h2d_bytes is the
 bytes of the padded batches. With no profiler a span is one shared no-op
-and nothing is counted. The four readers under benchmark/metrics/ read a
-hand-built trace. Imports no JAX.
+and nothing is counted. The readers under benchmark/metrics/ read a
+hand-built trace and hand-made counts. Imports no JAX.
 """
 
 import json
@@ -67,7 +67,9 @@ def _expected(engine: str, branches: int):
     f32 = 4
     if engine == "resident":
         nc, nq = _ceil(N_VID, CONTEXT_BSZ), _ceil(N_Q, QUERY_BSZ)
-        spans = {"eval/h2d": 1 + nc + 2 * nq + 1,
+        # a context batch's frames and mask, a query batch's tokens and
+        # mask: one hand-over each; then the ground truth's
+        spans = {"eval/h2d": nc + nq + 1,
                  "kernels/context_tower": nc, "kernels/query_tower": nq,
                  "kernels/sim_max": branches * nq}
         nbytes = (nc * CONTEXT_BSZ * L * (DV + 1)
@@ -126,6 +128,7 @@ def test_eval_spans_and_bytes_under_profile(tmp_path, engine,
     assert got == spans
     assert sum(n.startswith("kernels/") for n in names) == sum(
         v for k, v in spans.items() if k.startswith("kernels/"))
+    # no pinned slot on the CPU: eval.h2d_pinned_bytes is never counted
     assert tracing.counts() == {"eval.h2d_bytes": nbytes}
     with open(tmp_path / "counts.json") as f:
         assert json.load(f) == {"eval.h2d_bytes": nbytes}
@@ -210,6 +213,23 @@ def test_reader_values(counted_bytes, name, want):
                                   "eval.idle_non_copy_ms"])
 def test_span_readers_silent_without_program_spans(name):
     assert metric_reader(name)(_result(_trace(program_spans=False))) is None
+
+
+@pytest.mark.parametrize("pinned,want", [
+    (9_000_000, 100.0), (8_100_000, 90.0), (None, None)],
+    ids=["all", "most", "parent_program"])
+def test_h2d_pinned_pct_reader(pinned, want):
+    """eval.h2d_pinned_pct: the pinned counter over eval.h2d_bytes, x 100;
+    nothing from a program that has no pinned counter, nor untraced."""
+    prof = tracing.start_profile(CPU)
+    tracing.count("eval.h2d_bytes", 9_000_000)
+    if pinned is not None:
+        tracing.count("eval.h2d_pinned_bytes", pinned)
+    prof.stop()
+    read = metric_reader("eval.h2d_pinned_pct")
+    got = read(_result(_trace()))
+    assert got == (None if want is None else pytest.approx(want, rel=1e-12))
+    assert read(_result(None)) is None
 
 
 def test_h2d_mb_silent_without_count(tmp_path):
