@@ -37,8 +37,9 @@ encode: `_embed`, or the streaming block loop), eval/score
 the device (`_blocks_on_device` on the main thread: waiting for a filled
 slot and queuing its copy; the ground truth's copy), which counts the bytes
 it hands over as eval.h2d_bytes, and those that went through a pinned slot
-as eval.h2d_pinned_bytes as well; eval/stage around each fill of a slot
-on the worker thread."""
+as eval.h2d_pinned_bytes as well; eval/h2d_order around the side stream's
+wait for the compute stream before a staging's first copy; eval/stage
+around each fill of a slot on the worker thread."""
 
 from __future__ import annotations
 
@@ -101,13 +102,15 @@ def _blocks_on_device(arrays, block: int, device, pad: bool = False):
     torch's intra-op threads; padded rows zeroed, since a slot holds the
     rows of the group two back) while the caller queues its work on the
     blocks before, and the main thread copies each filled slot
-    `non_blocking` on a side stream. Events order the copy before the
-    compute stream reads the group (`copied`), the copy after the kernels
-    that read the slot's device buffer two groups back (`consumed`,
-    waited for on the side stream), and the worker's refill of a pinned
-    slot after its last copy. A yielded block's tensors are valid until
-    the next one is asked for. Closing the generator early stops and
-    joins the worker."""
+    `non_blocking` on a side stream. The side stream first waits for the
+    work already queued on the compute stream, which may still use the
+    memory the device buffers were given; then events order the copy
+    before the compute stream reads the group (`copied`), the copy after
+    the kernels that read the slot's device buffer two groups back
+    (`consumed`, waited for on the side stream), and the worker's refill
+    of a pinned slot after its last copy. A yielded block's tensors are
+    valid until the next one is asked for. Closing the generator early
+    stops and joins the worker."""
     n = arrays[0].shape[0]
     starts = range(0, n, block)
     if device.type != "cuda":
@@ -137,6 +140,12 @@ def _blocks_on_device(arrays, block: int, device, pad: bool = False):
                 for p in slot] for slot in pinned]
     compute = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
+    # The device buffers come from the caching allocator on the compute
+    # stream, which hands out memory that kernels queued there may still
+    # read or write (the previous phase's tower buffers, freed once their
+    # launches were queued); no copy into them starts before that work.
+    with span("eval/h2d_order"):
+        side.wait_stream(compute)
     copied = [torch.cuda.Event() for _ in range(k)]
     consumed = [torch.cuda.Event() for _ in range(k)]
     # main -> worker: one token per queued copy (None: stop); worker ->

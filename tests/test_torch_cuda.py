@@ -1119,6 +1119,40 @@ def test_staged_blocks_survive_slow_consumers(dev, pad, row_kb):
     assert not _stage_workers()
 
 
+def test_staged_copy_waits_for_work_queued_on_recycled_memory(dev):
+    """The staging's device buffer comes from the caching allocator on the
+    compute stream, which hands out memory whose last kernels are still
+    queued there. A buffer of a slot's size is written by a fill queued
+    behind a spin kernel and freed before the staging starts, so the slot
+    gets its memory: the side stream's copy may not land before the
+    queued fill (which would leave the fill's 7s where the block's rows
+    belong, as the TVR eval's video towers lost their last batch's buffers
+    to the first query copy). Three rounds: the first allocates the pinned
+    slot, which can hold the host until the card is idle; the later ones
+    reuse it."""
+    from dldkd_tpu_torch import evaluate
+
+    feats = np.random.RandomState(22).rand(4, 1024, 2048).astype(np.float32)
+    for _ in range(3):
+        blocks = []   # nothing freed between the buffer's free and the slot
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        busy = torch.empty(feats.shape, device=dev)
+        torch.cuda._sleep(50_000_000)
+        busy.fill_(7.0)
+        seen = torch.stack([busy.min(), busy.max()])
+        freed = busy.data_ptr()
+        del busy
+        for start, (f,) in evaluate._blocks_on_device((feats,), 4, dev,
+                                                      pad=True):
+            assert f.data_ptr() == freed   # the freed memory, handed over
+            blocks.append(f.clone())
+        torch.cuda.synchronize()
+        assert seen.tolist() == [7.0, 7.0]
+        assert torch.equal(blocks[0].cpu(), torch.from_numpy(feats))
+    assert not _stage_workers()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_tower_sub_launches_match_one_launch(dev, dtype, monkeypatch):
     """Past `sequences_per_launch` a tower call runs in several launches
