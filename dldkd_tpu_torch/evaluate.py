@@ -10,9 +10,11 @@ Two engines, one metric tail (`_metrics_from_score_matrices`):
 - resident (`eval_retrieval(corpus_stream_bsz=0)`): the encoded corpus, the
   (Nq, Nv) score matrices and the ranks stay on the device; chunks are
   written in place into one preallocated buffer; only the (Nq,) ranks go
-  to the host. The context and query batches, padded to their full size,
-  reach the card through `_blocks_on_device`. Padded videos carry zero
-  masks, so they score -1e10 and never win. With score_quant the towers
+  to the host. The context batches, padded to their full size, and the
+  query blocks, the last trimmed, reach the card through
+  `_blocks_on_device`; each query block is one query-tower launch and one
+  scorer launch per branch against the whole corpus. Padded videos carry
+  zero masks, so they score -1e10 and never win. With score_quant the towers
   emit an int8 index directly (`embed_corpus_q8`) and the queries are
   scored against it by the int8 kernel (`score_all_queries_q8`);
 - streaming (`eval_retrieval_streaming`): the packed corpus stays in host
@@ -82,18 +84,24 @@ def _gt_on_device(queries: PackedQueries, videos: PackedVideos, dev
 # GB/s for the copy and ~2.4 ms of towers a 105 MB context batch), so a
 # slot's copy has ended before the worker comes back to it. A slot holds
 # as many whole blocks as fit in _SLOT_BYTES, at least one: a fill of a few
-# MB costs the worker about as much in thread hand-offs as in copying, so
-# the resident engine's query batches (6.3 MB) go five to a slot (an eval
-# call at ActivityNet's size 0.71 -> 0.63 s on an H100; 64 MB no better).
+# MB costs the worker about as much in thread hand-offs as in copying
+# (50-query batches of 6.3 MB five to a slot: an eval call at ActivityNet's
+# size 0.71 -> 0.63 s on an H100; 64 MB no better). A resident query block
+# (RESIDENT_QUERY_BSZ: 63 MB at d_q 1,024, 47 MB at 768) fills one alone.
 _SLOTS = 2
 _SLOT_BYTES = 32 << 20
+
+# The resident engine's query block, the floor run_retrieval_eval puts
+# under eval_query_bsz: one query-tower launch and one scorer launch per
+# branch for each block, against the whole resident corpus.
+RESIDENT_QUERY_BSZ = 512
 
 
 def _blocks_on_device(arrays, block: int, device, pad: bool = False):
     """Yield (start, [rows of each array on `device`]) for the consecutive
     row blocks [start, start + block) of the numpy `arrays` (one row
     count): the last block trimmed to its rows, or with `pad` zero-padded
-    to `block` rows (the resident engine's fixed batch shapes).
+    to `block` rows (the resident engine's context batches).
 
     On the CPU each block is the arrays' rows as host tensors (a padded
     block a new tensor). On a CUDA device the blocks go in groups through
@@ -271,9 +279,10 @@ def embed_corpus_q8(model, videos: PackedVideos, context_bsz: int = 200,
 def _query_batches(model, queries: Optional[PackedQueries], query_bsz: int,
                    dev, weights: dict, plain: bool,
                    encoded: Optional[Pair]):
-    """(start, inheritance batch, exploration batch or None) over the
-    queries: encoded per batch of query_bsz (the last zero-padded), or
-    sliced from `encoded`, the pooled query vectors already on `dev`."""
+    """(start, inheritance block, exploration block or None) over the
+    queries, in blocks of query_bsz (the last trimmed): each block staged
+    and encoded by one `encode_query_best` call, or sliced from `encoded`,
+    the pooled query vectors already on `dev`."""
     if encoded is not None:
         q_i, q_e = encoded
         for start in range(0, q_i.shape[0], query_bsz):
@@ -281,7 +290,7 @@ def _query_batches(model, queries: Optional[PackedQueries], query_bsz: int,
             yield start, q_i[b], (q_e[b] if q_e is not None else None)
         return
     for start, (feats, mask) in _blocks_on_device(
-            (queries.feats, queries.mask), query_bsz, dev, pad=True):
+            (queries.feats, queries.mask), query_bsz, dev):
         yield (start,) + tuple(encode_query_best(model, feats, mask, weights,
                                                  plain))
 
@@ -298,17 +307,17 @@ def score_all_queries(model, queries: Optional[PackedQueries],
     device. The frames are L2-normalized once here, not once per query
     batch (the same values: the normalization is per frame). `encoded`:
     the queries' pooled vectors on the corpus' device
-    (`encode_all_queries`), scored in batches of query_bsz in place of
-    `queries` (the sharded engine encodes them once for every shard)."""
+    (`encode_all_queries`), scored in blocks of query_bsz in place of
+    `queries` (the sharded engine encodes them once for every shard). Each
+    block's scores go into its rows of the preallocated matrices."""
     dev = ctx_inher.device
     weights = weights or tower_weights(model, dev)
     n = len(queries) if encoded is None else encoded[0].shape[0]
-    n_pad = -(-n // query_bsz) * query_bsz
     nv = ctx_inher.shape[0]
     cn_i = l2_normalize(ctx_inher)
     cn_e = l2_normalize(ctx_explore) if ctx_explore is not None else None
-    inher = torch.empty((n_pad, nv), dtype=torch.float32, device=dev)
-    explore = (torch.empty((n_pad, nv), dtype=torch.float32, device=dev)
+    inher = torch.empty((n, nv), dtype=torch.float32, device=dev)
+    explore = (torch.empty((n, nv), dtype=torch.float32, device=dev)
                if cn_e is not None else None)
     for start, q_i, q_e in _query_batches(model, queries, query_bsz, dev,
                                           weights, plain, encoded):
@@ -319,7 +328,7 @@ def score_all_queries(model, queries: Optional[PackedQueries],
             explore[rows] = clip_scores_maxpool(q_e, cn_e, ctx_mask,
                                                 ctx_normalized=True,
                                                 plain=plain)
-    return inher[:n], (explore[:n] if explore is not None else None)
+    return inher, explore
 
 
 @torch.no_grad()
@@ -336,10 +345,9 @@ def score_all_queries_q8(model, queries: Optional[PackedQueries],
     dev = q8_i.device
     weights = weights or tower_weights(model, dev)
     n = len(queries) if encoded is None else encoded[0].shape[0]
-    n_pad = -(-n // query_bsz) * query_bsz
     nv = q8_i.shape[0]
-    inher = torch.empty((n_pad, nv), dtype=torch.float32, device=dev)
-    explore = (torch.empty((n_pad, nv), dtype=torch.float32, device=dev)
+    inher = torch.empty((n, nv), dtype=torch.float32, device=dev)
+    explore = (torch.empty((n, nv), dtype=torch.float32, device=dev)
                if q8_e is not None else None)
     for start, q_i, q_e in _query_batches(model, queries, query_bsz, dev,
                                           weights, plain, encoded):
@@ -347,7 +355,7 @@ def score_all_queries_q8(model, queries: Optional[PackedQueries],
         inher[rows] = clip_scores_maxpool_pre8(q_i, q8_i, bias, plain)
         if q8_e is not None:
             explore[rows] = clip_scores_maxpool_pre8(q_e, q8_e, bias, plain)
-    return inher[:n], (explore[:n] if explore is not None else None)
+    return inher, explore
 
 
 def score_matrices(model, videos: PackedVideos, queries: PackedQueries,
@@ -583,7 +591,9 @@ def run_retrieval_eval(model, videos: PackedVideos, queries: PackedQueries,
                        ) -> Dict[str, Dict[str, float]]:
     """The drivers' entry point: routes by the config's corpus_stream_bsz
     (0 = auto by the memory budget, -1 = resident, > 0 = stream with that
-    block, at query batches of at least 64) and the mesh
+    block; the resident engine at query blocks of at least
+    RESIDENT_QUERY_BSZ, the streaming one at query batches of at least 64)
+    and the mesh
     (`parallel.Mesh`: the sharded engines, at query batches of at least
     64, each device holding 1/size of the corpus in the budget; the
     resident one encodes each shard in context batches of
@@ -625,7 +635,8 @@ def run_retrieval_eval(model, videos: PackedVideos, queries: PackedQueries,
                 score_quant=eval_cfg.score_quant, device=dev)
         return eval_retrieval(model, videos, queries,
                               context_bsz=eval_cfg.eval_context_bsz,
-                              query_bsz=eval_cfg.eval_query_bsz,
+                              query_bsz=max(eval_cfg.eval_query_bsz,
+                                            RESIDENT_QUERY_BSZ),
                               score_quant=eval_cfg.score_quant,
                               corpus_stream_bsz=0, device=dev)
     finally:

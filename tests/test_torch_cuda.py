@@ -920,6 +920,61 @@ def test_streaming_eval_on_card_matches_resident(dev, score_quant):
                                           corpus_stream_bsz=0, device=dev)
 
 
+def test_resident_query_blocks_on_card_near_50_query_batches(dev):
+    """At TVR's widths (frames 3,072 wide, query tokens 768, hidden 384 x
+    2, 128 frames, 30 tokens, f32), 300 videos and 1,100 queries: the
+    resident engine at RESIDENT_QUERY_BSZ queries a launch (one query-tower
+    launch and one scorer launch per branch for each block, the last
+    trimmed) against 50 a launch. The f32 query tower's output depends on
+    its launch's row count in the last bits, so the scores of each branch
+    and of the fusion stay within 1e-6, and every (query, video) pair that
+    changes sides of the ground truth's score is a near-tie: at 50 a
+    launch its gap is under 1e-6."""
+    from dldkd_tpu_torch import evaluate
+    from dldkd_tpu_torch.data.ingest import PackedQueries
+
+    nv, nq, block = 300, 1100, evaluate.RESIDENT_QUERY_BSZ
+    cfg = ModelConfig(visual_input_size=3072, query_input_size=768,
+                      inheritance_hidden=384, exploration_hidden=384,
+                      max_ctx_l=128, max_desc_l=30, n_heads=4,
+                      double_branch=True)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(24)
+                                    ).to(dev).eval()
+    rng = np.random.RandomState(24)
+    vmask = (np.arange(128)[None] < rng.randint(32, 129, nv)[:, None]
+             ).astype(np.float32)
+    qmask = (np.arange(30)[None] < rng.randint(8, 31, nq)[:, None]
+             ).astype(np.float32)
+    gen = torch.Generator().manual_seed(25)
+    ids = [f"v{i}" for i in range(nv)]
+    q_vid = [ids[i % nv] for i in range(nq)]
+    videos = PackedVideos(feats=torch.rand((nv, 128, 3072),
+                                           generator=gen).numpy(),
+                          mask=vmask, ids=ids)
+    queries = PackedQueries(
+        feats=torch.randn((nq, 30, 768), generator=gen).numpy(),
+        mask=qmask, cap_ids=[f"{v}#enc#{i}" for i, v in enumerate(q_vid)],
+        video_ids=q_vid)
+    before = dict(qt.LAUNCHES), dict(sim_max.LAUNCHES)
+    wide = evaluate.score_matrices(model, videos, queries, 200, block, dev)
+    blocks = -(-nq // block)
+    assert qt.LAUNCHES["query_tower"] - before[0]["query_tower"] == blocks
+    assert sim_max.LAUNCHES["sim_max_f32"] \
+        - before[1]["sim_max_f32"] == 2 * blocks
+    narrow = evaluate.score_matrices(model, videos, queries, 200, 50, dev)
+    gt = torch.arange(nq, device=dev) % nv
+    rows = torch.arange(nq, device=dev)
+    pairs = list(zip(wide, narrow)) + [(0.7 * wide[0] + 0.3 * wide[1],
+                                        0.7 * narrow[0] + 0.3 * narrow[1])]
+    for w, n in pairs:
+        w, n = w[:, :nv], n[:, :nv]
+        assert w.shape == (nq, nv)
+        assert (w - n).abs().max().item() <= 1e-6
+        gap = n - n[rows, gt][:, None]
+        flips = (w > w[rows, gt][:, None]) != (gap > 0)
+        assert (gap[flips].abs() < 1e-6).all()
+
+
 # ------------------------------------------------------------ staging
 
 def _blocking_staging(arrays, block, device, pad=False):
@@ -977,8 +1032,9 @@ def _stage_workers():
 
 def test_resident_eval_staged_on_card_matches_blocking_copies(dev, tmp_path):
     """The resident engine through the pinned slots and their worker
-    (70 videos in 5 context batches, 90 queries in 5 query batches, both
-    last batches partial, so padded rows follow real rows) against the
+    (70 videos in 5 context batches, the last padded, so padded rows
+    follow real rows; 90 queries in 5 query batches, the last trimmed to
+    10) against the
     same batches staged by blocking pageable copies: frames, padded rows
     included, and mask, pooled queries, both score matrices and the
     metric dicts bitwise. Under a profiler every byte but the ground
@@ -1011,7 +1067,7 @@ def test_resident_eval_staged_on_card_matches_blocking_copies(dev, tmp_path):
                          want["score_all_queries"])
     gt_bytes = 4 * len(queries)
     assert totals["eval.h2d_pinned_bytes"] == totals["eval.h2d_bytes"] \
-        - gt_bytes == 4 * (80 * 16 * (48 + 1) + 100 * 8 * (32 + 1))
+        - gt_bytes == 4 * (80 * 16 * (48 + 1) + 90 * 8 * (32 + 1))
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("cat") == "user_annotation"]
@@ -1475,12 +1531,15 @@ def test_kernel_spans_hold_their_launches_on_card(dev, tmp_path):
     by_name = {}
     for s, n in per_span.items():
         by_name.setdefault(s[2], []).append(n)
+    # 30 queries in blocks of run_retrieval_eval's floor under 10: one
+    blocks = -(-30 // max(10, evaluate.RESIDENT_QUERY_BSZ))
     assert by_name["kernels/context_tower"] == [6] * 3   # 40 videos, 16 a batch
-    assert by_name["kernels/sim_max"] == [1] * 6         # 3 batches x 2
-    assert len(by_name["kernels/query_tower"]) == 3
+    assert by_name["kernels/sim_max"] == [1] * (2 * blocks)   # x 2 branches
+    assert len(by_name["kernels/query_tower"]) == blocks
     assert min(by_name["kernels/query_tower"]) >= 5      # the chain's 5
     drawn = [e["name"] for e in events
              if e.get("cat") == "gpu_user_annotation"]
-    for name, n in (("kernels/context_tower", 3), ("kernels/query_tower", 3),
-                    ("kernels/sim_max", 6)):
+    for name, n in (("kernels/context_tower", 3),
+                    ("kernels/query_tower", blocks),
+                    ("kernels/sim_max", 2 * blocks)):
         assert drawn.count(name) == n, name

@@ -8,8 +8,9 @@ importing nothing of the port). Every width comes from the configuration
 file: TVR's test eval (i3d_resnet frames 3,072 wide, RoBERTa tokens 768)
 and ActivityNet's (1,024 and 1,024), hidden 384 x 2 branches, 128 frames
 and 30 tokens. Only the counts are small: 7 videos in context batches of
-3 and 23 queries in batches of 5, so both last batches are padded.
-Imports no JAX.
+3, so the last batch is padded, and 23 queries at eval_query_bsz 5, which
+the resident engine encodes and scores in one trimmed block. Imports no
+JAX.
 """
 
 import json
@@ -101,7 +102,7 @@ def test_engine_ran_resident_with_padded_batches(run):
         assert frames.shape == (n_pad, cfg["max_ctx_l"],
                                 cfg["inheritance_hidden"])
     for pooled in prog["queries"].values():
-        assert pooled.shape[1] == cfg["inheritance_hidden"]
+        assert pooled.shape == (cfg["n_queries"], cfg["inheritance_hidden"])
 
 
 def test_frames_queries_and_scores_within_tolerance(run):

@@ -4,7 +4,8 @@ the benchmark's readers of them.
 A tiny eval on the CPU (the kernels' plain versions) under torch.profiler:
 the eval's layer spans nest under eval/run, the eval/h2d and kernels/*
 spans number what the engine's batches give, and eval.h2d_bytes is the
-bytes of the padded batches. With no profiler a span is one shared no-op
+bytes of the staged batches (context batches padded, query blocks
+trimmed). With no profiler a span is one shared no-op
 and nothing is counted. The readers under benchmark/metrics/ read a
 hand-built trace and hand-made counts. Imports no JAX.
 """
@@ -28,8 +29,11 @@ from dldkd_tpu_torch.utils import tracing
 from tests.test_torch_cuda import _TRAIN_CFG, _step_on, _train_batch
 
 L, DV, DQ, LQ = 8, 16, 12, 4
-N_VID, N_Q = 37, 23
 CONTEXT_BSZ, QUERY_BSZ, STREAM_BLOCK = 16, 10, 16
+# the resident engine's query block (run_retrieval_eval's floor under
+# QUERY_BSZ); N_Q spans two blocks and a trimmed third
+RESIDENT_BLOCK = max(QUERY_BSZ, evaluate.RESIDENT_QUERY_BSZ)
+N_VID, N_Q = 37, 2 * RESIDENT_BLOCK + 23
 CPU = torch.device("cpu")
 EVAL_SPANS = ("eval/pack_weights", "eval/corpus", "eval/score", "eval/rank")
 
@@ -66,20 +70,21 @@ def _expected(engine: str, branches: int):
     ground truth."""
     f32 = 4
     if engine == "resident":
-        nc, nq = _ceil(N_VID, CONTEXT_BSZ), _ceil(N_Q, QUERY_BSZ)
-        # a context batch's frames and mask, a query batch's tokens and
-        # mask: one hand-over each; then the ground truth's
+        nc, nq = _ceil(N_VID, CONTEXT_BSZ), _ceil(N_Q, RESIDENT_BLOCK)
+        # a context batch's frames and mask (padded), a query block's
+        # tokens and mask (the last trimmed): one hand-over each, one
+        # query-tower launch and one scorer launch per branch a block;
+        # then the ground truth's hand-over
         spans = {"eval/h2d": nc + nq + 1,
                  "kernels/context_tower": nc, "kernels/query_tower": nq,
                  "kernels/sim_max": branches * nq}
-        nbytes = (nc * CONTEXT_BSZ * L * (DV + 1)
-                  + nq * QUERY_BSZ * LQ * (DQ + 1)) * f32
-    else:   # streaming: the queries in one block of max(bsz, 64), no padding
-        nb = _ceil(N_VID, STREAM_BLOCK)
-        spans = {"eval/h2d": 1 + nb + 1, "kernels/context_tower": nb,
-                 "kernels/query_tower": 1, "kernels/sim_max": branches * nb}
-        nbytes = (N_VID * L * (DV + 1) + N_Q * LQ * (DQ + 1)) * f32
-    return spans, nbytes + N_Q * 4
+        nbytes = nc * CONTEXT_BSZ * L * (DV + 1) * f32
+    else:   # streaming: the queries in blocks of max(bsz, 64), no padding
+        nb, nq = _ceil(N_VID, STREAM_BLOCK), _ceil(N_Q, max(QUERY_BSZ, 64))
+        spans = {"eval/h2d": nq + nb + 1, "kernels/context_tower": nb,
+                 "kernels/query_tower": nq, "kernels/sim_max": branches * nb}
+        nbytes = N_VID * L * (DV + 1) * f32
+    return spans, nbytes + N_Q * LQ * (DQ + 1) * f32 + N_Q * 4
 
 
 def _ranges(path):
