@@ -83,7 +83,7 @@ package. Phases, in order; any failure exits non-zero without the final
    checkpoint in this process through the f32 kernels (each launched, no
    plain version run) against the plain versions, ranks equal, and the
    run's best validation SumR reproduced;
-5. `evaluate.eval_retrieval` at TVR test-split scale (2,179 videos x 128
+5. the resident eval at TVR test-split scale (2,179 videos x 128
    frames, 10,895 queries, both branches), in bf16 and in f32: metrics,
    wall time, peak memory and launch counts; one more pass of each under
    torch.profiler (device time by kernel, device idle share); then the
@@ -367,6 +367,27 @@ def bound(n_bytes: float, n_ops: float, arith: str):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def eval_at(model, videos, queries, dev, query_bsz: int,
+            context_bsz: int = 200, score_quant: bool = False,
+            stream: int = 0) -> dict:
+    """One eval's metric dicts at explicit batch sizes
+    (`evaluate.run_retrieval_eval` takes them from its route): the
+    resident engine in context batches of context_bsz, or with stream > 0
+    the streaming one in corpus blocks of stream, then the eval's metric
+    tail."""
+    from dldkd_tpu_torch import evaluate
+
+    if stream:
+        scores = evaluate.stream_score_matrices(
+            model, videos, queries, stream, query_bsz, dev, score_quant)
+    else:
+        scores = evaluate.score_matrices(model, videos, queries, context_bsz,
+                                         query_bsz, dev,
+                                         score_quant=score_quant)
+    return evaluate._metrics_from_score_matrices(
+        *scores, evaluate._gt_on_device(queries, videos, dev), (0.7, 0.3))
 
 
 def scoring_launch(symbol: str, q, ctx, *per_frame):
@@ -1296,7 +1317,7 @@ UNFUSED_EPILOGUES = ("layernorm_kernel", "pool_kernel")
 
 def profile_eval(model, videos, queries, dev, score_quant=False,
                  stream: int = 0) -> dict:
-    """One eval_retrieval under torch.profiler (the resident engine, or
+    """One eval (`eval_at`) under torch.profiler (the resident engine, or
     with stream > 0 the streaming one with that corpus block at 64 queries
     per query-tower launch): device time by kernel, the towers' and the
     scorers', the host-to-device copies' and how much of it ran while a
@@ -1308,7 +1329,6 @@ def profile_eval(model, videos, queries, dev, score_quant=False,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dldkd_tpu_torch.evaluate import eval_retrieval
     from dldkd_tpu_torch.tools.train_bench import span_union
 
     before = _counts()
@@ -1316,11 +1336,9 @@ def profile_eval(model, videos, queries, dev, score_quant=False,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eval_retrieval(model, videos, queries,
-                       context_bsz=TVR["context_bsz"],
-                       query_bsz=STREAM["query_bsz"] if stream
-                       else TVR["query_bsz"], score_quant=score_quant,
-                       corpus_stream_bsz=stream, device=dev)
+        eval_at(model, videos, queries, dev,
+                STREAM["query_bsz"] if stream else TVR["query_bsz"],
+                TVR["context_bsz"], score_quant, stream)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, copies, kernels, by_name = [], [], [], {}
@@ -1374,11 +1392,12 @@ def profile_eval(model, videos, queries, dev, score_quant=False,
 
 
 def phase_tvr_eval(dev):
-    """evaluate.eval_retrieval at TVR test scale, then kernel vs plain."""
+    """The resident eval (`eval_at`) at TVR test scale, then kernel vs
+    plain."""
     import torch
 
     from dldkd_tpu_torch.evaluate import (_metrics_from_score_matrices,
-                                          eval_retrieval, score_matrices)
+                                          score_matrices)
     from dldkd_tpu_torch.metrics import build_gt_indices
 
     t0 = time.perf_counter()
@@ -1391,9 +1410,8 @@ def phase_tvr_eval(dev):
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
         t0 = time.perf_counter()
-        metrics = eval_retrieval(model, videos, queries,
-                                 context_bsz=TVR["context_bsz"],
-                                 query_bsz=TVR["query_bsz"], device=dev)
+        metrics = eval_at(model, videos, queries, dev, TVR["query_bsz"],
+                          TVR["context_bsz"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = _counts()
@@ -1828,7 +1846,7 @@ def phase_int8_eval(dev, videos, queries):
     import torch
 
     from dldkd_tpu_torch.evaluate import (_metrics_from_score_matrices,
-                                          eval_retrieval, score_matrices)
+                                          score_matrices)
     from dldkd_tpu_torch.metrics import build_gt_indices
 
     model = _serving_model("bfloat16", seed=6)
@@ -1836,10 +1854,8 @@ def phase_int8_eval(dev, videos, queries):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     t0 = time.perf_counter()
-    metrics = eval_retrieval(model, videos, queries,
-                             context_bsz=TVR["context_bsz"],
-                             query_bsz=TVR["query_bsz"], score_quant=True,
-                             device=dev)
+    metrics = eval_at(model, videos, queries, dev, TVR["query_bsz"],
+                      TVR["context_bsz"], score_quant=True)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = _counts()
@@ -2219,7 +2235,7 @@ def _stream_evals(dev, videos, queries, launches) -> None:
     import torch
 
     from dldkd_tpu_torch.evaluate import (_metrics_from_score_matrices,
-                                          eval_retrieval, score_matrices,
+                                          score_matrices,
                                           stream_score_matrices)
     from dldkd_tpu_torch.metrics import build_gt_indices
 
@@ -2236,10 +2252,9 @@ def _stream_evals(dev, videos, queries, launches) -> None:
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
             t0 = time.perf_counter()
-            metrics = eval_retrieval(model, videos, queries,
-                                     query_bsz=STREAM["query_bsz"],
-                                     score_quant=quant,
-                                     corpus_stream_bsz=block, device=dev)
+            metrics = eval_at(model, videos, queries, dev,
+                              STREAM["query_bsz"], score_quant=quant,
+                              stream=block)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             counts = _counts()
@@ -2302,7 +2317,6 @@ def _stream_under_budget(dev, videos, queries, launches) -> None:
 
     from dldkd_tpu_torch.config import EvalConfig
     from dldkd_tpu_torch.evaluate import (DEFAULT_STREAM_BLOCK,
-                                          eval_retrieval,
                                           resident_eval_bytes,
                                           run_retrieval_eval)
 
@@ -2324,8 +2338,7 @@ def _stream_under_budget(dev, videos, queries, launches) -> None:
         else:
             os.environ["DLDKD_EVAL_MEM_BUDGET"] = saved
     launches["run_retrieval_eval_budget"] = counts
-    want = eval_retrieval(model, videos, queries, corpus_stream_bsz=0,
-                          device=dev)
+    want = eval_at(model, videos, queries, dev, 50)
     blocks = -(-len(videos) // DEFAULT_STREAM_BLOCK)
     queries_launches = -(-len(queries) // STREAM["query_bsz"])
     emit({"phase": "run_retrieval_eval_budget", "dtype": "float32",
@@ -2885,7 +2898,7 @@ def _parallel_shape_checks(dev, videos, queries, mesh) -> dict:
     import torch.nn.functional as F
 
     from dldkd_tpu_torch.data.ingest import PackedVideos
-    from dldkd_tpu_torch.evaluate import embed_corpus, embed_corpus_q8
+    from dldkd_tpu_torch.evaluate import embed_corpus
     from dldkd_tpu_torch.ops.fast_eval import (encode_context_best,
                                                encode_context_q8,
                                                encode_query_best,
@@ -2995,7 +3008,8 @@ def _parallel_shape_checks(dev, videos, queries, mesh) -> dict:
             out["context_tower_q8"] = rec
             if not rec["bitwise"]:
                 fail(f"sharded eval int8 epilogue: {rec}")
-            i8, _, bias = embed_corpus_q8(model, shard, cb, dev, ws)
+            i8, _, bias = embed_corpus(model, shard, cb, dev, ws,
+                                       score_quant=True)
             q8 = sim_max.quantize_unit_int8(qn).contiguous()
             out["sim_max_int8"] = scorer(
                 "int8", "sim_max_int8",

@@ -15,12 +15,13 @@ What is ported so far:
   or stacked (`--stacked_towers`, `models/stacked.py`); the train bench
   (`tools/train_bench.py`); the ablation losses, FeedForward /
   TransformerBlock, the RNN encoder and the sequence helpers;
-- the evaluation path of `scripts/do_test.sh` (`infer`, `evaluate`):
-  checkpoint -> corpus and query towers -> masked cosine max-over-frames
-  scoring -> rank -> R@K/SumR/mAP per branch and for the 0.7/0.3 fusion,
-  and its int8 form (`--score_quant`: the video towers emit an int8 index,
-  int8 scoring);
-- the corpus-streaming eval (`evaluate.eval_retrieval_streaming`);
+- the evaluation path of `scripts/do_test.sh` (`infer`,
+  `evaluate.run_retrieval_eval`): checkpoint -> corpus and query towers ->
+  masked cosine max-over-frames scoring -> rank -> R@K/SumR/mAP per branch
+  and for the 0.7/0.3 fusion, and its int8 form (`--score_quant`: the
+  video towers emit an int8 index, int8 scoring);
+- the corpus-streaming eval (`--corpus_stream_bsz`,
+  `evaluate.stream_score_matrices`);
 - serving (`serving.Retriever`, `python -m
   dldkd_tpu_torch.serving`): exact search, two-stage search (int8
   shortlist, then exact rescoring by candidate gather or by a dense exact

@@ -5,36 +5,45 @@ queries in batches, score every query against every video (masked cosine,
 max over frames), rank the ground truth, and report R@K/SumR/mAP per branch
 and for the 0.7/0.3 fusion.
 
-Two engines, one metric tail (`_metrics_from_score_matrices`):
+One entry, `run_retrieval_eval`: it takes the route once (`eval_plan`: the
+engine, the corpus block and the query block, from the config, the
+device's free memory and the mesh), runs that engine's score matrices,
+then the metric tail (`_gt_on_device`, `_metrics_from_score_matrices`).
+The engines, each callable with explicit block sizes:
 
-- resident (`eval_retrieval(corpus_stream_bsz=0)`): the encoded corpus, the
+- resident (`score_matrices`): the encoded corpus (`embed_corpus`), the
   (Nq, Nv) score matrices and the ranks stay on the device; chunks are
   written in place into one preallocated buffer; only the (Nq,) ranks go
   to the host. The context batches, padded to their full size, and the
   query blocks, the last trimmed, reach the card through
   `_blocks_on_device`; each query block is one query-tower launch and one
-  scorer launch per branch against the whole corpus. Padded videos carry
-  zero masks, so they score -1e10 and never win. With score_quant the towers
-  emit an int8 index directly (`embed_corpus_q8`) and the queries are
-  scored against it by the int8 kernel (`score_all_queries_q8`);
-- streaming (`eval_retrieval_streaming`): the packed corpus stays in host
+  scorer launch per branch against the whole corpus
+  (`score_all_queries`). Padded videos carry zero masks, so they score
+  -1e10 and never win;
+- streaming (`stream_score_matrices`): the packed corpus stays in host
   memory; the queries are encoded once, then each corpus block goes through
   the video towers and is scored against every query in one launch per
-  branch, so device memory holds one block, not the corpus.
+  branch, so device memory holds one block, not the corpus. The block loop
+  (`_stream_columns`) also serves every shard of the sharded streaming
+  engine;
+- on a mesh (`parallel/`), the corpus-sharded engines
+  (`parallel/eval_shard.sharded_score_matrices`), which run the two above
+  per shard.
 
-Every input batch of either engine reaches the device through one staging
+The index format is behind one seam: `_encode_block` gives a batch's float
+frames and mask, or with score_quant its int8 index and int32 bias (the
+towers emit int8 directly), and the scorers (`block_scorers`, which
+`score_all_queries` and the streaming block loop call) pick the float or
+the int8 kernel from what they are handed.
+
+Every input batch of every engine reaches the device through one staging
 path, `_blocks_on_device`: on the card a worker thread fills two pinned
 slots ahead of the card and each slot is copied on a side stream.
 
-`eval_retrieval(corpus_stream_bsz=None)` picks the engine by the device's
-free memory (`auto_stream_block`), as the JAX package does. On a mesh
-(`parallel/`), `run_retrieval_eval` routes to the corpus-sharded engines
-(`parallel/eval_shard.py`), which reuse this module's pieces per shard.
-
 Under a torch profiler the layers are spans (`utils/tracing.py`):
 eval/run (`run_retrieval_eval`, every route), eval/corpus (the corpus
-encode: `_embed`, or the streaming block loop), eval/score
-(`score_all_queries`, `score_all_queries_q8`), eval/rank
+encode: `embed_corpus`, or the single-device streaming block loop),
+eval/score (`score_all_queries`), eval/rank
 (`_metrics_from_score_matrices`), and eval/h2d around each hand-over to
 the device (`_blocks_on_device` on the main thread: waiting for a filled
 slot and queuing its copy; the ground truth's copy), which counts the bytes
@@ -45,6 +54,7 @@ around each fill of a slot on the worker thread."""
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue as queue_mod
 import threading
@@ -216,64 +226,56 @@ def _blocks_on_device(arrays, block: int, device, pad: bool = False):
         worker.join()
 
 
+def _encode_block(model, feats: torch.Tensor, mask: torch.Tensor,
+                  weights: dict, plain: bool, score_quant: bool):
+    """One batch of videos through the video towers, in the index format
+    the scorers take: (frames inheritance, frames exploration or None,
+    the (Nv, L) mask), or with score_quant the batch's int8 index (rows
+    inheritance, rows exploration or None, (Nv, L) int32 bias, in
+    `ops.kernels.sim_max.build_q8_index` layout), the towers emitting int8
+    directly (the emit_q8 epilogue) so frames in the tower dtype never
+    exist beyond one launch."""
+    if not score_quant:
+        return (*encode_context_best(model, feats, mask, weights, plain),
+                mask)
+    q8_i, q8_e = encode_context_q8(model, feats, mask, weights, plain)
+    rows_i, bias = build_q8_index(q8_i, mask)
+    return rows_i, (None if q8_e is None else q8_e.contiguous()), bias
+
+
+@torch.no_grad()
 @traced("eval/corpus")
-def _embed(encode, model, videos: PackedVideos, context_bsz: int, device,
-           weights: Optional[dict], plain: bool):
-    """Run `encode` over the corpus in context batches into preallocated
-    (Np, L, H) buffers per branch; returns (inher, explore or None,
-    (Np, L) mask)."""
+def embed_corpus(model, videos: PackedVideos, context_bsz: int = 200,
+                 device=None, weights: Optional[dict] = None,
+                 plain: bool = False, score_quant: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                            torch.Tensor]:
+    """Encode every corpus video in context batches into preallocated
+    buffers on `device`, Np rows each, Np the video count rounded up to
+    the context batch: (Np, L, H) inheritance frames, exploration frames
+    (or None) and the (Np, L) mask; padded videos carry zero masks. With
+    score_quant the prebuilt int8 index instead (`_encode_block`), half
+    the size of bf16 frames: int8 rows per branch and the int32 bias,
+    padded videos at the mask bias."""
     dev = resolve_device(device)
     weights = weights or tower_weights(model, dev)
     n_pad = -(-len(videos) // context_bsz) * context_bsz
-    inher = explore = mask = None
+    inher = explore = aux = None
     for start, (feats, batch_mask) in _blocks_on_device(
             (videos.feats, videos.mask), context_bsz, dev, pad=True):
-        ich, ech = encode(model, feats, batch_mask, weights, plain)
+        ich, ech, batch_aux = _encode_block(model, feats, batch_mask,
+                                            weights, plain, score_quant)
         if inher is None:
-            mask = batch_mask.new_empty((n_pad,) + tuple(batch_mask.shape[1:]))
+            aux = batch_aux.new_empty((n_pad,) + tuple(batch_aux.shape[1:]))
             inher = ich.new_zeros((n_pad,) + tuple(ich.shape[1:]))
             if ech is not None:
                 explore = ech.new_zeros((n_pad,) + tuple(ech.shape[1:]))
         rows = slice(start, start + context_bsz)
-        mask[rows] = batch_mask
+        aux[rows] = batch_aux
         inher[rows] = ich
         if ech is not None:
             explore[rows] = ech
-    return inher, explore, mask
-
-
-@torch.no_grad()
-def embed_corpus(model, videos: PackedVideos, context_bsz: int = 200,
-                 device=None, weights: Optional[dict] = None,
-                 plain: bool = False
-                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                            torch.Tensor]:
-    """Encode every corpus video: (Np, L, H) inheritance, (Np, L, H)
-    exploration (or None) and the (Np, L) mask, on `device`, where Np is the
-    video count rounded up to the context batch. Padded videos carry zero
-    masks."""
-    return _embed(encode_context_best, model, videos, context_bsz, device,
-                  weights, plain)
-
-
-@torch.no_grad()
-def embed_corpus_q8(model, videos: PackedVideos, context_bsz: int = 200,
-                    device=None, weights: Optional[dict] = None,
-                    plain: bool = False
-                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                               torch.Tensor]:
-    """The prebuilt int8 scoring index of the whole corpus: (rows
-    inheritance (Np, L, H) int8, rows exploration or None, bias (Np, L)
-    int32), in `ops.kernels.sim_max.build_q8_index` layout. The towers emit
-    int8 (the emit_q8 epilogue), so frames in the tower dtype never exist
-    beyond one launch; the index is half the size of bf16 frames. Padded
-    videos carry the mask bias."""
-    inher, explore, mask = _embed(encode_context_q8, model, videos,
-                                  context_bsz, device, weights, plain)
-    rows_i, bias = build_q8_index(inher, mask)
-    rows_e = build_q8_index(explore, mask)[0] if explore is not None \
-        else None
-    return rows_i, rows_e, bias
+    return inher, explore, aux
 
 
 def _query_batches(model, queries: Optional[PackedQueries], query_bsz: int,
@@ -295,18 +297,41 @@ def _query_batches(model, queries: Optional[PackedQueries], query_bsz: int,
                                                  plain))
 
 
+def block_scorers(ctx_i: torch.Tensor, ctx_e: Optional[torch.Tensor],
+                  aux: torch.Tensor, plain: bool = False):
+    """Each branch's scorer against encoded corpus rows, None for a branch
+    the model lacks: a function from (Nq, D) queries to their (Nq, Nv) f32
+    scores in one launch. The scorer is chosen by what it is handed. An
+    int8 index and its int32 bias (`_encode_block`): the prebuilt-index
+    int8 kernel (valid videos bitwise as clip_scores_maxpool(quantized=True)
+    on the same quantized components; padded ones at the dequantized mask
+    bias, ~-6.7e4, below any real score). Float frames and their mask:
+    masked cosine, max over frames, the frames L2-normalized once here,
+    not once per call (the same values: the normalization is per
+    frame)."""
+    def scorer(ctx):
+        if ctx is None:
+            return None
+        if ctx.dtype == torch.int8:
+            return lambda q: clip_scores_maxpool_pre8(q, ctx, aux, plain)
+        cn = l2_normalize(ctx)
+        return lambda q: clip_scores_maxpool(q, cn, aux, ctx_normalized=True,
+                                             plain=plain)
+    return scorer(ctx_i), scorer(ctx_e)
+
+
 @torch.no_grad()
 @traced("eval/score")
 def score_all_queries(model, queries: Optional[PackedQueries],
                       ctx_inher: torch.Tensor,
                       ctx_explore: Optional[torch.Tensor],
-                      ctx_mask: torch.Tensor, query_bsz: int = 50,
+                      ctx_aux: torch.Tensor, query_bsz: int = 50,
                       weights: Optional[dict] = None, plain: bool = False,
                       encoded: Optional[Pair] = None) -> Pair:
-    """(Nq, Nv) f32 score matrices for both branches, on the corpus'
-    device. The frames are L2-normalized once here, not once per query
-    batch (the same values: the normalization is per frame). `encoded`:
-    the queries' pooled vectors on the corpus' device
+    """(Nq, Np) f32 score matrices for both branches against the encoded
+    corpus `embed_corpus` returned (frames and mask, or the int8 index and
+    its bias), on its device, through `block_scorers`. `encoded`: the
+    queries' pooled vectors on the corpus' device
     (`encode_all_queries`), scored in blocks of query_bsz in place of
     `queries` (the sharded engine encodes them once for every shard). Each
     block's scores go into its rows of the preallocated matrices."""
@@ -314,68 +339,32 @@ def score_all_queries(model, queries: Optional[PackedQueries],
     weights = weights or tower_weights(model, dev)
     n = len(queries) if encoded is None else encoded[0].shape[0]
     nv = ctx_inher.shape[0]
-    cn_i = l2_normalize(ctx_inher)
-    cn_e = l2_normalize(ctx_explore) if ctx_explore is not None else None
+    score_i, score_e = block_scorers(ctx_inher, ctx_explore, ctx_aux, plain)
     inher = torch.empty((n, nv), dtype=torch.float32, device=dev)
     explore = (torch.empty((n, nv), dtype=torch.float32, device=dev)
-               if cn_e is not None else None)
+               if score_e is not None else None)
     for start, q_i, q_e in _query_batches(model, queries, query_bsz, dev,
                                           weights, plain, encoded):
         rows = slice(start, start + q_i.shape[0])
-        inher[rows] = clip_scores_maxpool(q_i, cn_i, ctx_mask,
-                                          ctx_normalized=True, plain=plain)
-        if cn_e is not None:
-            explore[rows] = clip_scores_maxpool(q_e, cn_e, ctx_mask,
-                                                ctx_normalized=True,
-                                                plain=plain)
-    return inher, explore
-
-
-@torch.no_grad()
-@traced("eval/score")
-def score_all_queries_q8(model, queries: Optional[PackedQueries],
-                         q8_i: torch.Tensor, q8_e: Optional[torch.Tensor],
-                         bias: torch.Tensor, query_bsz: int = 50,
-                         weights: Optional[dict] = None, plain: bool = False,
-                         encoded: Optional[Pair] = None) -> Pair:
-    """(Nq, Np) f32 score matrices against the prebuilt int8 index. Valid
-    videos score bitwise as clip_scores_maxpool(quantized=True) on the same
-    quantized components; padded ones sit at the dequantized mask bias
-    (~-6.7e4), below any real score. `encoded` as in score_all_queries."""
-    dev = q8_i.device
-    weights = weights or tower_weights(model, dev)
-    n = len(queries) if encoded is None else encoded[0].shape[0]
-    nv = q8_i.shape[0]
-    inher = torch.empty((n, nv), dtype=torch.float32, device=dev)
-    explore = (torch.empty((n, nv), dtype=torch.float32, device=dev)
-               if q8_e is not None else None)
-    for start, q_i, q_e in _query_batches(model, queries, query_bsz, dev,
-                                          weights, plain, encoded):
-        rows = slice(start, start + q_i.shape[0])
-        inher[rows] = clip_scores_maxpool_pre8(q_i, q8_i, bias, plain)
-        if q8_e is not None:
-            explore[rows] = clip_scores_maxpool_pre8(q_e, q8_e, bias, plain)
+        inher[rows] = score_i(q_i)
+        if score_e is not None:
+            explore[rows] = score_e(q_e)
     return inher, explore
 
 
 def score_matrices(model, videos: PackedVideos, queries: PackedQueries,
                    context_bsz: int = 200, query_bsz: int = 50, device=None,
                    plain: bool = False, score_quant: bool = False) -> Pair:
-    """Both branches' (Nq, Np) score matrices on `device`, from the int8
-    index with score_quant. plain=True runs every kernel's plain PyTorch
-    version instead, on any device: the reference side of a kernel
-    check."""
+    """The resident engine: both branches' (Nq, Np) score matrices on
+    `device`, from the int8 index with score_quant. plain=True runs every
+    kernel's plain PyTorch version instead, on any device: the reference
+    side of a kernel check."""
     dev = resolve_device(device)
     weights = tower_weights(model, dev)
-    if score_quant:
-        q8_i, q8_e, bias = embed_corpus_q8(model, videos, context_bsz, dev,
-                                           weights, plain)
-        return score_all_queries_q8(model, queries, q8_i, q8_e, bias,
-                                    query_bsz, weights, plain)
-    ctx_i, ctx_e, ctx_mask = embed_corpus(model, videos, context_bsz, dev,
-                                          weights, plain)
-    return score_all_queries(model, queries, ctx_i, ctx_e, ctx_mask,
-                             query_bsz, weights, plain)
+    index = embed_corpus(model, videos, context_bsz, dev, weights, plain,
+                         score_quant)
+    return score_all_queries(model, queries, *index, query_bsz, weights,
+                             plain)
 
 
 @traced("eval/rank")
@@ -469,34 +458,47 @@ def encode_all_queries(model, queries: PackedQueries, query_bsz: int = 512,
     return inher, explore
 
 
-def score_encoded_block(inher_q: torch.Tensor,
-                        explore_q: Optional[torch.Tensor],
-                        ctx_i: torch.Tensor, ctx_e: Optional[torch.Tensor],
-                        block_mask: torch.Tensor, plain: bool = False
-                        ) -> Pair:
-    """(Nq, block) scores of every query against one encoded corpus block,
-    one scorer launch per branch."""
-    s_i = clip_scores_maxpool(inher_q, ctx_i, block_mask, plain=plain)
-    if ctx_e is None:
-        return s_i, None
-    return s_i, clip_scores_maxpool(explore_q, ctx_e, block_mask,
-                                    plain=plain)
-
-
-def score_q8_block(inher_q: torch.Tensor, explore_q: Optional[torch.Tensor],
-                   q8_i: torch.Tensor, q8_e: Optional[torch.Tensor],
-                   block_mask: torch.Tensor, plain: bool = False) -> Pair:
-    """(Nq, block) int8 scores of every query against one block of the
-    towers' int8 rows: the block's index (`build_q8_index`) scored by the
-    prebuilt-index kernel. The port's index carries no padding, so its
-    columns are the block's."""
-    idx_i, bias = build_q8_index(q8_i, block_mask)
-    s_i = clip_scores_maxpool_pre8(inher_q, idx_i, bias, plain)
-    if q8_e is None:
-        return s_i, None
-    return s_i, clip_scores_maxpool_pre8(explore_q,
-                                         build_q8_index(q8_e, block_mask)[0],
-                                         bias, plain)
+def _stream_columns(model, videos: PackedVideos, shards, block: int,
+                    score_quant: bool, plain: bool = False) -> list:
+    """The streaming block loop, for one device or every local shard of a
+    mesh. shards: (device, tower weights, (inher_q, explore_q) on it, the
+    slice of corpus rows it scores) each. Each shard's rows are staged in
+    blocks of `block` through `_blocks_on_device`, and each block goes
+    through the video towers (`_encode_block`) and is scored against every
+    query in one launch per branch (`block_scorers`), its columns written in
+    place into the shard's preallocated (Nq, rows) f32 buffer per branch;
+    returns those buffers, (inher, explore or None) per shard. The shards'
+    streams advance together, so each device works while the host stages
+    the next shard's block; every stream is closed on exit, which stops
+    its staging worker. Columns past the corpus end stay unwritten."""
+    n = len(videos)
+    outs, streams = [], []
+    for dev, _, (q_i, q_e), rows in shards:
+        outs.append([None if q is None else torch.empty(
+            (q_i.shape[0], rows.stop - rows.start), dtype=torch.float32,
+            device=dev) for q in (q_i, q_e)])
+        lo, hi = rows.start, min(rows.stop, n)
+        streams.append(_blocks_on_device(   # a shard of padding: no block
+            (videos.feats[lo:hi], videos.mask[lo:hi]), block, dev))
+    try:
+        for blocks in itertools.zip_longest(*streams):
+            for (_, weights, (q_i, q_e), _), out, item in zip(shards, outs,
+                                                              blocks):
+                if item is None:
+                    continue
+                start, (feats, mask) = item
+                score_i, score_e = block_scorers(*_encode_block(
+                    model, feats, mask, weights, plain, score_quant),
+                    plain=plain)
+                cols = slice(start, start + feats.shape[0])
+                out[0][:, cols] = score_i(q_i)
+                if score_e is not None:
+                    out[1][:, cols] = score_e(q_e)
+                del score_i, score_e   # one encoded block alive at a time
+    finally:
+        for stream in streams:
+            stream.close()
+    return [tuple(out) for out in outs]
 
 
 @torch.no_grad()
@@ -505,139 +507,85 @@ def stream_score_matrices(model, videos: PackedVideos,
                           query_bsz: int = 512, device=None,
                           score_quant: bool = False, plain: bool = False
                           ) -> Pair:
-    """Both branches' (Nq, Nv) score matrices by the streaming engine: the
-    queries encoded once, then each corpus block (copied from host memory,
-    `_blocks_on_device`) through the video towers and scored against all
-    queries, its columns written in place into one preallocated f32 buffer
-    per branch. With score_quant the towers emit the block's int8 rows
-    (`encode_context_q8`) and `score_q8_block` scores them. plain=True runs
-    every kernel's plain version instead, as in score_matrices."""
+    """The streaming engine: both branches' (Nq, Nv) score matrices with
+    device memory bounded by one corpus block instead of the encoded
+    corpus (dldkd_tpu/evaluate.py:450-512). The queries are encoded once,
+    then each corpus block, copied from host memory, is encoded and scored
+    against all of them (`_stream_columns`); the score columns persist:
+    Nq x Nv x 4 bytes per branch. With score_quant the towers emit each
+    block's int8 index. plain=True runs every kernel's plain version
+    instead, as in score_matrices."""
     dev = resolve_device(device)
     weights = tower_weights(model, dev)
-    inher_q, explore_q = encode_all_queries(model, queries, query_bsz, dev,
-                                            weights, plain)
-    n_q, n_v = len(queries), len(videos)
-    inher_s = torch.empty((n_q, n_v), dtype=torch.float32, device=dev)
-    explore_s = (torch.empty((n_q, n_v), dtype=torch.float32, device=dev)
-                 if explore_q is not None else None)
-    encode, score = ((encode_context_q8, score_q8_block) if score_quant
-                     else (encode_context_best, score_encoded_block))
+    encoded = encode_all_queries(model, queries, query_bsz, dev, weights,
+                                 plain)
     with span("eval/corpus"):
-        for start, (feats, mask) in _blocks_on_device(
-                (videos.feats, videos.mask), corpus_block, dev):
-            ctx_i, ctx_e = encode(model, feats, mask, weights, plain)
-            s_i, s_e = score(inher_q, explore_q, ctx_i, ctx_e, mask, plain)
-            cols = slice(start, start + s_i.shape[1])
-            inher_s[:, cols] = s_i
-            if s_e is not None:
-                explore_s[:, cols] = s_e
-            del ctx_i, ctx_e, s_i, s_e   # one encoded block alive at a time
-    return inher_s, explore_s
+        scores, = _stream_columns(
+            model, videos, [(dev, weights, encoded, slice(0, len(videos)))],
+            corpus_block, score_quant, plain)
+    return scores
 
 
-def eval_retrieval_streaming(model, videos: PackedVideos,
-                             queries: PackedQueries,
-                             corpus_block: int = 2048, query_bsz: int = 512,
-                             fusion: Tuple[float, float] = (0.7, 0.3),
-                             score_quant: bool = False, device=None
-                             ) -> Dict[str, Dict[str, float]]:
-    """Corpus-beyond-memory eval: the resident engine's metrics, with
-    device memory bounded by one corpus block instead of the encoded
-    corpus (dldkd_tpu/evaluate.py:450-512). The score columns persist:
-    Nq x Nv x 4 bytes per branch."""
-    dev = resolve_device(device)
-    inher_s, explore_s = stream_score_matrices(
-        model, videos, queries, corpus_block, query_bsz, dev, score_quant)
-    gt = _gt_on_device(queries, videos, dev)
-    return _metrics_from_score_matrices(inher_s, explore_s, gt, fusion)
-
-
-@torch.no_grad()
-def eval_retrieval(model, videos: PackedVideos, queries: PackedQueries,
-                   context_bsz: int = 200, query_bsz: int = 50,
-                   fusion: Tuple[float, float] = (0.7, 0.3),
-                   score_quant: bool = False,
-                   corpus_stream_bsz: Optional[int] = None,
-                   device=None) -> Dict[str, Dict[str, float]]:
-    """Full eval epoch (reference eval_epoch, eval.py:237-263):
-    {'inher', 'explore', 'fused'} metric dicts, 'fused' from
-    0.7 * inheritance + 0.3 * exploration. score_quant: the int8 engine
-    (the towers emit the int8 index, int8 scoring). corpus_stream_bsz:
-    None picks the engine by the device's free memory (the resident one
-    when `resident_eval_bytes` fits, else streaming with
-    `auto_stream_block`'s block), 0 forces the resident engine, > 0
-    streams with that corpus block."""
-    dev = resolve_device(device)
-    if corpus_stream_bsz is None:
-        corpus_stream_bsz = auto_stream_block(len(videos), len(queries),
-                                              model.config,
-                                              score_quant=score_quant,
-                                              device=dev)
-    if corpus_stream_bsz:
-        return eval_retrieval_streaming(
-            model, videos, queries, corpus_block=corpus_stream_bsz,
-            query_bsz=query_bsz, fusion=fusion, score_quant=score_quant,
-            device=dev)
-    inher_s, explore_s = score_matrices(model, videos, queries, context_bsz,
-                                        query_bsz, dev,
-                                        score_quant=score_quant)
-    gt = _gt_on_device(queries, videos, dev)
-    return _metrics_from_score_matrices(inher_s, explore_s, gt, fusion)
+def eval_plan(n_videos: int, n_queries: int, mcfg, eval_cfg,
+              mesh_size: int = 0, budget: Optional[int] = None
+              ) -> Tuple[int, int]:
+    """The eval's route, as dldkd_tpu.evaluate.run_retrieval_eval takes
+    it: (corpus block, query block). The config's corpus_stream_bsz: 0 =
+    auto (`auto_stream_block` against `budget`, free bytes per device, each
+    of the mesh_size devices holding 1/mesh_size of the corpus; None: no
+    budget, resident), -1 = resident, > 0 = stream with that block; a
+    corpus block of 0 means the resident engine. mesh_size: 0 for one
+    device without a mesh. The query block is eval_query_bsz, at least
+    RESIDENT_QUERY_BSZ on the resident single-device route and at least 64
+    on the others (streaming, and every mesh route)."""
+    block = eval_cfg.corpus_stream_bsz
+    if block == 0:
+        block = 0 if budget is None else auto_stream_block(
+            n_videos, n_queries, mcfg, max(mesh_size, 1), budget,
+            score_quant=eval_cfg.score_quant)
+    block = max(block, 0)
+    floor = RESIDENT_QUERY_BSZ if not (mesh_size or block) else 64
+    return block, max(eval_cfg.eval_query_bsz, floor)
 
 
 @traced("eval/run")
+@torch.no_grad()
 def run_retrieval_eval(model, videos: PackedVideos, queries: PackedQueries,
                        eval_cfg, mesh=None, device=None
                        ) -> Dict[str, Dict[str, float]]:
-    """The drivers' entry point: routes by the config's corpus_stream_bsz
-    (0 = auto by the memory budget, -1 = resident, > 0 = stream with that
-    block; the resident engine at query blocks of at least
-    RESIDENT_QUERY_BSZ, the streaming one at query batches of at least 64)
-    and the mesh
-    (`parallel.Mesh`: the sharded engines, at query batches of at least
-    64, each device holding 1/size of the corpus in the budget; the
-    resident one encodes each shard in context batches of
-    eval_context_bsz, as the single-device engine does), as
-    dldkd_tpu.evaluate.run_retrieval_eval does. `device` is ignored on a
-    mesh: its devices hold the shards. A module in training mode (the
-    per-epoch validation) is evaluated in eval mode and handed back in
-    training mode."""
+    """The eval: {'inher', 'explore', 'fused'} metric dicts (reference
+    eval_epoch, eval.py:237-263), 'fused' from 0.7 * inheritance + 0.3 *
+    exploration. Takes the route `eval_plan` gives for the config, the
+    device's free memory and the mesh (`parallel.Mesh`: the sharded
+    engines, `parallel/eval_shard.py`), runs its engine (the resident one
+    encodes the corpus, or each shard, in context batches of
+    eval_context_bsz; score_quant: the int8 index and int8 scoring), then
+    ranks the ground truth. `device` is ignored on a mesh: its devices
+    hold the shards. A module in training mode (the per-epoch validation)
+    is evaluated in eval mode and handed back in training mode."""
     dev = resolve_device(mesh.devices[0] if mesh is not None else device)
-    stream = eval_cfg.corpus_stream_bsz
-    if stream == 0:
-        stream = auto_stream_block(
-            len(videos), len(queries), model.config,
-            n_devices=mesh.size if mesh is not None else 1,
-            score_quant=eval_cfg.score_quant, device=dev)
-    elif stream < 0:
-        stream = 0
+    corpus_block, query_bsz = eval_plan(
+        len(videos), len(queries), model.config, eval_cfg,
+        mesh.size if mesh is not None else 0, device_memory_budget(dev))
+    quant = eval_cfg.score_quant
     was_training = model.training
     model.eval()
     try:
         if mesh is not None:
-            from dldkd_tpu_torch.parallel import (
-                eval_retrieval_sharded, eval_retrieval_sharded_streaming)
+            from dldkd_tpu_torch.parallel import eval_shard
 
-            if stream:
-                return eval_retrieval_sharded_streaming(
-                    model, videos, queries, mesh, corpus_block=stream,
-                    query_bsz=max(eval_cfg.eval_query_bsz, 64),
-                    score_quant=eval_cfg.score_quant)
-            return eval_retrieval_sharded(
-                model, videos, queries, mesh,
-                query_bsz=max(eval_cfg.eval_query_bsz, 64),
-                score_quant=eval_cfg.score_quant,
-                context_bsz=eval_cfg.eval_context_bsz)
-        if stream:
-            return eval_retrieval_streaming(
-                model, videos, queries, corpus_block=stream,
-                query_bsz=max(eval_cfg.eval_query_bsz, 64),
-                score_quant=eval_cfg.score_quant, device=dev)
-        return eval_retrieval(model, videos, queries,
-                              context_bsz=eval_cfg.eval_context_bsz,
-                              query_bsz=max(eval_cfg.eval_query_bsz,
-                                            RESIDENT_QUERY_BSZ),
-                              score_quant=eval_cfg.score_quant,
-                              corpus_stream_bsz=0, device=dev)
+            scores = eval_shard.sharded_score_matrices(
+                model, videos, queries, mesh, query_bsz, quant, corpus_block,
+                eval_cfg.eval_context_bsz)
+        elif corpus_block:
+            scores = stream_score_matrices(model, videos, queries,
+                                           corpus_block, query_bsz, dev,
+                                           quant)
+        else:
+            scores = score_matrices(model, videos, queries,
+                                    eval_cfg.eval_context_bsz, query_bsz,
+                                    dev, score_quant=quant)
+        return _metrics_from_score_matrices(
+            *scores, _gt_on_device(queries, videos, dev), (0.7, 0.3))
     finally:
         model.train(was_training)

@@ -9,6 +9,11 @@ what the eval and serving call: the CUDA tower kernels
 for a CPU tensor. Unlike the JAX dispatch, f32 configs use
 the kernels too: the JAX gate exists only because of TPU VMEM
 (dldkd_tpu/ops/fast_eval.py:128-133).
+
+This module is the adapter from the model to the kernels:
+`weights_for_branch` / `context_weights_for_branch` read a DLDKD
+branch's tower weights into the tuples `ops/kernels/query_tower.py`
+takes, and `tower_weights` packs them once per eval or Retriever.
 """
 
 from __future__ import annotations
@@ -18,9 +23,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from dldkd_tpu_torch.ops.kernels.query_tower import (
-    context_towers, context_weights_for_branch, pack_weights, query_towers,
-    weights_for_branch)
+from dldkd_tpu_torch.ops.kernels.query_tower import (Weights, context_towers,
+                                                   pack_weights, query_towers)
 from dldkd_tpu_torch.ops.masking import mask_logits
 from dldkd_tpu_torch.utils.tracing import traced
 
@@ -54,6 +58,43 @@ def _fold_input_proj(proj, dtype: torch.dtype
     w = proj.net[1].weight.detach().float().T
     c = proj.net[1].bias.detach().float()
     return (g[:, None] * w).to(dtype), (b @ w + c).to(dtype)
+
+
+def _encoder_weights(branch, tower: str, dtype: torch.dtype) -> Weights:
+    wp, bp = _fold_input_proj(getattr(branch, f"{tower}_input_proj"), dtype)
+    pe = getattr(branch, f"{tower}_pos_embed")
+    enc = getattr(branch, f"{tower}_encoder")
+
+    def t(p):
+        return p.detach().float()
+
+    return (wp, bp, t(pe.position_embeddings.weight), t(pe.LayerNorm.weight),
+            t(pe.LayerNorm.bias),
+            t(enc.self.query.weight).T, t(enc.self.query.bias),
+            t(enc.self.key.weight).T, t(enc.self.key.bias),
+            t(enc.self.value.weight).T, t(enc.self.value.bias),
+            t(enc.output.dense.weight).T, t(enc.output.dense.bias),
+            t(enc.output.LayerNorm.weight), t(enc.output.LayerNorm.bias))
+
+
+def _branch(model, name: str):
+    return model.branches[model.branch_names.index(name)]
+
+
+def weights_for_branch(model, branch: str, dtype: torch.dtype) -> Weights:
+    """Query-tower weight tuple of one branch of a DLDKD module."""
+    br = _branch(model, branch)
+    return (*_encoder_weights(br, "query", dtype),
+            br.modular_vector_mapping.weight.detach().float().T)
+
+
+def context_weights_for_branch(model, branch: str, dtype: torch.dtype
+                               ) -> Weights:
+    """Video-tower weight tuple of one branch of a DLDKD module."""
+    br = _branch(model, branch)
+    om = br.out_mapping_linear
+    return (*_encoder_weights(br, "visual", dtype),
+            om.weight.detach().float().T, om.bias.detach().float())
 
 
 def _attention(x: torch.Tensor, mask: torch.Tensor, enc,

@@ -21,7 +21,8 @@ TF32 products over 495 TFLOP/s in f32, bf16 products over 989); the
 sources' headers say how the chain answers that.
 
 Weight tuples are in the JAX layout (Dense kernels (in, out)), as
-`weights_for_branch` / `context_weights_for_branch` return them:
+`fast_eval.weights_for_branch` / `context_weights_for_branch` read them
+from a model:
   query:  (wp, bp, pos, g1, b1, wq, bq, wk, bk, wv, bv, wo, bo, g2, b2, wm)
   video:  the same 15, then (wm, bm) of out_mapping_linear
 with the input LayerNorm's affine folded into (wp, bp).
@@ -77,50 +78,6 @@ NEG_INF = -1e10      # pooling mask value (ops.masking.NEG_INF)
 INT8_SCALE = 127.0   # symmetric quantization of cosine components
 
 Weights = Tuple[torch.Tensor, ...]
-
-
-# ---------------------------------------------------------------------- #
-# weights
-# ---------------------------------------------------------------------- #
-
-def _encoder_weights(branch, tower: str, dtype: torch.dtype) -> Weights:
-    # lazy: fast_eval imports this module
-    from dldkd_tpu_torch.ops.fast_eval import _fold_input_proj
-
-    wp, bp = _fold_input_proj(getattr(branch, f"{tower}_input_proj"), dtype)
-    pe = getattr(branch, f"{tower}_pos_embed")
-    enc = getattr(branch, f"{tower}_encoder")
-
-    def t(p):
-        return p.detach().float()
-
-    return (wp, bp, t(pe.position_embeddings.weight), t(pe.LayerNorm.weight),
-            t(pe.LayerNorm.bias),
-            t(enc.self.query.weight).T, t(enc.self.query.bias),
-            t(enc.self.key.weight).T, t(enc.self.key.bias),
-            t(enc.self.value.weight).T, t(enc.self.value.bias),
-            t(enc.output.dense.weight).T, t(enc.output.dense.bias),
-            t(enc.output.LayerNorm.weight), t(enc.output.LayerNorm.bias))
-
-
-def _branch(model, name: str):
-    return model.branches[model.branch_names.index(name)]
-
-
-def weights_for_branch(model, branch: str, dtype: torch.dtype) -> Weights:
-    """Query-tower weight tuple of one branch of a DLDKD module."""
-    br = _branch(model, branch)
-    return (*_encoder_weights(br, "query", dtype),
-            br.modular_vector_mapping.weight.detach().float().T)
-
-
-def context_weights_for_branch(model, branch: str, dtype: torch.dtype
-                               ) -> Weights:
-    """Video-tower weight tuple of one branch of a DLDKD module."""
-    br = _branch(model, branch)
-    om = br.out_mapping_linear
-    return (*_encoder_weights(br, "visual", dtype),
-            om.weight.detach().float().T, om.bias.detach().float())
 
 
 # ---------------------------------------------------------------------- #

@@ -81,8 +81,7 @@ from dldkd_tpu_torch import checkpoint as ckpt_lib
 from dldkd_tpu_torch import resolve_device
 from dldkd_tpu_torch.convert import load_jax_params
 from dldkd_tpu_torch.data.ingest import PackedVideos
-from dldkd_tpu_torch.evaluate import (device_memory_budget, embed_corpus,
-                                      embed_corpus_q8)
+from dldkd_tpu_torch.evaluate import device_memory_budget, embed_corpus
 from dldkd_tpu_torch.models import DLDKD
 from dldkd_tpu_torch.ops.fast_eval import (encode_context_best,
                                            encode_query_best, tower_dtype,
@@ -577,7 +576,7 @@ class Retriever:
                     self.weights, self.plain)
             if self.q8_only:
                 self.q8_inher, self.q8_explore, self.q8_bias = \
-                    embed_corpus_q8(*args)
+                    embed_corpus(*args, score_quant=True)
             else:
                 ctx_i, ctx_e, self.vmask = embed_corpus(*args)
                 self._set_frames(ctx_i, ctx_e, normalized=False)
@@ -599,7 +598,7 @@ class Retriever:
             args = (self.model, part, context_bsz, sh.device,
                     self.device_weights[sh.device], self.plain)
             if self.q8_only:
-                rows_i, rows_e, bias = embed_corpus_q8(*args)
+                rows_i, rows_e, bias = embed_corpus(*args, score_quant=True)
                 sh.q8_inher, sh.q8_bias = rows_i[:sh.real], bias[:sh.real]
                 sh.q8_explore = None if rows_e is None else rows_e[:sh.real]
             else:

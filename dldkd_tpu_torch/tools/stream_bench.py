@@ -14,10 +14,11 @@ Two postures:
             the salt to every parameter. One first pass, then `--reps`
             passes and one device synchronize: queries/s sustained.
   host      the f32 corpus stays in host memory (2.28 GB at 2x TVR) and
-            `evaluate.eval_retrieval_streaming(corpus_block=2048,
-            score_quant=True)` streams it through the card (pinned staging
-            buffers, a side stream): the seconds of one call, first use
-            included (`--host`).
+            `evaluate.run_retrieval_eval` streams it through the card in
+            blocks of 2,048 with int8 scoring (`corpus_stream_bsz` 2,048,
+            `eval_query_bsz` 512, `score_quant`; pinned staging buffers, a
+            side stream): the seconds of one call, first use included
+            (`--host`).
 
 Prints one JSON line with the JAX tool's keys: metric, unit, value (the
 hbm-raw queries/s), detail, and host_stream under `--host`. Runs on the
@@ -40,7 +41,8 @@ import torch
 
 from dldkd_tpu_torch import resolve_device
 from dldkd_tpu_torch.data.ingest import PackedQueries, PackedVideos
-from dldkd_tpu_torch.evaluate import eval_retrieval_streaming
+from dldkd_tpu_torch.config import EvalConfig
+from dldkd_tpu_torch.evaluate import run_retrieval_eval
 from dldkd_tpu_torch.metrics import rank_of_gt
 from dldkd_tpu_torch.ops.fast_eval import (encode_context_best,
                                            encode_query_best)
@@ -109,7 +111,8 @@ def bench_hbm_raw(scale: int, reps: int = 5, n_videos: int = wl.N_VIDEOS,
 def bench_host_stream(scale: int, n_videos: int = wl.N_VIDEOS,
                       n_queries: int = 2048, device=None) -> dict:
     """The f32 corpus in host memory, streamed through the card by
-    eval_retrieval_streaming (int8 scoring): seconds of one call."""
+    run_retrieval_eval's streaming route (int8 scoring): seconds of one
+    call."""
     dev = resolve_device(device)
     model = wl.serving_model(0, dev)
     n_vid = n_videos * scale
@@ -129,9 +132,9 @@ def bench_host_stream(scale: int, n_videos: int = wl.N_VIDEOS,
     wl.log(f"host corpus: {videos.feats.nbytes / 1e9:.2f} GB f32 "
            f"({n_vid} videos = {scale} x {n_videos})")
     t0 = time.perf_counter()
-    out = eval_retrieval_streaming(model, videos, queries,
-                                   corpus_block=BLOCK, score_quant=True,
-                                   device=dev)
+    cfg = EvalConfig(eval_query_bsz=512, score_quant=True,
+                     corpus_stream_bsz=BLOCK)
+    out = run_retrieval_eval(model, videos, queries, cfg, device=dev)
     wl.sync(dev)
     dt = time.perf_counter() - t0
     wl.log(f"host streaming eval: {dt:.2f}s for {n_queries} queries x "

@@ -901,6 +901,7 @@ def test_streaming_eval_on_card_matches_resident(dev, score_quant):
     (query, video) score is computed alike at any batch), for blocks that
     divide the corpus, that do not, and one larger than it."""
     from dldkd_tpu_torch import evaluate
+    from dldkd_tpu_torch.config import EvalConfig
 
     model, videos, queries = _stream_fixture(np.random.RandomState(10))
     nv = len(videos)
@@ -911,13 +912,11 @@ def test_streaming_eval_on_card_matches_resident(dev, score_quant):
             model, videos, queries, block, 64, dev, score_quant=score_quant)
         assert torch.equal(s_i, r_i[:, :nv]) and torch.equal(s_e,
                                                              r_e[:, :nv])
-    got = evaluate.eval_retrieval(model, videos, queries, query_bsz=64,
-                                  score_quant=score_quant,
-                                  corpus_stream_bsz=35, device=dev)
-    assert got == evaluate.eval_retrieval(model, videos, queries,
-                                          context_bsz=16, query_bsz=50,
-                                          score_quant=score_quant,
-                                          corpus_stream_bsz=0, device=dev)
+    cfg = EvalConfig(eval_query_bsz=64, score_quant=score_quant,
+                     corpus_stream_bsz=35)
+    got = evaluate.run_retrieval_eval(model, videos, queries, cfg,
+                                      device=dev)
+    assert got == _metrics(evaluate, (r_i, r_e), videos, queries, dev)
 
 
 def test_resident_query_blocks_on_card_near_50_query_batches(dev):
@@ -992,6 +991,13 @@ def _blocking_staging(arrays, block, device, pad=False):
         yield start, staged
 
 
+def _metrics(evaluate, scores, videos, queries, dev):
+    """The eval's metric tail (the ground truth's copy, then the ranks) on
+    score matrices made at explicit batch sizes."""
+    return evaluate._metrics_from_score_matrices(
+        *scores, evaluate._gt_on_device(queries, videos, dev), (0.7, 0.3))
+
+
 def _resident_eval(evaluate, model, videos, queries, dev, staging=None):
     """One resident eval (16 videos, 20 queries a batch): the frames and
     mask `embed_corpus` returned, the pooled query batches, both score
@@ -1008,9 +1014,8 @@ def _resident_eval(evaluate, model, videos, queries, dev, staging=None):
                 got.append(out)
                 return out
             mp.setattr(evaluate, name, keep)
-        metrics = evaluate.eval_retrieval(model, videos, queries,
-                                          context_bsz=16, query_bsz=20,
-                                          corpus_stream_bsz=0, device=dev)
+        metrics = _metrics(evaluate, evaluate.score_matrices(
+            model, videos, queries, 16, 20, dev), videos, queries, dev)
     return kept, metrics
 
 
@@ -1101,9 +1106,8 @@ def test_staging_stops_when_the_eval_raises(dev, where):
     model = model.to(dev)
 
     def run(v=videos):
-        return evaluate.eval_retrieval(model, v, queries, context_bsz=16,
-                                       query_bsz=20, corpus_stream_bsz=0,
-                                       device=dev)
+        return _metrics(evaluate, evaluate.score_matrices(
+            model, v, queries, 16, 20, dev), v, queries, dev)
 
     want = run()
     with pytest.MonkeyPatch.context() as mp:

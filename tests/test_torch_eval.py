@@ -29,7 +29,7 @@ from dldkd_tpu.data.synthetic import generate_dataset as jax_generate
 from dldkd_tpu.models import DLDKD as JaxDLDKD
 from dldkd_tpu.train import init_params
 from dldkd_tpu_torch import evaluate, infer
-from dldkd_tpu_torch.config import ModelConfig, parse_args
+from dldkd_tpu_torch.config import EvalConfig, ModelConfig, parse_args
 from dldkd_tpu_torch.convert import load_jax_params
 from dldkd_tpu_torch.data import (BigFile, dataset_paths, pack_query_set,
                                   pack_video_corpus, read_dict,
@@ -77,6 +77,20 @@ def _models(double: bool, seed: int = 0):
     model = load_jax_params(DLDKD(ModelConfig(double_branch=double, **_DIMS)),
                             jax.tree.map(np.asarray, params)).eval()
     return jmodel, params, model
+
+
+def _eval_cfg(**kw):
+    """The resident route at the JAX runs' batches (its query block floored
+    at RESIDENT_QUERY_BSZ by the router)."""
+    return EvalConfig(eval_query_bsz=7, eval_context_bsz=4,
+                      corpus_stream_bsz=-1, **kw)
+
+
+def _metrics(scores, videos, queries):
+    """The eval's metric tail on score matrices the test made at explicit
+    block sizes."""
+    return evaluate._metrics_from_score_matrices(
+        *scores, evaluate._gt_on_device(queries, videos, "cpu"), (0.7, 0.3))
 
 
 def test_packing_matches_jax(dataset):
@@ -139,14 +153,19 @@ def test_npz_feature_store_packs_like_hdf5(tmp_path):
 
 @pytest.mark.parametrize("double", [True, False], ids=["double", "single"])
 def test_eval_retrieval_matches_jax(dataset, double):
+    """The resident engine at the JAX run's batches, and the router's
+    resident route, give the JAX package's eval_retrieval metric dicts;
+    the score matrices within F32_TOL."""
     _, _, videos, queries = dataset
     jmodel, params, model = _models(double)
     want = jax_eval.eval_retrieval(jmodel, params, videos, queries,
                                    context_bsz=4, query_bsz=7,
                                    corpus_stream_bsz=0)
-    got = evaluate.eval_retrieval(model, videos, queries, context_bsz=4,
-                                  query_bsz=7, device="cpu")
+    got = _metrics(evaluate.score_matrices(model, videos, queries, 4, 7,
+                                           "cpu"), videos, queries)
     assert got == want
+    assert evaluate.run_retrieval_eval(model, videos, queries, _eval_cfg(),
+                                       device="cpu") == want
     if not double:
         assert "explore" not in got and got["fused"] == got["inher"]
 
@@ -188,7 +207,8 @@ def test_bf16_eval_runs(dataset):
                             jax.tree.map(np.asarray, params)).eval()
     ci, ce, _ = evaluate.embed_corpus(model, videos, 4, "cpu")
     assert ci.dtype == ce.dtype == torch.bfloat16
-    out = evaluate.eval_retrieval(model, videos, queries, device="cpu")
+    out = evaluate.run_retrieval_eval(model, videos, queries, _eval_cfg(),
+                                      device="cpu")
     assert set(out) == {"inher", "explore", "fused"}
     assert all(np.isfinite(v) for m in out.values() for v in m.values())
 
@@ -204,12 +224,17 @@ def test_int8_eval_matches_jax(dataset, double):
     want = jax_eval.eval_retrieval(jmodel, params, videos, queries,
                                    context_bsz=4, query_bsz=7,
                                    score_quant=True, corpus_stream_bsz=0)
-    got = evaluate.eval_retrieval(model, videos, queries, context_bsz=4,
-                                  query_bsz=7, score_quant=True, device="cpu")
+    got = _metrics(evaluate.score_matrices(model, videos, queries, 4, 7,
+                                           "cpu", score_quant=True),
+                   videos, queries)
     assert got == want
+    assert evaluate.run_retrieval_eval(
+        model, videos, queries, _eval_cfg(score_quant=True),
+        device="cpu") == want
 
     ji, je, jb = jax_eval.embed_corpus_q8(jmodel, params, videos, 4)
-    gi, ge, gb = evaluate.embed_corpus_q8(model, videos, 4, "cpu")
+    gi, ge, gb = evaluate.embed_corpus(model, videos, 4, "cpu",
+                                       score_quant=True)
     n = len(videos)
     assert gi.dtype == torch.int8 and tuple(gb.shape) == (16, 16)
     # the JAX index is (L_p, Nv_p, H) with an (L_p, Nv_p) bias
@@ -220,8 +245,8 @@ def test_int8_eval_matches_jax(dataset, double):
     assert (ge is None) == (je is None) == (not double)
     ws = jax_eval.score_all_queries_q8(jmodel, params, queries, ji, je, jb,
                                        query_bsz=7)
-    gs = evaluate.score_all_queries_q8(model, queries, gi, ge, gb,
-                                       query_bsz=7)
+    gs = evaluate.score_all_queries(model, queries, gi, ge, gb,
+                                    query_bsz=7)
     for g, w in zip(gs, ws):
         if w is not None:
             np.testing.assert_array_equal(g[:, :n].numpy(),
@@ -261,7 +286,7 @@ def test_entry_points_default_to_cuda(dataset):
     _, _, videos, queries = dataset
     _, _, model = _models(True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        evaluate.eval_retrieval(model, videos, queries)
+        evaluate.run_retrieval_eval(model, videos, queries, _eval_cfg())
 
 
 def _jax_run_dir(tmp_path, root, double):
@@ -290,9 +315,14 @@ def test_infer_score_quant_matches_jax(dataset, tmp_path, monkeypatch):
     """infer.main --score_quant (the resident int8 eval) gives the JAX
     package's int8 metrics on a checkpoint the JAX package wrote."""
     calls = []
-    real = evaluate.embed_corpus_q8
-    monkeypatch.setattr(evaluate, "embed_corpus_q8",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    real = evaluate.embed_corpus
+
+    def embed(*a, **k):
+        out = real(*a, **k)
+        calls.append(out[0].dtype)
+        return out
+
+    monkeypatch.setattr(evaluate, "embed_corpus", embed)
     root, paths, _, _ = dataset
     run_dir, jmodel, params = _jax_run_dir(tmp_path, root, True)
     videos = jax_ingest.pack_video_corpus(
@@ -306,7 +336,7 @@ def test_infer_score_quant_matches_jax(dataset, tmp_path, monkeypatch):
                                    score_quant=True, corpus_stream_bsz=0)
     got = infer.main(["--model_dir", run_dir, "--root_path", root,
                       "--torch_device", "cpu", "--score_quant"])
-    assert got == want and calls == [1]
+    assert got == want and calls == [torch.int8]
 
 
 @pytest.mark.parametrize("double", [True, False], ids=["double", "single"])

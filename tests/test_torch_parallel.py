@@ -60,9 +60,7 @@ from dldkd_tpu_torch.convert import load_jax_params, state_dict_from_jax
 from dldkd_tpu_torch.data import TrainLoader
 from dldkd_tpu_torch.data.ingest import PackedQueries, PackedVideos
 from dldkd_tpu_torch.models import DLDKD
-from dldkd_tpu_torch.parallel import (eval_retrieval_sharded,
-                                      eval_retrieval_sharded_streaming,
-                                      make_mesh, shard_rows)
+from dldkd_tpu_torch.parallel import make_mesh, shard_rows
 from dldkd_tpu_torch.parallel import eval_shard
 from tests.test_torch_parallel_worker import step_once
 
@@ -135,6 +133,16 @@ ROUTES = ("resident", "streaming", "q8")
 _REFS = {}
 
 
+def _eval_cfg(route, context_bsz=CONTEXT_BSZ):
+    """The route's EvalConfig: resident, streaming in blocks of BLOCK, or
+    resident int8; query batches of QUERY_BSZ (the router floors them)."""
+    from dldkd_tpu_torch.config import EvalConfig
+
+    return EvalConfig(eval_query_bsz=QUERY_BSZ, eval_context_bsz=context_bsz,
+                      corpus_stream_bsz=BLOCK if route == "streaming" else -1,
+                      score_quant=route == "q8")
+
+
 def _references(route, double, videos, queries):
     """The single-device port's score matrices and metrics, and the JAX
     package's sharded metrics on its 8 CPU devices, for one route."""
@@ -146,9 +154,6 @@ def _references(route, double, videos, queries):
             scores = evaluate.stream_score_matrices(
                 model, videos, queries, corpus_block=BLOCK,
                 query_bsz=QUERY_BSZ, device="cpu")
-            metrics = evaluate.eval_retrieval_streaming(
-                model, videos, queries, corpus_block=BLOCK,
-                query_bsz=QUERY_BSZ, device="cpu")
             want_jax = jax_sharded_streaming(
                 jmodel, params, videos, queries, jax_make_mesh(8),
                 corpus_block=BLOCK, query_bsz=QUERY_BSZ)
@@ -156,12 +161,12 @@ def _references(route, double, videos, queries):
             scores = evaluate.score_matrices(
                 model, videos, queries, context_bsz=7, query_bsz=QUERY_BSZ,
                 device="cpu", score_quant=quant)
-            metrics = evaluate.eval_retrieval(
-                model, videos, queries, context_bsz=7, query_bsz=QUERY_BSZ,
-                score_quant=quant, corpus_stream_bsz=0, device="cpu")
             want_jax = jax_sharded(jmodel, params, videos, queries,
                                    jax_make_mesh(8), query_bsz=QUERY_BSZ,
                                    score_quant=quant)
+        metrics = evaluate.run_retrieval_eval(
+            model, videos, queries, _eval_cfg(route, context_bsz=7),
+            device="cpu")
         _REFS[key] = (scores, metrics, want_jax)
     return _REFS[key]
 
@@ -197,14 +202,8 @@ def test_sharded_eval_matches_single_device_and_jax(eval_data, route,
         np.testing.assert_allclose(got_e.numpy(),
                                    want_e[:, :N_VID].numpy(),
                                    atol=SCORE_TOL, rtol=0)
-    if block:
-        got = eval_retrieval_sharded_streaming(
-            model, videos, queries, mesh, corpus_block=block,
-            query_bsz=QUERY_BSZ)
-    else:
-        got = eval_retrieval_sharded(model, videos, queries, mesh,
-                                     query_bsz=QUERY_BSZ, score_quant=quant,
-                                     context_bsz=CONTEXT_BSZ)
+    got = evaluate.run_retrieval_eval(model, videos, queries,
+                                      _eval_cfg(route), mesh=mesh)
     _assert_metrics_equal(got, want, "port single device")
     _assert_metrics_equal(got, want_jax, "dldkd_tpu sharded")
 
@@ -354,9 +353,12 @@ def _step_batch(b=16, q=32):
 
 
 # the sharded eval over a process group: each route's keywords
-GROUP_EVAL = {"resident": dict(query_bsz=QUERY_BSZ),
-              "streaming": dict(query_bsz=QUERY_BSZ, corpus_block=BLOCK),
-              "q8": dict(query_bsz=QUERY_BSZ, score_quant=True)}
+GROUP_EVAL = {"resident": dict(eval_query_bsz=QUERY_BSZ,
+                               corpus_stream_bsz=-1),
+              "streaming": dict(eval_query_bsz=QUERY_BSZ,
+                                corpus_stream_bsz=BLOCK),
+              "q8": dict(eval_query_bsz=QUERY_BSZ, corpus_stream_bsz=-1,
+                         score_quant=True)}
 
 
 @pytest.fixture(scope="module")

@@ -109,12 +109,11 @@ def _group_eval(d, spec, group):
     import numpy as np
     import torch
 
-    from dldkd_tpu_torch.config import ModelConfig
+    from dldkd_tpu_torch.config import EvalConfig, ModelConfig
     from dldkd_tpu_torch.data.ingest import PackedQueries, PackedVideos
+    from dldkd_tpu_torch.evaluate import run_retrieval_eval
     from dldkd_tpu_torch.models import DLDKD
-    from dldkd_tpu_torch.parallel import (eval_retrieval_sharded,
-                                          eval_retrieval_sharded_streaming,
-                                          make_mesh)
+    from dldkd_tpu_torch.parallel import make_mesh
 
     data = np.load(os.path.join(d, "eval.npz"))
     videos = PackedVideos(feats=data["vfeats"], mask=data["vmask"],
@@ -128,12 +127,8 @@ def _group_eval(d, spec, group):
     mesh = make_mesh(devices=["cpu", "cpu"], group=group)
     out = {}
     for route, kw in spec["eval_routes"].items():
-        if kw.get("corpus_block"):
-            out[route] = eval_retrieval_sharded_streaming(
-                model, videos, queries, mesh, **kw)
-        else:
-            out[route] = eval_retrieval_sharded(model, videos, queries,
-                                                mesh, **kw)
+        out[route] = run_retrieval_eval(model, videos, queries,
+                                        EvalConfig(**kw), mesh=mesh)
     return out
 
 

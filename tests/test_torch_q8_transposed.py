@@ -26,6 +26,7 @@ from dldkd_tpu.train import init_params
 from dldkd_tpu_torch.config import ModelConfig
 from dldkd_tpu_torch.convert import load_jax_params
 from dldkd_tpu_torch.models import DLDKD
+from dldkd_tpu_torch.ops import fast_eval
 from dldkd_tpu_torch.ops.kernels import query_tower as qt
 from dldkd_tpu_torch.ops.kernels import sim_max
 from tests.test_fast_eval import _assert_q8_equal_mod_knife_edge
@@ -80,8 +81,8 @@ def test_q8_transposed_plain_matches_pallas(params, dtype):
         jax_qt.context_weights_for_branch(params, "exploration", jdt),
         n_heads=2, dtype_name=dtype, emit_q8=True, q8_transposed=True,
         interpret=True)
-    wa = qt.context_weights_for_branch(model, "inheritance", tdt)
-    wb = qt.context_weights_for_branch(model, "exploration", tdt)
+    wa = fast_eval.context_weights_for_branch(model, "inheritance", tdt)
+    wb = fast_eval.context_weights_for_branch(model, "exploration", tdt)
     x, m = torch.from_numpy(vf), torch.from_numpy(vm)
     before = dict(qt.LAUNCHES)
     got = qt.fused_context_tower_dual(x, m, wa, wb, 2, tdt, emit_q8=True,

@@ -5,9 +5,10 @@ launch, on the CPU (every kernel wrapper runs its plain version).
 encodes and scores the queries in blocks of RESIDENT_QUERY_BSZ, the last
 trimmed: one `encode_query_best` call (one query-tower launch) and one
 scorer launch per branch for each block, read from the kernels/* spans
-under torch.profiler. Its metric dicts equal `eval_retrieval(query_bsz=50)`
-on the same inputs, and on the plain path the score matrices of the two
-widths are bitwise equal. Imports no JAX.
+under torch.profiler. Its metric dicts equal the resident engine's at
+50 queries a batch (`score_matrices`, then the eval's metric tail) on the
+same inputs, and on the plain path the score matrices of the two widths
+are bitwise equal. Imports no JAX.
 """
 
 import json
@@ -93,18 +94,14 @@ def test_resident_route_scores_in_blocks(tmp_path, monkeypatch,
                      scorer: branches * blocks}
 
     rows.clear()
-    want = evaluate.eval_retrieval(model, videos, queries,
-                                   context_bsz=CONTEXT_BSZ,
-                                   query_bsz=QUERY_BSZ,
-                                   score_quant=score_quant,
-                                   corpus_stream_bsz=0, device=CPU)
+    narrow = evaluate.score_matrices(model, videos, queries, CONTEXT_BSZ,
+                                     QUERY_BSZ, CPU, score_quant=score_quant)
     assert len(rows) == -(-N_Q // QUERY_BSZ)
-    assert got == want
+    assert got == evaluate._metrics_from_score_matrices(
+        *narrow, evaluate._gt_on_device(queries, videos, CPU), (0.7, 0.3))
 
     wide = evaluate.score_matrices(model, videos, queries, CONTEXT_BSZ,
                                    BLOCK, CPU, score_quant=score_quant)
-    narrow = evaluate.score_matrices(model, videos, queries, CONTEXT_BSZ,
-                                     QUERY_BSZ, CPU, score_quant=score_quant)
     assert (wide[1] is None) == (narrow[1] is None) == (not double_branch)
     for w, n in zip(wide, narrow):
         if w is not None:

@@ -1,6 +1,7 @@
 """The port's corpus streaming against the JAX package's: the streaming eval
-(`evaluate.eval_retrieval_streaming`, with and without score_quant), the
-engine policy under a memory budget, and the raw-store serving search
+(`run_retrieval_eval` on its streaming route, and `stream_score_matrices`,
+with and without score_quant), the engine policy under a memory budget and
+the route table (`eval_plan`), and the raw-store serving search
 (`Retriever(index_store='raw')`, its CLI).
 
 The eval fixture is tests/test_streaming_eval.py's (awkward sizes, ragged
@@ -12,8 +13,6 @@ order). The JAX Retriever runs with mesh=None (the suite's conftest makes
 8 CPU devices), and both packages are pinned to one stage-2 engine with
 DLDKD_DENSE_RESCORE.
 """
-
-import dataclasses
 
 import jax
 import numpy as np
@@ -86,6 +85,15 @@ def _assert_metrics(got, want):
             assert got[branch][k] == pytest.approx(v, abs=1e-9), (branch, k)
 
 
+def _run(model, videos, queries, stream, **kw):
+    """run_retrieval_eval on the CPU at query batches of 8 and context
+    batches of 8: stream -1 resident, > 0 streaming with that block."""
+    cfg = EvalConfig(eval_query_bsz=8, eval_context_bsz=8,
+                     corpus_stream_bsz=stream, **kw)
+    return evaluate.run_retrieval_eval(model, videos, queries, cfg,
+                                       device="cpu")
+
+
 @pytest.mark.parametrize("block", [5, 16, 37, 64])
 def test_streaming_matches_jax_and_resident(eval_models, block):
     """Blocks that divide the corpus and blocks that do not, one block and
@@ -94,14 +102,9 @@ def test_streaming_matches_jax_and_resident(eval_models, block):
     jmodel, params, (jv, jq), model, (videos, queries) = eval_models
     want = jax_eval.eval_retrieval_streaming(
         jmodel, params, jv, jq, corpus_block=block, query_bsz=8)
-    got = evaluate.eval_retrieval_streaming(model, videos, queries,
-                                            corpus_block=block, query_bsz=8,
-                                            device="cpu")
+    got = _run(model, videos, queries, block)
     _assert_metrics(got, want)
-    resident = evaluate.eval_retrieval(model, videos, queries,
-                                       context_bsz=8, query_bsz=8,
-                                       corpus_stream_bsz=0, device="cpu")
-    _assert_metrics(got, resident)
+    _assert_metrics(got, _run(model, videos, queries, -1))
 
 
 def test_streaming_quantized_matches_jax_and_resident(eval_models):
@@ -112,13 +115,9 @@ def test_streaming_quantized_matches_jax_and_resident(eval_models):
     want = jax_eval.eval_retrieval_streaming(
         jmodel, params, jv, jq, corpus_block=10, query_bsz=8,
         score_quant=True)
-    got = evaluate.eval_retrieval_streaming(model, videos, queries,
-                                            corpus_block=10, query_bsz=8,
-                                            score_quant=True, device="cpu")
+    got = _run(model, videos, queries, 10, score_quant=True)
     _assert_metrics(got, want)
-    _assert_metrics(got, evaluate.eval_retrieval(
-        model, videos, queries, context_bsz=8, query_bsz=8,
-        score_quant=True, corpus_stream_bsz=0, device="cpu"))
+    _assert_metrics(got, _run(model, videos, queries, -1, score_quant=True))
     s_i, s_e = evaluate.stream_score_matrices(model, videos, queries, 10, 8,
                                               "cpu", score_quant=True)
     r_i, r_e = evaluate.score_matrices(model, videos, queries, 8, 8, "cpu",
@@ -128,9 +127,17 @@ def test_streaming_quantized_matches_jax_and_resident(eval_models):
         torch.testing.assert_close(s_e, r_e[:, :N_VID], atol=0, rtol=0)
 
 
+def _score(queries, score_i, score_e):
+    """Both branches' scores of the pooled `queries` by `block_scorers`'
+    pair."""
+    return score_i(queries[0]), (score_e(queries[1]) if score_e else None)
+
+
 def test_encode_all_queries_and_block_scores_match_jax(eval_models):
     """The streaming engine's parts: every query's pooled vectors, one
-    block's scores (exact and int8)."""
+    block's scores (exact, against the JAX block scorer, and int8: the
+    block scorers take the int8 index `embed_corpus` builds as they take
+    frames)."""
     jmodel, params, (jv, jq), model, (videos, queries) = eval_models
     want = jax_eval.encode_all_queries(jmodel, params, jq, query_bsz=8)
     got = evaluate.encode_all_queries(model, queries, query_bsz=8,
@@ -145,17 +152,17 @@ def test_encode_all_queries_and_block_scores_match_jax(eval_models):
     ci, ce, _ = evaluate.embed_corpus(model, videos, 16, "cpu")
     mask = torch.from_numpy(videos.mask[:16])
     w_i, w_e = jax_eval.score_encoded_block(*want, jci, jce, jv.mask[:16])
-    g_i, g_e = evaluate.score_encoded_block(*got, ci[:16],
-                                            None if ce is None else ce[:16],
-                                            mask)
+    g_i, g_e = _score(got, *evaluate.block_scorers(
+        ci[:16], None if ce is None else ce[:16], mask))
     assert (g_e is None) == (w_e is None)
     for g, w in ((g_i, w_i), (g_e, w_e)):
         if w is not None:
             np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
                                        rtol=0)
-    q8_i, q8_e = evaluate.encode_context_q8(
-        model, torch.from_numpy(videos.feats[:16]), mask)
-    s8_i, s8_e = evaluate.score_q8_block(*got, q8_i, q8_e, mask)
+    q8_i, q8_e, bias = evaluate.embed_corpus(model, videos, 16, "cpu",
+                                             score_quant=True)
+    s8_i, s8_e = _score(got, *evaluate.block_scorers(
+        q8_i[:16], None if q8_e is None else q8_e[:16], bias[:16]))
     assert s8_i.shape == (N_Q, 16) and (s8_e is None) == (ce is None)
 
 
@@ -191,71 +198,61 @@ def test_auto_stream_block_policy(monkeypatch):
     assert evaluate.auto_stream_block(n_vid, n_q, mcfg, device="cpu") == 0
 
 
-def _spy_streaming(monkeypatch):
-    calls = []
-    real = evaluate.eval_retrieval_streaming
+@pytest.mark.parametrize("stream,budget,mesh_size,plan", [
+    (0, 1024, 0, (min(evaluate.DEFAULT_STREAM_BLOCK, N_VID), 64)),
+    (0, 1 << 40, 0, (0, evaluate.RESIDENT_QUERY_BSZ)),
+    (0, None, 0, (0, evaluate.RESIDENT_QUERY_BSZ)),
+    (-1, 1024, 0, (0, evaluate.RESIDENT_QUERY_BSZ)),
+    (9, None, 0, (9, 64)),
+    (0, 1024, 3, (min(evaluate.DEFAULT_STREAM_BLOCK, N_VID), 64)),
+    (-1, None, 2, (0, 64)),
+    (9, None, 2, (9, 64))],
+    ids=["auto_small_budget", "auto_large_budget", "auto_no_budget",
+         "resident", "stream", "mesh_auto_small_budget", "mesh_resident",
+         "mesh_stream"])
+def test_eval_plan_routes(eval_models, monkeypatch, stream, budget,
+                          mesh_size, plan):
+    """The route table, taken once by `eval_plan` as the JAX package's
+    router takes it: corpus_stream_bsz 0 = auto (streams with min(2048, Nv)
+    under a $DLDKD_EVAL_MEM_BUDGET too small for the resident estimate,
+    resident under a large one or none), -1 = resident, 9 = stream with 9;
+    the query block at least RESIDENT_QUERY_BSZ on the resident
+    single-device route and at least 64 on the others. run_retrieval_eval
+    runs the planned engine at the planned blocks, and the metrics are the
+    JAX router's (the resident engine's on a mesh)."""
+    from dldkd_tpu_torch.parallel import eval_shard, make_mesh
 
-    def spy(*a, **k):
-        calls.append((k.get("corpus_block"), k.get("query_bsz")))
-        return real(*a, **k)
-
-    monkeypatch.setattr(evaluate, "eval_retrieval_streaming", spy)
-    return calls
-
-
-def test_eval_retrieval_routes_by_budget(eval_models, monkeypatch):
-    """corpus_stream_bsz=None picks the engine from $DLDKD_EVAL_MEM_BUDGET:
-    a budget too small for the resident estimate streams with
-    min(2048, Nv) and the same metrics; a large one stays resident; 0
-    forces resident, > 0 streams with that block."""
-    _, _, _, model, (videos, queries) = eval_models
-    calls = _spy_streaming(monkeypatch)
-    ref = evaluate.eval_retrieval(model, videos, queries, query_bsz=8,
-                                  corpus_stream_bsz=0, device="cpu")
-    monkeypatch.setenv("DLDKD_EVAL_MEM_BUDGET", str(1024))
-    out = evaluate.eval_retrieval(model, videos, queries, query_bsz=8,
-                                  device="cpu")
-    assert calls == [(min(evaluate.DEFAULT_STREAM_BLOCK, N_VID), 8)]
-    _assert_metrics(out, ref)
-    monkeypatch.setenv("DLDKD_EVAL_MEM_BUDGET", str(1 << 40))
-    evaluate.eval_retrieval(model, videos, queries, query_bsz=8,
-                            device="cpu")
-    monkeypatch.setenv("DLDKD_EVAL_MEM_BUDGET", str(1024))
-    evaluate.eval_retrieval(model, videos, queries, query_bsz=8,
-                            corpus_stream_bsz=0, device="cpu")
-    assert len(calls) == 1
-    out = evaluate.eval_retrieval(model, videos, queries, query_bsz=8,
-                                  corpus_stream_bsz=9, device="cpu")
-    assert calls[-1] == (9, 8)
-    _assert_metrics(out, ref)
-
-
-def test_run_retrieval_eval_router(eval_models, monkeypatch):
-    """The CLIs' entry point, routed as the JAX package's routes it: 0 = auto
-    (streams under a small budget, with query batches of at least 64),
-    -1 = resident, 9 = stream with 9; the JAX router's metrics."""
     jmodel, params, (jv, jq), model, (videos, queries) = eval_models
-    calls = _spy_streaming(monkeypatch)
-    cfg = EvalConfig(eval_query_bsz=8, eval_context_bsz=8)
-    jcfg = JaxEvalConfig(eval_query_bsz=8, eval_context_bsz=8)
-    monkeypatch.setenv("DLDKD_EVAL_MEM_BUDGET", str(1024))
-    out = evaluate.run_retrieval_eval(model, videos, queries, cfg,
+    if budget is None:
+        monkeypatch.delenv("DLDKD_EVAL_MEM_BUDGET", raising=False)
+    else:
+        monkeypatch.setenv("DLDKD_EVAL_MEM_BUDGET", str(budget))
+    cfg = EvalConfig(eval_query_bsz=8, eval_context_bsz=8,
+                     corpus_stream_bsz=stream)
+    assert evaluate.eval_plan(N_VID, N_Q, model.config, cfg, mesh_size,
+                              evaluate.device_memory_budget("cpu")) == plan
+
+    calls = []
+    for mod, name, blocks in (
+            (evaluate, "score_matrices", lambda a: (0, a[4])),
+            (evaluate, "stream_score_matrices", lambda a: a[3:5]),
+            (eval_shard, "sharded_score_matrices", lambda a: (a[6], a[4]))):
+        def spy(*a, _real=getattr(mod, name), _blocks=blocks, **k):
+            calls.append(tuple(_blocks(a)))
+            return _real(*a, **k)
+        monkeypatch.setattr(mod, name, spy)
+    mesh = make_mesh(devices=["cpu"] * mesh_size) if mesh_size else None
+    out = evaluate.run_retrieval_eval(model, videos, queries, cfg, mesh=mesh,
                                       device="cpu")
-    assert calls == [(min(evaluate.DEFAULT_STREAM_BLOCK, N_VID), 64)]
-    _assert_metrics(out, jax_eval.run_retrieval_eval(jmodel, params, jv, jq,
-                                                     jcfg))
-    evaluate.run_retrieval_eval(model, videos, queries,
-                                dataclasses.replace(cfg,
-                                                    corpus_stream_bsz=-1),
-                                device="cpu")
-    assert len(calls) == 1
-    out = evaluate.run_retrieval_eval(
-        model, videos, queries, dataclasses.replace(cfg, corpus_stream_bsz=9),
-        device="cpu")
-    assert calls[-1] == (9, 64)
-    _assert_metrics(out, jax_eval.run_retrieval_eval(
-        jmodel, params, jv, jq, dataclasses.replace(jcfg,
-                                                    corpus_stream_bsz=9)))
+    assert calls == [plan]
+    if mesh is None:
+        jcfg = JaxEvalConfig(eval_query_bsz=8, eval_context_bsz=8,
+                             corpus_stream_bsz=stream)
+        want = jax_eval.run_retrieval_eval(jmodel, params, jv, jq, jcfg)
+    else:
+        monkeypatch.undo()
+        want = _run(model, videos, queries, -1)
+    _assert_metrics(out, want)
 
 
 def test_sequences_per_launch_keeps_int32_and_grids():

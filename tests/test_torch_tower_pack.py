@@ -133,10 +133,12 @@ def test_eval_packs_once_per_tower_kind(score_quant):
     model = _model("bfloat16")
     videos, queries = _corpus()
     _reset_packs()
-    out = evaluate.eval_retrieval(model, videos, queries, context_bsz=4,
-                                  query_bsz=5, score_quant=score_quant,
-                                  device="cpu")
+    scores = evaluate.score_matrices(model, videos, queries, context_bsz=4,
+                                     query_bsz=5, device="cpu",
+                                     score_quant=score_quant)
     assert qt.PACKS == {"query": 1, "context": 1}
+    out = evaluate._metrics_from_score_matrices(
+        *scores, evaluate._gt_on_device(queries, videos, "cpu"), (0.7, 0.3))
     assert all(np.isfinite(v) for m in out.values() for v in m.values())
 
 

@@ -159,8 +159,9 @@ def test_fast_towers_match_jax_fast(variant):
 
 def test_weight_tuples_match_jax():
     jmodel, params, model = _models("double")
-    for ours, theirs in ((qt.weights_for_branch, jax_qt.weights_for_branch),
-                         (qt.context_weights_for_branch,
+    for ours, theirs in ((fast_eval.weights_for_branch,
+                          jax_qt.weights_for_branch),
+                         (fast_eval.context_weights_for_branch,
                           jax_qt.context_weights_for_branch)):
         for branch in ("inheritance", "exploration"):
             got = ours(model, branch, torch.float32)
