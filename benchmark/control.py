@@ -9,6 +9,8 @@ the same comparison as the program's.
 
     python3 benchmark/control.py --workload activitynet.eval \
         --program-seeds 11,12,13 --control-seeds 21,22,23 --seconds 3
+    python3 benchmark/control.py --workload activitynet.search \
+        --program-seeds 31,32,33 --fault alter_search_scores --seconds 3
 
 Prints one JSON line per seed: {"side", "seed", "checks"}. With
 `--fault NAME` the program's seeds run with that fault (`faults.py`)
@@ -67,7 +69,33 @@ def train_control(cell: harness.Cell, seed: int, device) -> dict:
     return train_ref.compare_train(low, exact)
 
 
-CONTROLS = {"eval": eval_control, "train": train_control}
+def search_control(cell: harness.Cell, seed: int, device) -> dict:
+    """The reference's top k in TF32 in the program's place, for a single
+    query and one full batch of the pool drawn from the seed."""
+    import numpy as np
+
+    from benchmark.loops import search
+    from benchmark.reference import search_ref
+
+    cfg, mix = cell.config, cell.mix
+    data = inputs.eval_inputs(cfg, mix, seed, device)
+    base = inputs.weights(cfg, seed, device)
+    nq, bsz = cfg["n_queries"], int(mix["query_bsz"])
+    draw = search.stream(seed, search.WARM)
+    row, start = int(draw.integers(nq)), int(draw.integers(nq))
+    rows = np.concatenate([[row], np.arange(start, start + bsz) % nq])
+    k = search.top_k_of(cell)
+    exact = search_ref.fused_scores(base, cfg, data, rows, device)
+    low = search_ref.fused_scores(base, cfg, data, rows, device,
+                                  exact=False)
+    vals, ids = search_ref.top_k(low, k)
+    return search_ref.compare_search(vals.cpu().numpy(), ids.cpu().numpy(),
+                                     exact, k,
+                                     cell.params["limits"]["scores_abs_err"])
+
+
+CONTROLS = {"eval": eval_control, "train": train_control,
+            "search": search_control}
 
 
 def main(argv=None) -> int:

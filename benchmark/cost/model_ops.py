@@ -75,6 +75,27 @@ def eval_work(cfg: dict) -> Dict[str, float]:
     return {"flops": float(flops), "bytes": float(bytes_)}
 
 
+def search_work(cfg: dict, n_queries: int, k: int) -> Dict[str, float]:
+    """One `Retriever.search` call that carried n_queries real queries at
+    top k, counted from the harness's own numbers, not from what the
+    program does inside the call (padding to its batch size, the number
+    of launches). Operations: both branches' query towers over the real
+    queries, and their cosines against every frame of every video.
+    Bytes: the encoded index read once (every video's frames of both
+    branches, f32, and their mask), the real queries' tokens and masks
+    read once, the k ids and scores of each query written once."""
+    nv, l, lq = cfg["n_videos"], cfg["max_ctx_l"], cfg["max_desc_l"]
+    h = cfg["inheritance_hidden"]
+    nb = n_branches(cfg)
+    flops = nb * (n_queries * query_tower_flops(lq, cfg["query_input_size"],
+                                                h)
+                  + score_flops(n_queries, nv, l, h))
+    bytes_ = (F32 * (nb * nv * l * h + nv * l
+                     + n_queries * lq * (cfg["query_input_size"] + 1))
+              + n_queries * k * (F32 + 8))
+    return {"flops": float(flops), "bytes": float(bytes_)}
+
+
 def train_step_flops(cfg: dict) -> float:
     """One training step: three times the student's forward (the
     backward is two forwards' products) over the batch's videos and its

@@ -60,5 +60,24 @@ def half_batch() -> Callable[[], None]:
     return _swap(train, "compute_losses", half)
 
 
+def alter_search_scores() -> Callable[[], None]:
+    """One answer altered where it is produced: the first returned score
+    of each `Retriever.search` moved by 1e-3."""
+    import numpy as np
+
+    from dldkd_tpu_torch import serving
+
+    plain = serving.Retriever.search
+
+    def altered(self, *args, **kwargs):
+        scores, ids = plain(self, *args, **kwargs)
+        scores = np.array(scores)
+        scores[0, 0] += 1e-3
+        return scores, ids
+
+    return _swap(serving.Retriever, "search", altered)
+
+
 FAULTS = {"alter_scores": alter_scores, "unchanged_state": unchanged_state,
-          "half_batch": half_batch}
+          "half_batch": half_batch,
+          "alter_search_scores": alter_search_scores}
