@@ -67,6 +67,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import math
 import os
 import shutil
 import sys
@@ -100,6 +101,7 @@ from dldkd_tpu_torch.parallel.multihost import (collective_device,
                                                 maybe_initialize_distributed,
                                                 process_device)
 from dldkd_tpu_torch.utils import index_io
+from dldkd_tpu_torch.utils.tracing import count, span, traced
 
 SHORTLIST_FACTOR = 4  # default stage-1 candidates per result (k' = 4k)
 # search keeps at most this many batches' results un-fetched: the oldest is
@@ -107,6 +109,7 @@ SHORTLIST_FACTOR = 4  # default stage-1 candidates per result (k' = 4k)
 _SEARCH_INFLIGHT_BATCHES = 8
 
 
+@traced("serve/topk")
 def topk_lowest_index(scores: torch.Tensor, k: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, indices) of the k largest scores per row, ties broken by
@@ -250,6 +253,39 @@ def _search(model, weights, q_feats, q_mask, cn_inher, cn_explore, k, vmask,
                                            plain)
     return _exact_topk(inher_q, explore_q, cn_inher, cn_explore, vmask,
                        fusion, k, plain)
+
+
+class _StagingSlot:
+    """One host slot of serving's query staging: a flat f32 buffer each
+    for a batch's features and mask (pinned for a CUDA device), viewed at
+    each batch's shape and regrown only for a larger one, and the event of
+    the last copy queued out of them."""
+
+    def __init__(self, pin: bool):
+        self.pin = pin
+        self.bufs = [None, None]
+        self.copied = None
+
+    def fill(self, arrays, bsz: int) -> list:
+        """The rows of each host array copied into the slot, once its last
+        copy out has run; the views that hold them. A buffer holds bsz
+        rows of its array's shape."""
+        if self.copied is not None:
+            self.copied.synchronize()
+        for i, src in enumerate(arrays):
+            need = bsz * math.prod(src.shape[1:])
+            if self.bufs[i] is None or self.bufs[i].numel() < need:
+                self.bufs[i] = torch.empty(need, pin_memory=self.pin)
+        return [buf[:src.numel()].view(src.shape).copy_(src)
+                for buf, src in zip(self.bufs, arrays)]
+
+    def record(self, device: torch.device) -> None:
+        """Mark the copies just queued out of the slot on the device's
+        current stream (nothing to wait for off CUDA)."""
+        if device.type == "cuda":
+            if self.copied is None:
+                self.copied = torch.cuda.Event()
+            self.copied.record(torch.cuda.current_stream(device))
 
 
 class _Shard:
@@ -463,6 +499,8 @@ class Retriever:
                 else [process_device(d) for d in mesh.devices])}
         self.weights = self.device_weights[dev]
         self.query_bsz = int(query_bsz)
+        # the query batches' host slots, filled by _query_batches
+        self._slots = [_StagingSlot(dev.type == "cuda") for _ in range(2)]
         self.score_quant = bool(score_quant)
         self.rescore = bool(rescore)
         self.shortlist_factor = int(shortlist_factor)
@@ -988,20 +1026,34 @@ class Retriever:
                 torch.empty((nq, 0), dtype=torch.long, device=self.device))
 
     def _query_batches(self, q_feats: np.ndarray, q_mask: np.ndarray):
-        """The queries in serving batches on the device, each padded to
-        query_bsz rows."""
-        bsz = self.query_bsz
-        for start in range(0, q_feats.shape[0], bsz):
-            f = np.asarray(q_feats[start:start + bsz], np.float32)
-            m = np.asarray(q_mask[start:start + bsz], np.float32)
-            pad = bsz - f.shape[0]
-            if pad:
-                f = np.concatenate([f, np.zeros((pad,) + f.shape[1:],
-                                                f.dtype)])
-                m = np.concatenate([m, np.zeros((pad,) + m.shape[1:],
-                                                m.dtype)])
-            yield (torch.from_numpy(f).to(self.device),
-                   torch.from_numpy(m).to(self.device))
+        """The queries in serving batches of query_bsz f32 rows on the
+        device. Each batch's real rows go through a host slot (the two
+        alternate; a slot is refilled once its last copy has run) and one
+        non-blocking copy; its padding rows are zeroed on the device. The
+        copy and the zeroing are queued on the stream the kernels run on,
+        so the allocator hands out no memory that queued kernels still
+        read."""
+        bsz, dev = self.query_bsz, self.device
+        # views of the caller's arrays: each batch's rows are copied once,
+        # into a slot
+        feats, mask = torch.as_tensor(q_feats), torch.as_tensor(q_mask)
+        for b, start in enumerate(range(0, feats.shape[0], bsz)):
+            with span("serve/h2d"):
+                slot = self._slots[b % 2]
+                rows = slot.fill((feats[start:start + bsz],
+                                  mask[start:start + bsz]), bsz)
+                out = []
+                for host in rows:
+                    t = torch.empty((bsz,) + tuple(host.shape[1:]),
+                                    device=dev)
+                    t[:host.shape[0]].copy_(host, non_blocking=True)
+                    t[host.shape[0]:].zero_()
+                    out.append(t)
+                slot.record(dev)
+                count("serve.h2d_bytes",
+                      sum(h.numel() * h.element_size() for h in rows))
+                count("serve.padded_rows", bsz - rows[0].shape[0])
+            yield out[0], out[1]
 
     def _search_streaming(self, q_feats: np.ndarray, q_mask: np.ndarray,
                           k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -1081,8 +1133,9 @@ class Retriever:
         k = min(k, len(self.video_ids))
         n = q_feats.shape[0]
         if self.index_store == "raw":
-            scores, idx = (t.cpu() for t in self._search_streaming(
-                q_feats, q_mask, k))
+            found = self._search_streaming(q_feats, q_mask, k)
+            with span("serve/d2h"):
+                scores, idx = (t.cpu() for t in found)
         else:
             out: list = []
             for f, m in self._query_batches(q_feats, q_mask):
@@ -1092,10 +1145,12 @@ class Retriever:
                 # device
                 if len(out) >= _SEARCH_INFLIGHT_BATCHES:
                     w = len(out) - _SEARCH_INFLIGHT_BATCHES
-                    out[w] = tuple(t.cpu() for t in out[w])
+                    with span("serve/d2h"):
+                        out[w] = tuple(t.cpu() for t in out[w])
                 out.append(self._search_batch(f, m, k))
-            scores = torch.cat([s.cpu() for s, _ in out])
-            idx = torch.cat([i.cpu() for _, i in out])
+            with span("serve/d2h"):
+                scores = torch.cat([s.cpu() for s, _ in out])
+                idx = torch.cat([i.cpu() for _, i in out])
         if self.mesh is not None and self.mesh.group is not None:
             scores, idx = _merge_ranks(scores, idx, k, self.mesh.group)
         return scores.numpy()[:n], idx.numpy()[:n]

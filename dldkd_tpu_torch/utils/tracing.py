@@ -12,6 +12,11 @@ wraps a whole function in one. Names are `<layer>/<part>`:
   eval/h2d, eval/stage          the eval engine (evaluate.py,
                                 ops/fast_eval.tower_weights); eval/stage
                                 on the staging worker thread
+  serve/h2d, serve/topk, serve/d2h
+                                serving (serving.py): each query batch's
+                                staging (slot wait, fill, queued copy and
+                                zeroing), each topk_lowest_index, the
+                                results' copies to the host
   kernels/query_tower, kernels/context_tower, kernels/sim_max,
   kernels/sim_max_int8, kernels/sim_max_exact, kernels/quantize_q8
                                 one call into a hand-written kernel's
@@ -23,7 +28,9 @@ wraps a whole function in one. Names are `<layer>/<part>`:
 records, so `counts()` holds the totals of the profiled stretch:
 eval.h2d_bytes, the bytes the eval engines hand to the device (padded
 rows included), and eval.h2d_pinned_bytes, those of them staged through a
-pinned slot (on a CUDA device only). `start_profile` sets the totals to
+pinned slot (on a CUDA device only); serve.h2d_bytes, the bytes of the
+query rows serving hands to the device, and serve.padded_rows, the
+padding rows it zeroes there. `start_profile` sets the totals to
 zero and profiles every thread, the staging worker's too; `stop_profile`
 writes the chrome trace as trace.json and the totals as counts.json.
 """

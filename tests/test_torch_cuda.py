@@ -746,6 +746,58 @@ def test_retriever_on_card_matches_plain(dev, kw, monkeypatch):
     np.testing.assert_allclose(out[0][0], out[1][0], atol=1e-4, rtol=0)
 
 
+def _host_padded_batches(self, q_feats, q_mask):
+    """Serving's staging before its pinned slots: each batch zero-padded
+    on the host by np.concatenate, then a pageable copy to the card."""
+    bsz = self.query_bsz
+    for start in range(0, q_feats.shape[0], bsz):
+        f = np.asarray(q_feats[start:start + bsz], np.float32)
+        m = np.asarray(q_mask[start:start + bsz], np.float32)
+        pad = bsz - f.shape[0]
+        if pad:
+            f = np.concatenate([f, np.zeros((pad,) + f.shape[1:], f.dtype)])
+            m = np.concatenate([m, np.zeros((pad,) + m.shape[1:], m.dtype)])
+        yield (torch.from_numpy(f).to(self.device),
+               torch.from_numpy(m).to(self.device))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(score_quant=True), dict(index_store="raw", stream_block=16)],
+    ids=["exact", "two_stage", "raw_exact"])
+def test_staged_search_past_the_inflight_batches_is_bitwise(dev, kw,
+                                                           monkeypatch):
+    """A search of more than _SEARCH_INFLIGHT_BATCHES x query_bsz ragged
+    queries on the card, its batches staged through the two pinned slots
+    while earlier batches' kernels are still queued: scores and ids
+    bitwise those of the host-padded pageable batches; then a search of 3
+    queries (a batch of 13 zeroed rows) likewise."""
+    monkeypatch.setenv("DLDKD_DENSE_RESCORE", "always")
+    cfg = ModelConfig(visual_input_size=48, query_input_size=32,
+                      inheritance_hidden=64, exploration_hidden=64,
+                      max_ctx_l=16, max_desc_l=8, n_heads=4,
+                      double_branch=True)
+    model = DLDKD(cfg).init_weights(torch.Generator().manual_seed(27))
+    rng = np.random.RandomState(28)
+    videos = PackedVideos(feats=rng.randn(40, 16, 48).astype(np.float32),
+                          mask=np.ones((40, 16), np.float32),
+                          ids=[f"v{i}" for i in range(40)])
+    n = serving._SEARCH_INFLIGHT_BATCHES * 16 + 37
+    qf = rng.randn(n, 8, 32).astype(np.float32)
+    qm = (np.arange(8)[None] < rng.randint(1, 9, n)[:, None]
+          ).astype(np.float32)
+    r = serving.Retriever(model, query_bsz=16, device="cuda", **kw)
+    r.index(videos, context_bsz=16)
+    for f, m in ((qf, qm), (qf[-3:], qm[-3:])):
+        got = r.search(f, m, k=7)
+        with monkeypatch.context() as mp:
+            mp.setattr(serving.Retriever, "_query_batches",
+                       _host_padded_batches)
+            want = r.search(f, m, k=7)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+    assert all(b.is_pinned() for s in r._slots for b in s.bufs)
+
+
 # ------------------------------------------------------------ training
 
 _TRAIN_CFG = dict(visual_input_size=48, query_input_size=32,

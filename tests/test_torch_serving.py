@@ -294,3 +294,136 @@ def test_serving_cli_matches_jax(tmp_path, monkeypatch, route):
         np.testing.assert_allclose([s for _, s in g["topk"]],
                                    [s for _, s in w["topk"]],
                                    atol=SCORE_TOL, rtol=0)
+
+
+# ------------------------------------------------------- query staging
+
+def _host_padded_batches(self, q_feats, q_mask):
+    """The staging that the host slots replaced, kept as the reference:
+    each batch zero-padded to query_bsz rows by np.concatenate on the
+    host, then copied to the device."""
+    bsz = self.query_bsz
+    for start in range(0, q_feats.shape[0], bsz):
+        f = np.asarray(q_feats[start:start + bsz], np.float32)
+        m = np.asarray(q_mask[start:start + bsz], np.float32)
+        pad = bsz - f.shape[0]
+        if pad:
+            f = np.concatenate([f, np.zeros((pad,) + f.shape[1:], f.dtype)])
+            m = np.concatenate([m, np.zeros((pad,) + m.shape[1:], m.dtype)])
+        yield (torch.from_numpy(f).to(self.device),
+               torch.from_numpy(m).to(self.device))
+
+
+STORES = {"encoded": dict(), "q8": dict(score_quant=True),
+          "raw": dict(index_store="raw", stream_block=24)}
+
+
+@pytest.fixture(scope="module")
+def staged(clustered):
+    """One retriever a store at serving's batch of 256, and 600 ragged
+    queries."""
+    rng = np.random.RandomState(11)
+    qf = rng.randn(600, 4, DQ).astype(np.float32)
+    qm = (np.arange(4)[None] < rng.randint(1, 5, 600)[:, None]
+          ).astype(np.float32)
+    return {name: _port(clustered, query_bsz=256, **kw)
+            for name, kw in STORES.items()}, qf, qm
+
+
+def _host_padded_search(r, qf, qm, k=K):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(serving.Retriever, "_query_batches",
+                   _host_padded_batches)
+        return r.search(qf, qm, k)
+
+
+def _assert_bitwise(got, want):
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("n", [1, 100, 255, 256, 257, 600])
+@pytest.mark.parametrize("store", list(STORES))
+def test_staged_batches_match_host_padding(staged, store, n):
+    """Batches staged through the host slots and padded on the device
+    give the host-padded batches' scores and ids bitwise, on every store,
+    for a batch of one real row, partial and full batches and several
+    batches a search."""
+    retrievers, qf, qm = staged
+    r = retrievers[store]
+    got = r.search(qf[:n], qm[:n], k=K)
+    assert got[1].shape == (n, K)
+    _assert_bitwise(got, _host_padded_search(r, qf[:n], qm[:n]))
+
+
+def test_no_stale_rows_after_a_larger_search(clustered, staged,
+                                             monkeypatch):
+    """A search of 600 queries (three batches, both slots) then one of 3:
+    the second's device batch holds its 3 rows and zeros, nothing of the
+    first, and its results are a fresh retriever's."""
+    retrievers, qf, qm = staged
+    r = retrievers["encoded"]
+    r.search(qf, qm, k=K)
+    seen = []
+    real = serving.Retriever._search_batch
+
+    def spy(self, f, m, k):
+        seen.append((f.clone(), m.clone()))
+        return real(self, f, m, k)
+
+    monkeypatch.setattr(serving.Retriever, "_search_batch", spy)
+    got = r.search(qf[-3:], qm[-3:], k=K)
+    (f, m), = seen
+    assert f.shape == (256, 4, DQ) and m.shape == (256, 4)
+    assert torch.equal(f[:3], torch.from_numpy(qf[-3:]))
+    assert torch.equal(m[:3], torch.from_numpy(qm[-3:]))
+    assert not f[3:].any() and not m[3:].any()
+    monkeypatch.setattr(serving.Retriever, "_search_batch", real)
+    fresh = _port(clustered, query_bsz=256)
+    _assert_bitwise(got, fresh.search(qf[-3:], qm[-3:], k=K))
+
+
+def test_query_length_changes_across_searches(staged):
+    """Searches of 2, then 4 (the slots regrow), then 3 tokens: each the
+    host-padded batches' results."""
+    retrievers, qf, qm = staged
+    r = retrievers["encoded"]
+    for lq in (2, 4, 3):
+        f = np.ascontiguousarray(qf[:300, :lq])
+        m = np.ascontiguousarray(qm[:300, :lq])
+        m[:, 0] = 1.0
+        _assert_bitwise(r.search(f, m, k=K), _host_padded_search(r, f, m))
+
+
+def test_callers_array_changed_in_place_gives_the_new_answer(staged):
+    """The slots are the server's buffers, not a cache: a search after
+    the caller rewrote its array in place answers the new queries."""
+    retrievers, qf, qm = staged
+    r = retrievers["encoded"]
+    f, m = qf[:40].copy(), qm[:40].copy()
+    before = r.search(f, m, k=K)
+    f[:] = qf[100:140]
+    m[:] = qm[100:140]
+    after = r.search(f, m, k=K)
+    _assert_bitwise(after, r.search(qf[100:140], qm[100:140], k=K))
+    assert (after[1] != before[1]).any()
+
+
+def test_serving_spans_and_counters_under_a_profiler(staged, tmp_path):
+    """Under a profiler a search of 600 queries records one serve/h2d
+    span a batch, serve/topk and serve/d2h spans, the real rows' bytes
+    handed over and the padding rows zeroed; with no profiler, nothing."""
+    from dldkd_tpu_torch.utils import tracing
+
+    retrievers, qf, qm = staged
+    r = retrievers["encoded"]
+    prof = tracing.start_profile(torch.device("cpu"))
+    r.search(qf, qm, k=K)
+    path = tracing.stop_profile(prof, str(tmp_path))
+    names = [e.get("name") for e in json.load(open(path))["traceEvents"]]
+    assert names.count("serve/h2d") == 3
+    assert names.count("serve/topk") >= 3 and names.count("serve/d2h") >= 1
+    assert tracing.counts() == {"serve.h2d_bytes": 600 * (4 * DQ + 4) * 4,
+                                "serve.padded_rows": 3 * 256 - 600}
+    r.search(qf, qm, k=K)
+    assert tracing.counts()["serve.padded_rows"] == 3 * 256 - 600
